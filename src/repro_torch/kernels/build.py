@@ -16,7 +16,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -41,32 +41,50 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu`` (built if missing)."""
+def build(*names: str) -> List[ctypes.CDLL]:
+    """The loaded libraries built from ``csrc/<name>.cu``.  The missing
+    ones are compiled by one ``nvcc`` each, all started together; a
+    failed build raises with nvcc's report."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()
-                                + " ".join(FLAGS).encode()).hexdigest()[:16]
-        out = BUILD_DIR / f"{name}-{digest}.so"
-        log = out.with_suffix(".log")
-        seconds = 0.0
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        todo = [n for n in dict.fromkeys(names) if n not in _libs]
+        jobs = []
+        for name in todo:
+            src = CSRC / f"{name}.cu"
+            digest = hashlib.sha256(src.read_bytes()
+                                    + " ".join(FLAGS).encode()).hexdigest()
+            out = BUILD_DIR / f"{name}-{digest[:16]}.so"
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            res = subprocess.run([_nvcc(), *FLAGS, "-o", str(tmp), str(src)],
-                                 capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src.name} "
-                                   f"(exit {res.returncode}):\n{res.stderr}")
-            log.write_text(res.stderr)
-            os.replace(tmp, out)        # atomic: concurrent builders agree
-        build_info[name] = {"seconds": seconds,
-                            "ptxas": log.read_text() if log.exists() else ""}
-        lib = ctypes.CDLL(str(out))
-        _libs[name] = lib
-        return lib
+            proc = None
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                proc = subprocess.Popen(
+                    [_nvcc(), *FLAGS, "-o", str(tmp), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+            jobs.append((name, src, out, tmp, proc, time.perf_counter()))
+        errors = []
+        for name, src, out, tmp, proc, t0 in jobs:
+            log = out.with_suffix(".log")
+            seconds = 0.0
+            if proc is not None:
+                _, err = proc.communicate()
+                seconds = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    errors.append(f"nvcc failed on {src.name} "
+                                  f"(exit {proc.returncode}):\n{err}")
+                    continue
+                log.write_text(err)
+                os.replace(tmp, out)    # atomic: concurrent builders agree
+            build_info[name] = {"seconds": seconds,
+                                "ptxas": log.read_text() if log.exists()
+                                else ""}
+            _libs[name] = ctypes.CDLL(str(out))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        return [_libs[n] for n in names]
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu`` (built if
+    missing)."""
+    return build(name)[0]

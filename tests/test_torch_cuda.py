@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
+from repro_torch.kernels.matmul import matmul, matmul_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -60,3 +61,61 @@ def test_flash_kernel_reads_strided_inputs(cuda):
                                rtol=2e-4, atol=2e-4)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+
+
+def k1_tolerance(a, b, c, want, epilogue, alpha, beta):
+    """K1 vs its plain version, element by element (as in chip_smoke.py):
+    both sum the same f32 products in another order, so they differ by
+    rounding noise that grows with sqrt(K) times the size of the terms
+    summed, M = |alpha| (|A| @ |B|) + |beta| |C|: 4 sqrt(K) 2^-24 M.  bf16
+    outputs are rounded from f32 on both sides and may land one ulp
+    (<= 2^-7 |want|) apart: two ulps are allowed."""
+    M = a.float().abs() @ b.float().abs()
+    if epilogue == "alpha_beta":
+        M = abs(alpha) * M + abs(beta) * c.float().abs()
+    tol = 4 * a.shape[1] ** 0.5 * 2.0 ** -24 * M + 1e-6
+    if a.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -6 * want.abs()
+    return tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,bm,bn,bk,ep,view,a_scale", [
+    (64, 32, 48, 32, 32, 32, "none", "", 1),      # test_kernels.py shapes
+    (128, 128, 128, 32, 32, 32, "alpha_beta", "", 1),
+    (96, 64, 32, 32, 32, 32, "relu", "", 1),
+    (384, 384, 384, 256, 256, 256, "alpha_beta", "", 1),  # fitted to 192
+    (512, 512, 512, 8, 16, 8, "alpha_beta", "", 1),   # repaired-size tiles
+    (256, 256, 256, 128, 256, 64, "alpha_beta", "b.T", 1),  # syrk's A.T
+    (256, 128, 256, 64, 64, 128, "none", "a.T", 1),
+    # 2mm's second product: A = 1.5 (A0 @ B0), entries ~40, outputs ~1e3
+    (768, 768, 768, 128, 128, 128, "alpha_beta", "", 40),
+])
+def test_matmul_kernel_matches_plain_version(cuda, dtype, M, K, N, bm, bn,
+                                             bk, ep, view, a_scale):
+    g = torch.Generator(device=cuda).manual_seed(M + K)
+    a = (a_scale * torch.randn(M, K, device=cuda, generator=g)).to(dtype)
+    b = torch.randn(K, N, device=cuda, generator=g).to(dtype)
+    c = torch.randn(M, N, device=cuda, generator=g)
+    if view == "b.T":
+        b = b.T.contiguous().T
+    elif view == "a.T":
+        a = a.T.contiguous().T
+    kw = dict(block_m=bm, block_n=bn, block_k=bk, epilogue=ep, alpha=1.5,
+              beta=1.2)
+    before = matmul.launches
+    got = matmul(a, b, c, **kw)
+    torch.cuda.synchronize()
+    assert matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (M, N)
+    want = matmul_ref(a, b, c, epilogue=ep, alpha=1.5, beta=1.2).float()
+    tol = k1_tolerance(a, b, c, want, ep, 1.5, 1.2)
+    assert bool(((got.float() - want).abs() <= tol).all())
+
+
+def test_matmul_kernel_refuses_an_oversized_tile(cuda):
+    a = torch.zeros(512, 512, device=cuda)
+    before = matmul.launches
+    with pytest.raises(RuntimeError, match="shared memory"):
+        matmul(a, a, block_m=256, block_n=256, block_k=256)
+    assert matmul.launches == before

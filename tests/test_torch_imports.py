@@ -14,8 +14,10 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import H100ModelPlatform, fe, get_case
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.matmul import matmul
 from repro_torch.models import get_model
 from repro_torch.models.lm import LM
 from repro_torch.serve import BatchedServer, generate
@@ -45,8 +47,17 @@ def test_guard_sees_every_port_module():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("chip_smoke.py", "src/repro_torch/serve/decode.py",
                  "src/repro_torch/kernels/flash_attention.py",
-                 "src/repro_torch/models/lm.py"):
+                 "src/repro_torch/models/lm.py",
+                 "src/repro_torch/kernels/matmul.py",
+                 "src/repro_torch/kernels/suites/polybench.py",
+                 "src/repro_torch/kernels/suites/hpc.py",
+                 "src/repro_torch/hw.py"):
         assert must in names
+    for mod in ("kernelcase", "datagen", "fe", "measure", "evalcache",
+                "profiler", "mep", "aer", "diagnosis", "patterns",
+                "proposer", "optimizer", "workers", "campaign",
+                "integrate"):
+        assert f"src/repro_torch/core/{mod}.py" in names
 
 
 CFG = dataclasses.replace(get_config("glm4-9b").reduced(),
@@ -71,6 +82,12 @@ ENTRY_POINTS = {
     "flash_attention": lambda **kw: flash_attention(
         torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 1, 16),
         torch.zeros(1, 8, 1, 16), **kw),
+    "matmul": lambda **kw: matmul(torch.zeros(8, 16), torch.zeros(16, 8),
+                                  **kw),
+    "H100ModelPlatform": lambda **kw: H100ModelPlatform(**kw),
+    "fe.check": lambda **kw: fe.check(
+        get_case("gemm"), get_case("gemm").baseline_variant, 16,
+        n_input_sets=1, **kw),
 }
 
 
@@ -91,6 +108,8 @@ def test_a_cuda_request_never_runs_cpu_data(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="lies on cpu"):
         ENTRY_POINTS["flash_attention"](device="cuda")
+    with pytest.raises(ValueError, match="lies on cpu"):
+        ENTRY_POINTS["matmul"](device="cuda")
     with pytest.raises(ValueError, match="model lives on cpu"):
         ENTRY_POINTS["BatchedServer"](device="cuda")
     with pytest.raises(ValueError, match="model lives on cpu"):

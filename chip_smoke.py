@@ -5,10 +5,10 @@
 
 Phases, each fatal on failure (exit 1, no result line):
 
-1. Device: the card's name and power limit; both CUDA kernels (K2 flash
-   attention and K1 tiled GEMM) are built from the sources in the checkout
-   (nvcc, sm_90a, one nvcc per source, started together) and the build
-   times shown.  A failed build is fatal.
+1. Device: the card's name and power limit; the four CUDA kernels (K2
+   flash attention, K1 tiled GEMM, K6 WKV6, K7 Mamba-2 SSD) are built from
+   the sources in the checkout (nvcc, sm_90a, one nvcc per source, started
+   together) and the build times shown.  A failed build is fatal.
 2. Kernel vs plain: the flash-attention kernel against its plain PyTorch
    version at the serving shapes (B 1 and 4; S 8, 64, 96, 256; H 32, KV 2,
    hd 128; bf16 and f32; causal), with CUDA-event times of the kernel, the
@@ -41,7 +41,39 @@ Phases, each fatal on failure (exit 1, no result line):
    build (K2) at the ``attention`` site, in float32, the dtype the case is
    optimized in.  Prints the speedup and ``fe_ok`` (must be true); K2 is
    held against its plain version at every shape this phase gave it.
-   Then the ``kernels`` JSON line (K1 and K2) and the result line.
+8. K6 and K7 against their plain versions (outputs and final states) at
+   the serving shapes (B 1 and 4; S 8, 64, 128, 256; K6 H 64, K = V 64; K7
+   H 50, P 64, N 16), every chunk of the ``rwkv_wkv``/``mamba_ssd``
+   variant spaces, bf16 (f32 lw/dt) and f32, with CUDA-event times of the
+   kernel and the plain version beside the bound (no PyTorch call computes
+   either function: no library yardstick).
+9. Serve rwkv6-7b at full width and depth (32 layers, bf16, 14.0 GiB,
+   random weights from a seeded generator) with K6 at ``rwkv_wkv``: a
+   BatchedServer (4 slots, exact-length packing) answers 8 requests of 16
+   new tokens, prompts of 8–128 tokens and one of 256, through the same
+   serving phase as glm4-9b.  Checks every request's token count, K6 at
+   every layer of every prefill, and, in float32 on the served weights, the
+   last-token prefill logits and final ``wkv`` state through K6 against its
+   plain version (RECURRENT_F32_RTOL, with a control on bf16 operands that
+   must read above it) and the served requests against generate() (a
+   request may differ only from a near-tie on); prints the bf16 figures,
+   tokens/s, peak memory and where one decode step and one 2x256 prefill
+   spend their time.  K6 is held against its plain version at every
+   (B, S) of the run.
+10. The same for hymba-1.5b (32 layers, bf16, 3.0 GiB, max_len 272) with
+   K7 at ``ssm_chunk`` and K2 at ``attention`` (H 25, KV 5, hd 64): both
+   launch counts, the final ``ssm`` state, and both kernels held against
+   their plain versions at every (B, S) of the run.
+11. The paper's Table 4 hotspots: a ``Campaign`` on ``h100`` over
+   ``rwkv_wkv`` and ``mamba_ssd`` (every candidate FE-checked and timed
+   through K6 or K7), then each winner's ``integrated_speedup`` into
+   rwkv6-7b / hymba-1.5b at full width in float32 (28.1 / 5.9 GiB) over
+   2x256 tokens against the naive sequential recurrence; ``fe_ok`` must be
+   true.  K6 and K7 are held against their plain versions at every shape
+   the phase gave them.
+Then the device times at the main shapes (K2, K1 as above; K6, K7 at their
+serving runs' heaviest prefill) in a fresh process, the ``kernels`` JSON
+line (K2, K1, K6, K7) and the result line.
 
 Details of every case go to chiprun_out/chip_smoke.json.
 """
@@ -72,7 +104,7 @@ KERNEL_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2.0 ** -6, 1e-5)}
 # last-token logits through the kernel vs the plain version, 40 bf16 layers,
 # relative to the logits' largest magnitude
 LOGITS_RTOL = 5e-2
-KERNEL_SOURCES = ("flash_attention", "matmul")
+KERNEL_SOURCES = ("flash_attention", "matmul", "rwkv_wkv", "ssd_scan")
 MATMUL_CASES = ("gemm", "2mm", "3mm", "syrk", "syr2k")
 
 
@@ -247,7 +279,11 @@ def phase_device(report):
     report["device"] = {"name": name, "nvidia_smi": smi,
                         "torch": torch.__version__,
                         "build_s": {n: build.build_info[n]["seconds"]
-                                    for n in KERNEL_SOURCES}}
+                                    for n in KERNEL_SOURCES},
+                        "ptxas": {n: [line.strip() for line in str(
+                            build.build_info[n]["ptxas"]).splitlines()
+                            if "registers" in line or "spill" in line]
+                            for n in KERNEL_SOURCES}}
     return name, smi
 
 
@@ -277,188 +313,32 @@ def phase_kernel(report):
     report["kernel_vs_plain"] = rows
 
 
-def phase_serve(report):
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_ref)
-    from repro_torch.models import get_model
-    from repro_torch.serve import BatchedServer, generate
-
-    cfg = get_config("glm4-9b")
-    t0 = time.perf_counter()
-    model = get_model(cfg, device="cuda")
-    model.init_params(torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"glm4-9b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{n_params:,} params ({cfg.param_dtype}) initialised on the card "
-          f"in {time.perf_counter() - t0:.1f} s", flush=True)
-    expect = cfg.param_counts()[0] + cfg.d_model   # param_counts omits final_ln
-    if n_params != expect:
-        fail(f"parameter count {n_params} != {expect} from the config")
-
-    # the site impl: the kernel wrapper, keeping the inputs of its first
-    # call at each (B, S) to hold against the plain version after the run
-    first_calls = {}
-
-    def site(q, k, v, *, causal=True, softcap=0.0):
-        first_calls.setdefault((q.shape[0], q.shape[1]), (q, k, v, causal))
-        return flash_attention(q, k, v, causal=causal, softcap=softcap)
-
-    ops.install("attention", site, kernel="flash_attention", route="cuda")
-
-    rng = np.random.default_rng(0)
-    lengths = rng.integers(8, 201, size=8)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
-               for n in lengths]
-    max_new = 16
-
-    warm = BatchedServer(model, slots=4, max_len=256)     # cuBLAS, allocator
-    for p in prompts[:2]:
-        warm.submit(p[:16], max_new=2)
-    warm.run()
-
-    stats = {"prefill_calls": 0, "prefill_s": 0.0, "decode_s": 0.0}
-    real_prefill, real_decode = model.prefill, model.decode_step
-
-    def timed(fn, key):
-        def call(*a, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            stats[key] += time.perf_counter() - t
-            if key == "prefill_s":
-                stats["prefill_calls"] += 1
-            return out
-        return call
-
-    model.prefill = timed(real_prefill, "prefill_s")
-    model.decode_step = timed(real_decode, "decode_s")
-    srv = BatchedServer(model, slots=4, max_len=256)
-    reqs = [srv.submit(p, max_new=max_new) for p in prompts]
-    first_calls.clear()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0                 # the main path's run
-    t0 = time.perf_counter()
-    srv.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = flash_attention.launches
-    shapes = dict(first_calls)                   # the main path's shapes
-    peak = torch.cuda.max_memory_allocated()
-    del model.prefill, model.decode_step         # back to the class methods
-
-    bad = [(r.rid, len(r.tokens)) for r in reqs
-           if not r.done or len(r.tokens) != max_new]
-    if bad:
-        fail(f"requests without their {max_new} tokens: {bad}")
-    if any(not 0 <= t < cfg.vocab_size for r in reqs for t in r.tokens):
-        fail("a token outside the vocabulary")
-    need = cfg.n_layers * stats["prefill_calls"]
-    print(f"served {len(reqs)} requests (prompt lengths {lengths.tolist()}) "
-          f"in {wall:.2f} s: {stats['prefill_calls']} packed prefills, "
-          f"flash_attention launches {launches} (>= {need} needed), "
-          f"swap epochs {srv.swap_epochs}", flush=True)
-    if launches < need or launches == 0:
-        fail(f"the kernel ran {launches} times, {need} expected")
-
-    prefill_tokens = int(lengths.sum())
-    decode_tokens = sum(len(r.tokens) - 1 for r in reqs)
-    serve = {
-        "requests": len(reqs), "prompt_lengths": lengths.tolist(),
-        "max_new": max_new, "slots": 4, "max_len": 256,
-        "prefill_calls": stats["prefill_calls"], "launches": launches,
-        "prefill_tokens": prefill_tokens, "prefill_s": stats["prefill_s"],
-        "prefill_tokens_per_s": prefill_tokens / stats["prefill_s"],
-        "decode_tokens": decode_tokens, "decode_s": stats["decode_s"],
-        "decode_tokens_per_s": decode_tokens / stats["decode_s"],
-        "wall_s": wall, "peak_memory_bytes": peak,
-    }
-    print(f"prefill {serve['prefill_tokens_per_s']:.1f} tokens/s "
-          f"({prefill_tokens} prompt tokens in {stats['prefill_s']:.3f} s), "
-          f"decode {serve['decode_tokens_per_s']:.1f} tokens/s "
-          f"({decode_tokens} tokens in {stats['decode_s']:.3f} s), peak "
-          f"memory {peak / 2**30:.2f} GiB", flush=True)
-
-    # last-token prefill logits through the kernel vs its plain version
-    p0 = torch.as_tensor(prompts[0], dtype=torch.long, device="cuda")[None]
-    with torch.no_grad():
-        lk, _ = model.prefill(p0)
-        with ops.use_impl("attention", flash_attention_ref):
-            lr, _ = model.prefill(p0)
-    if not (torch.isfinite(lk).all() and lk.shape == (1, 1, cfg.vocab_size)):
-        fail(f"prefill logits not finite or of shape {tuple(lk.shape)}")
-    rel = ((lk - lr).abs().max() / lr.abs().max()).item()
-    same_top = int(lk.argmax()) == int(lr.argmax())
-    print(f"prefill logits (prompt of {len(prompts[0])}) kernel vs plain: "
-          f"max rel err {rel:.3g} (tol {LOGITS_RTOL}), same argmax "
-          f"{same_top}", flush=True)
-    if rel > LOGITS_RTOL:
-        fail(f"prefill logits through the kernel differ by {rel:.3g}")
-
-    agree = sum(r.tokens == [int(t) for t in generate(
-        model, r.prompt[None], max_new=max_new)[0]] for r in reqs)
-    print(f"requests equal to generate() on the card: {agree}/{len(reqs)} "
-          "(bf16 at other row counts is not bit-stable; not gated)",
-          flush=True)
-    serve.update(logits_rel_err=rel, logits_same_argmax=same_top,
-                 generate_agreement=agree / len(reqs))
-
-    # where a serving step's time goes (outside the counted run): one
-    # ragged decode step over 4 live slots, one packed prefill of two
-    # 256-token rows
-    cache = model.init_cache(4, 256)
-    toks = torch.zeros((4, 1), dtype=torch.long, device="cuda")
-    pos = torch.tensor([200, 150, 100, 50], device="cuda")
-    rows = torch.as_tensor(np.stack([prompts[0][:160]] * 2), device="cuda")
-    rows = torch.nn.functional.pad(rows.long(), (0, 96))
-    lens = torch.tensor([160, 160], device="cuda")
-    with torch.no_grad():
-        split = {"decode_step": time_split(
-                     lambda: model.decode_step(cache, toks, pos)),
-                 "prefill_2x256": time_split(
-                     lambda: model.prefill(rows, max_len=256, lengths=lens))}
-    for what, r in split.items():
-        print(f"{what}: wall {r['wall_ms']:.2f} ms, device "
-              f"{r['device_ms']:.2f} ms (busy {r['device_busy_share']:.1%}) "
-              f"in {r['kernels_per_call']:.0f} kernels ({r['traces']} traces, "
-              f"{r['sentinels_lost']} sentinels lost);"
-              " top: " + ", ".join(f"{t['kernel'][:40]} {t['ms']:.3f}"
-                                   for t in r["top_kernels"][:3]), flush=True)
-    serve["time_split"] = split
-    report["serve"] = serve
-    ops.clear_all()
-    return launches, shapes
-
-
 # --------------------------------------------------------------------------
 # the MEP pipeline on the card (phases 5-7)
 # --------------------------------------------------------------------------
 class FirstCalls:
-    """Wraps a kernel wrapper where a module looks it up (``module.attr``),
-    passing every call on to the wrapper, whose launch counter counts as
-    before, and keeping the arguments of the first call at each
-    ``key(*args, **kw)`` that launched (a call the wrapper refuses, such
-    as a tile that automatic error repair then shrinks, is not kept).
-    ``restore`` puts the wrapper back."""
+    """Passes every call on to ``fn`` (a kernel wrapper, whose launch
+    counter counts as before) and keeps the arguments of the first call at
+    each ``key(*args, **kw)`` that launched (a call the wrapper refuses,
+    such as a tile that automatic error repair then shrinks, is not kept);
+    the key defaults to the first argument's (B, S).  It serves as a site
+    impl as it stands; ``at(module, attr, key)`` puts one where a module
+    looks the wrapper up, until ``restore``."""
 
-    def __init__(self, module, attr, key):
-        self.module, self.attr = module, attr
-        self.real = getattr(module, attr)
-        self.calls = {}
+    def __init__(self, fn, key=lambda *args, **kw: tuple(args[0].shape[:2])):
+        self.fn, self.key, self.calls = fn, key, {}
 
-        def shim(*args, **kw):
-            out = self.real(*args, **kw)
-            self.calls.setdefault(key(*args, **kw), (args, kw))
-            return out
-        setattr(module, attr, shim)
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
+        self.calls.setdefault(self.key(*args, **kw), (args, kw))
+        return out
 
-    def restore(self) -> None:
-        setattr(self.module, self.attr, self.real)
+    @classmethod
+    def at(cls, module, attr, key):
+        rec = cls(getattr(module, attr), key)
+        setattr(module, attr, rec)
+        rec.restore = lambda: setattr(module, attr, rec.fn)
+        return rec
 
 
 def k1_key(a, b, c=None, *, block_m=128, block_n=128, block_k=128,
@@ -568,7 +448,7 @@ def phase_campaign(report):
     print(f"campaign on {platform.name} (max_workers {camp.max_workers}, "
           f"D=6 N=3 R=30 k=3, heuristic proposer, shared pattern store):",
           flush=True)
-    rec = FirstCalls(polybench, "matmul", k1_key)
+    rec = FirstCalls.at(polybench, "matmul", k1_key)
     rows, results = [], {}
     matmul.launches = 0                         # the pipeline path's run
     t0 = time.perf_counter()
@@ -667,7 +547,7 @@ def phase_integrate(report):
 
     platform = H100Platform()
     case = get_case("attention_prefill")
-    rec = FirstCalls(hpc, "flash_attention", k2_key)
+    rec = FirstCalls.at(hpc, "flash_attention", k2_key)
     try:
         flash_attention.launches = 0
         t = time.perf_counter()
@@ -749,6 +629,650 @@ def phase_integrate(report):
     return checks
 
 
+# --------------------------------------------------------------------------
+# the recurrent families (phases 8-11): K6 (WKV6) and K7 (Mamba-2 SSD)
+# --------------------------------------------------------------------------
+# K6/K7 vs their plain versions, element by element: |got - want| <= atol *
+# max|want| + rtol * |want|, as (rtol, atol).  Both compute in f32 and sum
+# the same terms in another order (K7's plain version chunks as the kernel
+# does; K6's runs the recurrence step by step): f32 noise relative to the
+# output's largest magnitude (first probe on the card: <= 4e-6 of it).  In
+# bf16 the f32 results are rounded once on both sides, at most one ulp
+# (<= 2^-7 |want|) apart; two are allowed.  Final states are f32 in both
+# dtypes and take the f32 gate.
+RECURRENT_TOL = {"float32": (1e-4, 4e-5), "bfloat16": (2.0 ** -6, 4e-5)}
+RECURRENT_CHUNKS = {"wkv": (16, 32, 64, 128),       # the cases' variants
+                    "ssd": (32, 64, 128, 256)}
+MODEL_CHUNK = 128                 # rwkv6-7b's and hymba-1.5b's ssm.chunk
+TABLE4_CASES = {"rwkv_wkv": ("wkv", "rwkv6-7b"),
+                "mamba_ssd": ("ssd", "hymba-1.5b")}
+
+
+def kernel_pair(name):
+    """(kernel wrapper, plain version) of K2 (``flash_attention``), K6
+    (``wkv``) or K7 (``ssd``)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.rwkv_wkv import wkv, wkv_plain
+    from repro_torch.kernels.ssd_scan import ssd, ssd_plain
+    return {"flash_attention": (flash_attention, flash_attention_ref),
+            "wkv": (wkv, wkv_plain), "ssd": (ssd, ssd_plain)}[name]
+
+
+def recurrent_gate(got, want, dtype: str):
+    """(max abs err, tol_ratio) of ``got`` against ``want`` under
+    RECURRENT_TOL: the kernel agrees when the ratio is at most 1."""
+    rtol, atol = RECURRENT_TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    w = want.float().abs()
+    ratio = diff / (atol * w.max() + rtol * w + 1e-30)
+    return diff.max().item(), ratio.max().item()
+
+
+def recurrent_bound(kind, args):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate
+    (inputs read once, output and final state written once) and the least
+    f32 operations the function needs, those of its sequential form, over
+    67 TFLOP/s (both kernels compute in f32 on the CUDA cores in either
+    dtype).  Per (token, head): K6 r·S (2KV), the bonus (3K + 2V) and the
+    state update (3KV); K7 u = dt·x (P), the state update exp(la)·S + u⊗B
+    (3PN) and C·S (2PN).  The chunked form K7 runs does more (the causal
+    C·Bᵀ and intra product grow with the chunk): that is the kernel's
+    cost, not the function's, and the bound does not depend on the chunk."""
+    item = args[0].element_size()
+    if kind == "wkv":
+        r, k, v, lw, u = args
+        B, S, H, K = r.shape
+        V = v.shape[3]
+        nbytes = item * (2 * B * S * H * K + 2 * B * S * H * V + H * K) \
+            + 4 * B * S * H * K + 4 * B * H * K * V
+        flops = B * S * H * (5 * K * V + 3 * K + 2 * V)
+    else:
+        xh, dt, a_log, B_t, C_t = args
+        B, S, H, P = xh.shape
+        N = B_t.shape[2]
+        nbytes = item * (2 * B * S * H * P + 2 * B * S * N) \
+            + 4 * (B * S * H + H) + 4 * B * H * P * N
+        flops = B * S * H * (5 * P * N + P)
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def compare_recurrent(kind, args, chunk, timed: bool = False):
+    """K6/K7 vs its plain version on the same inputs: output and final
+    state; with ``timed``, CUDA-event times of both beside the bound."""
+    import torch
+    kernel, plain = kernel_pair(kind)
+    out, state = kernel(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    want, want_state = plain(*args, chunk=chunk)
+    dtype = str(args[0].dtype).replace("torch.", "")
+    err, ratio = recurrent_gate(out, want, dtype)
+    s_err, s_ratio = recurrent_gate(state, want_state, "float32")
+    r = {"kernel": kind, "shape": list(args[0].shape), "dtype": dtype,
+         "chunk": chunk,
+         "finite": bool(torch.isfinite(out).all()
+                        and torch.isfinite(state).all()),
+         "max_abs_err": err, "state_max_abs_err": s_err,
+         "tol_ratio": max(ratio, s_ratio)}
+    if timed:
+        r["ms"] = cuda_ms(lambda: kernel(*args, chunk=chunk))
+        r["plain_ms"] = cuda_ms(lambda: plain(*args, chunk=chunk), reps=3,
+                                warmup=1)
+        r["bound_ms"], r["bound_by"] = recurrent_bound(kind, args)
+        r["library_ms"] = None     # no single PyTorch call computes it
+    return r
+
+
+def recurrent_inputs(kind, B, S, dtype, g):
+    """Inputs of K6 at rwkv6-7b's shapes (H 64, K = V = 64) or of K7 at
+    hymba-1.5b's (H 50, P 64, N 16; B_t and C_t two halves of one
+    projection, as the model passes them), in ``dtype`` with f32 lw/dt."""
+    import torch
+    if kind == "wkv":
+        r, k, v = (0.5 * torch.randn(B, S, 64, 64, device="cuda",
+                                     generator=g) for _ in range(3))
+        lw = -torch.rand(B, S, 64, 64, device="cuda", generator=g) * 3 \
+            - 0.01
+        u = 0.5 * torch.randn(64, 64, device="cuda", generator=g)
+        return (r.to(dtype), k.to(dtype), v.to(dtype), lw, u.to(dtype))
+    xh = torch.randn(B, S, 50, 64, device="cuda", generator=g)
+    dt = torch.rand(B, S, 50, device="cuda", generator=g) * 0.1 + 0.001
+    a_log = torch.rand(50, device="cuda", generator=g) * 2 - 1
+    bc = torch.randn(B, S, 32, device="cuda", generator=g).to(dtype)
+    B_t, C_t = torch.chunk(bc, 2, dim=-1)
+    return (xh.to(dtype), dt, a_log, B_t, C_t)
+
+
+def phase_recurrent_kernels(report):
+    """Phase 8: K6 and K7 against their plain versions at the serving
+    shapes, every chunk of the cases' variant spaces, f32 and bf16."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(8)
+    rows = []
+    print("kernel vs plain (K6 wkv: H 64, K = V 64; K7 ssd: H 50, P 64, "
+          "N 16), every chunk of the case's variant space; times at chunk "
+          f"{MODEL_CHUNK}, the models' (gate: {RECURRENT_TOL}):", flush=True)
+    for kind in ("wkv", "ssd"):
+        for dtype in (torch.bfloat16, torch.float32):
+            for B in (1, 4):
+                for S in (8, 64, 128, 256):
+                    args = recurrent_inputs(kind, B, S, dtype, g)
+                    group = [compare_recurrent(kind, args, c,
+                                               timed=c == MODEL_CHUNK)
+                             for c in RECURRENT_CHUNKS[kind]]
+                    rows += group
+                    bad = [r for r in group if not agrees(r)]
+                    if bad:
+                        fail(f"{kind} disagrees with its plain version: "
+                             f"{bad}")
+                    t = next(r for r in group if "ms" in r)
+                    print(f"  {kind} {t['dtype']:8s} B={B} S={S:3d}  "
+                          f"max_abs_err {max(r['max_abs_err'] for r in group):.3g}"
+                          f" state {max(r['state_max_abs_err'] for r in group):.3g}"
+                          f" (of tol {max(r['tol_ratio'] for r in group):.2f})"
+                          f"  kernel {t['ms']:.4f} ms  plain "
+                          f"{t['plain_ms']:.4f} ms  library none  bound "
+                          f"{t['bound_ms']:.4f} ms ({t['bound_by']})",
+                          flush=True)
+    report["recurrent_kernel_vs_plain"] = rows
+
+
+# the served models: site → the kernel installed there
+SERVE_SITES = {"glm4-9b": {"attention": "flash_attention"},
+               "rwkv6-7b": {"rwkv_wkv": "wkv"},
+               "hymba-1.5b": {"ssm_chunk": "ssd",
+                              "attention": "flash_attention"}}
+# the recurrent state a prefill hands decode, by family
+STATE_KEY = {"ssm": "wkv", "hybrid": "ssm"}
+# the operands the model passes K6/K7 in its own dtype (lw, dt and a_log
+# come in f32)
+MODEL_DTYPE_ARGS = {"wkv": (0, 1, 2, 4), "ssd": (0, 3, 4)}
+# the recurrent models' prefill through their kernels vs the plain versions
+# in float32 on the served weights, logits and final state each relative
+# to its largest magnitude: f32 summation noise through 32 layers (seen on
+# the H100: 3.9e-5 to 4.3e-5 rwkv6-7b, 8.5e-6 to 1.3e-5 hymba-1.5b).  The
+# control, the same kernels on bf16 operands, must read above it (seen:
+# 0.096-0.097 rwkv6-7b, 0.013-0.032 hymba-1.5b).  A request served in f32
+# may leave generate() only at a near-tie: where generate()'s token and the
+# served one lie within this share of the largest logit (seen: 9.7e-6).
+RECURRENT_F32_RTOL = 1e-3
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| relative to max |b|."""
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max()).item()
+
+
+def prefill_with(model, tokens, impls):
+    """(last-token logits over the true vocabulary, cache) of a prefill of
+    ``tokens`` [1, S] with ``impls`` (site → impl; None: no impl, the
+    model's chunked plain path) put over the installed ones for the call."""
+    import contextlib
+    import torch
+    from repro_torch.kernels import ops
+    with contextlib.ExitStack() as scope, torch.no_grad():
+        for site, fn in impls.items():
+            scope.enter_context(ops.use_impl(site, fn))
+        logits, cache = model.prefill(tokens)
+    # the padded vocabulary's logits are -1e30 on every path
+    return logits[0, -1, :model.cfg.vocab_size], cache
+
+
+def bf16_operands(name):
+    """The f32 gate's control: K6 or K7 on bf16 copies of the operands the
+    model passes in its own dtype, the output handed back in f32."""
+    kernel = kernel_pair(name)[0]
+
+    def call(*args, **kw):
+        out, state = kernel(*(a.bfloat16() if i in MODEL_DTYPE_ARGS[name]
+                              else a for i, a in enumerate(args)), **kw)
+        return out.float(), state
+    return call
+
+
+def check_recurrent_f32(model, prompts, probe, kernels, max_len, max_new):
+    """The recurrent model on the served weights in float32: the prefill of
+    ``prompts[probe]`` through the kernels against their plain versions
+    (logits and final state within RECURRENT_F32_RTOL) and against the
+    control; then the served path, prefill through the kernels and decode
+    from their state, against generate() token for token, where a request
+    may differ only from a near-tie on.  Returns the readings."""
+    import dataclasses
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.serve import BatchedServer, generate
+
+    cfg = model.cfg
+    arch, key = cfg.name, STATE_KEY[cfg.family]
+    m32 = get_model(dataclasses.replace(cfg, param_dtype="float32"),
+                    device="cuda")
+    m32.load_state_dict(model.state_dict())
+    p0 = torch.as_tensor(prompts[probe], dtype=torch.long,
+                         device="cuda")[None]
+    lk, ck = prefill_with(m32, p0, {})
+    lr, cr = prefill_with(m32, p0, {s: kernel_pair(k)[1]
+                                    for s, k in kernels.items()})
+    lc, cc = prefill_with(m32, p0, {s: bf16_operands(k)
+                                    for s, k in kernels.items()
+                                    if k in MODEL_DTYPE_ARGS})
+    got = {"logits_rel_err_f32": rel_err(lk, lr),
+           "state_rel_err_f32": rel_err(ck[key], cr[key]),
+           "control_logits_rel_err_f32": rel_err(lc, lr),
+           "control_state_rel_err_f32": rel_err(cc[key], cr[key])}
+    srv = BatchedServer(m32, slots=4, max_len=max_len)
+    reqs = [srv.submit(p, max_new=max_new) for p in prompts]
+    srv.run()
+    ties = []
+    for r in reqs:
+        ref = [int(t) for t in generate(m32, r.prompt[None],
+                                        max_new=max_new)[0]]
+        if r.tokens == ref:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(r.tokens, ref)) if a != b)
+        seq = torch.as_tensor(np.concatenate([r.prompt, ref[:i]]),
+                              dtype=torch.long, device="cuda")[None]
+        lg, _ = prefill_with(m32, seq, {})
+        ties.append({"rid": r.rid, "step": i, "generate": ref[i],
+                     "served": r.tokens[i],
+                     "gap": ((lg[ref[i]] - lg[r.tokens[i]]).abs()
+                             / lg.abs().max()).item()})
+    del m32, srv
+    got.update(generate_agreement_f32=1 - len(ties) / len(reqs),
+               near_ties_f32=ties)
+    print(f"{arch}: in float32 on the served weights, prefill (prompt of "
+          f"{len(prompts[probe])}) through the kernels vs plain, relative "
+          f"to the largest magnitude: logits "
+          f"{got['logits_rel_err_f32']:.3g}, final {key} state "
+          f"{got['state_rel_err_f32']:.3g} (tol {RECURRENT_F32_RTOL} each);"
+          f" control, the kernels on bf16 operands: "
+          f"{got['control_logits_rel_err_f32']:.3g} and "
+          f"{got['control_state_rel_err_f32']:.3g}; {len(reqs) - len(ties)}"
+          f"/{len(reqs)} served requests equal generate()" + "".join(
+              f"; request {t['rid']} first differs at step {t['step']}, at "
+              f"a logit gap of {t['gap']:.3g} of the largest" for t in ties),
+          flush=True)
+    if max(got["logits_rel_err_f32"], got["state_rel_err_f32"]) \
+            > RECURRENT_F32_RTOL:
+        fail(f"{arch}: prefill through the kernels differs in float32: "
+             f"{got}")
+    if min(got["control_logits_rel_err_f32"],
+           got["control_state_rel_err_f32"]) <= RECURRENT_F32_RTOL:
+        fail(f"{arch}: the control reads within the float32 gate, which so "
+             f"cannot tell bf16 operands from sound ones: {got}")
+    if [t for t in ties if t["gap"] > RECURRENT_F32_RTOL]:
+        fail(f"{arch}: served requests leave generate() in float32 where "
+             f"it is no near-tie: {ties}")
+    return got
+
+
+def phase_serve(report, arch):
+    """Phases 3 (glm4-9b through K2), 9 (rwkv6-7b through K6) and 10
+    (hymba-1.5b through K7 and K2): serve the model at full width and depth
+    in bf16, check the run, then hold its kernels against their plain
+    versions at every (B, S) the run gave them, on its own inputs (for
+    glm4-9b that is phase 4).  Returns (launches, recorded calls, checks),
+    each by kernel name; the model is freed when the caller collects."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.models.lm import layer_spec, top_spec
+    from repro_torch.serve import BatchedServer, generate
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = get_model(cfg, device="cuda")
+    model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    gib = sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30
+    counted = cfg.param_counts()[0] + cfg.d_model  # param_counts omits final_ln
+    print(f"{arch}: {cfg.family}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params:,} params ({cfg.param_dtype}, "
+          f"{gib:.2f} GiB) initialised on the card in "
+          f"{time.perf_counter() - t0:.1f} s; the config counts {counted:,}",
+          flush=True)
+    # the layout the model shares with its JAX twin and the converter; the
+    # config's own count is exact for the dense family only (it leaves out
+    # rwkv6's decay LoRA, lerps and group norm, mamba's conv, dt and skip)
+    layout = cfg.n_layers * sum(map(math.prod, layer_spec(cfg).values())) \
+        + sum(map(math.prod, top_spec(cfg).values()))
+    if n_params != layout or cfg.family == "dense" and n_params != counted:
+        fail(f"{arch}: parameter count {n_params} != {layout} of the layout"
+             f" ({counted} from the config)")
+
+    kernels = SERVE_SITES[arch]
+    sites = {site: FirstCalls(kernel_pair(k)[0]) for site, k in kernels.items()}
+    for site, impl in sites.items():
+        ops.install(site, impl, kernel=kernels[site], route="cuda")
+    recurrent = cfg.family in STATE_KEY
+    if recurrent:       # exact-length packing: a padded row corrupts a state
+        rng = np.random.default_rng(9 if cfg.family == "ssm" else 10)
+        lengths = rng.integers(8, 129, size=8)
+        lengths[2] = 256                     # a multi-chunk prompt
+        max_len, probe = 272, 2
+    else:               # padded buckets
+        rng = np.random.default_rng(0)
+        lengths = rng.integers(8, 201, size=8)
+        max_len, probe = 256, 0
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lengths]
+    max_new = 16
+
+    warm = BatchedServer(model, slots=4, max_len=max_len)  # cuBLAS, allocator
+    for p in prompts[:2]:
+        warm.submit(p[:16], max_new=2)
+    warm.run()
+
+    stats = {"prefill_calls": 0, "prefill_s": 0.0, "decode_s": 0.0}
+    real_prefill, real_decode = model.prefill, model.decode_step
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stats[key] += time.perf_counter() - t
+            if key == "prefill_s":
+                stats["prefill_calls"] += 1
+            return out
+        return call
+
+    model.prefill = timed(real_prefill, "prefill_s")
+    model.decode_step = timed(real_decode, "decode_s")
+    srv = BatchedServer(model, slots=4, max_len=max_len)
+    reqs = [srv.submit(p, max_new=max_new) for p in prompts]
+    for s in sites.values():
+        s.calls.clear()
+    fns = {k: kernel_pair(k)[0] for k in kernels.values()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in fns.values():
+        fn.launches = 0                      # the main path's run
+    t = time.perf_counter()
+    srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {k: fn.launches for k, fn in fns.items()}
+    calls = {k: dict(sites[s].calls) for s, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    del model.prefill, model.decode_step     # back to the class methods
+
+    bad = [(r.rid, len(r.tokens)) for r in reqs
+           if not r.done or len(r.tokens) != max_new]
+    if bad:
+        fail(f"{arch}: requests without their {max_new} tokens: {bad}")
+    if any(not 0 <= tok < cfg.vocab_size for r in reqs for tok in r.tokens):
+        fail(f"{arch}: a token outside the vocabulary")
+    need = cfg.n_layers * stats["prefill_calls"]
+    print(f"{arch}: served {len(reqs)} requests (prompt lengths "
+          f"{lengths.tolist()}, "
+          f"{'exact-length packing' if recurrent else 'padded buckets'}) in "
+          f"{wall:.2f} s: {stats['prefill_calls']} packed prefills, launches "
+          f"{launches} ({need} each needed: every layer of every prefill), "
+          f"swap epochs {srv.swap_epochs}", flush=True)
+    if need == 0 or any(n != need for n in launches.values()):
+        fail(f"{arch}: kernel launches {launches}, {need} expected")
+
+    prefill_tokens = int(lengths.sum())
+    decode_tokens = sum(len(r.tokens) - 1 for r in reqs)
+    serve = {
+        "arch": arch, "requests": len(reqs),
+        "prompt_lengths": lengths.tolist(), "max_new": max_new, "slots": 4,
+        "max_len": max_len, "params": n_params, "param_gib": gib,
+        "prefill_calls": stats["prefill_calls"], "launches": launches,
+        "prefill_tokens": prefill_tokens, "prefill_s": stats["prefill_s"],
+        "prefill_tokens_per_s": prefill_tokens / stats["prefill_s"],
+        "decode_tokens": decode_tokens, "decode_s": stats["decode_s"],
+        "decode_tokens_per_s": decode_tokens / stats["decode_s"],
+        "wall_s": wall, "peak_memory_bytes": peak,
+    }
+    print(f"{arch}: prefill {serve['prefill_tokens_per_s']:.1f} tokens/s "
+          f"({prefill_tokens} prompt tokens in {stats['prefill_s']:.3f} s), "
+          f"decode {serve['decode_tokens_per_s']:.1f} tokens/s "
+          f"({decode_tokens} tokens in {stats['decode_s']:.3f} s), peak "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+
+    # last-token prefill logits (and the final recurrent state) through the
+    # kernels vs their plain versions.  glm4-9b's 40 bf16 layers hold
+    # LOGITS_RTOL.  Through 32 random recurrent layers two exact plain paths
+    # in bf16 (the plain versions, the chunked model path) already differ
+    # by amplified rounding flips (PERF.md): printed, and gated in float32
+    # on the same weights.
+    p0 = torch.as_tensor(prompts[probe], dtype=torch.long,
+                         device="cuda")[None]
+    plains = {s: kernel_pair(k)[1] for s, k in kernels.items()}
+    lk, ck = prefill_with(model, p0, {})
+    lr, cr = prefill_with(model, p0, plains)
+    key = STATE_KEY.get(cfg.family)
+    if not (torch.isfinite(lk).all() and lk.shape == (cfg.vocab_size,)
+            and (key is None or bool(torch.isfinite(ck[key]).all()))):
+        fail(f"{arch}: prefill logits or state not finite, or logits of "
+             f"shape {tuple(lk.shape)}")
+    rel = rel_err(lk, lr)
+    same_top = int(lk.argmax()) == int(lr.argmax())
+    serve.update(logits_rel_err=rel, logits_same_argmax=same_top)
+    if not recurrent:
+        print(f"{arch}: prefill logits (prompt of {len(prompts[probe])}) "
+              f"kernel vs plain: max rel err {rel:.3g} (tol {LOGITS_RTOL}), "
+              f"same argmax {same_top}", flush=True)
+        if rel > LOGITS_RTOL:
+            fail(f"{arch}: prefill logits through the kernel differ by "
+                 f"{rel:.3g}")
+    else:
+        lch, cch = prefill_with(model, p0, dict.fromkeys(plains))
+        serve["bf16_rel_err"] = bf16 = {
+            "kernel": (rel, rel_err(ck[key], cr[key])),
+            "chunked": (rel_err(lch, lr), rel_err(cch[key], cr[key]))}
+        print(f"{arch}: in bf16, prefill (prompt of {len(prompts[probe])}) "
+              f"vs the plain versions, logits and final {key} state relative"
+              f" to their largest magnitude: kernels {bf16['kernel'][0]:.3g}"
+              f" and {bf16['kernel'][1]:.3g}, the chunked plain path "
+              f"{bf16['chunked'][0]:.3g} and {bf16['chunked'][1]:.3g} (not "
+              f"gated), same argmax {same_top}", flush=True)
+        serve.update(check_recurrent_f32(model, prompts, probe, kernels,
+                                         max_len, max_new))
+
+    refs = [[int(tok) for tok in generate(model, r.prompt[None],
+                                          max_new=max_new)[0]]
+            for r in reqs]
+    agree = sum(r.tokens == ref for r, ref in zip(reqs, refs))
+    first = sum(r.tokens[0] == ref[0] for r, ref in zip(reqs, refs))
+    print(f"{arch}: requests equal to generate() on the card: "
+          f"{agree}/{len(reqs)}, first tokens {first}/{len(reqs)} (bf16 at "
+          "other row counts is not bit-stable; not gated)", flush=True)
+    serve.update(generate_agreement=agree / len(reqs),
+                 generate_first_token_agreement=first / len(reqs))
+
+    # where a serving step's time goes (outside the counted run): one
+    # ragged decode step over 4 live slots, one packed prefill of two
+    # 256-token rows (glm4-9b: 160 tokens each, padded)
+    cache = model.init_cache(4, max_len)
+    toks = torch.zeros((4, 1), dtype=torch.long, device="cuda")
+    pos = torch.tensor([200, 150, 100, 50], device="cuda")
+    if recurrent:
+        rows, lens = np.stack([prompts[probe]] * 2), None
+    else:
+        rows = np.pad(np.stack([prompts[probe][:160]] * 2), ((0, 0), (0, 96)))
+        lens = torch.tensor([160, 160], device="cuda")
+    rows = torch.as_tensor(rows, device="cuda").long()
+    with torch.no_grad():
+        split = {"decode_step": time_split(
+                     lambda: model.decode_step(cache, toks, pos)),
+                 "prefill_2x256": time_split(
+                     lambda: model.prefill(rows, max_len=max_len,
+                                           lengths=lens))}
+    for what, r in split.items():
+        print(f"{arch} {what}: wall {r['wall_ms']:.2f} ms, device "
+              f"{r['device_ms']:.2f} ms (busy {r['device_busy_share']:.1%}) "
+              f"in {r['kernels_per_call']:.0f} kernels ({r['traces']} traces, "
+              f"{r['sentinels_lost']} sentinels lost);"
+              " top: " + ", ".join(f"{t['kernel'][:40]} {t['ms']:.3f}"
+                                   for t in r["top_kernels"][:3]), flush=True)
+    serve["time_split"] = split
+    ops.clear_all()
+
+    # the kernels against their plain versions on the run's own inputs
+    checks = {}
+    for name, by_shape in calls.items():
+        checks[name] = []
+        for (B, S), (args, kw) in sorted(by_shape.items()):
+            if name == "flash_attention":
+                r = compare(*args, kw.get("causal", True))
+            else:
+                r = compare_recurrent(name, args, kw["chunk"])
+            checks[name].append(r)
+            print(f"  {name} {r['dtype']} B={B} S={S:3d} at the serving "
+                  f"run's inputs: max_abs_err {r['max_abs_err']:.3g} (of "
+                  f"tol {r['tol_ratio']:.2f})", flush=True)
+            if not agrees(r):
+                fail(f"{name} disagrees at {arch}'s serving shape: {r}")
+    serve["checks"] = checks
+    report[f"serve_{arch}"] = serve
+    return launches, calls, checks
+
+
+def main_recurrent_shape(kind, calls):
+    """K6/K7 at the serving run's heaviest prefill: errors, CUDA-event times
+    of the kernel and the plain version, and the bound.  K7's a_log is
+    handed over in f32, as the wrapper hands it to the kernel, so a call is
+    one kernel (the model's bf16 a_log costs one more, a conversion)."""
+    (args, kw) = max(calls.values(), key=lambda a: a[0][0].shape[0]
+                     * a[0][0].shape[1])
+    if kind == "ssd":
+        args = args[:2] + (args[2].float(),) + args[3:]
+    r = compare_recurrent(kind, args, kw["chunk"], timed=True)
+    if not agrees(r):
+        fail(f"{kind} disagrees at its main shape: {r}")
+    return r, (args, {"chunk": kw["chunk"]})
+
+
+def phase_table4(report):
+    """Phase 11: the paper's Table 4 hotspots on the card.  A Campaign on
+    h100 over rwkv_wkv and mamba_ssd (every candidate FE-checked and timed
+    through K6 or K7), then each winner's Integrated Speedup into its
+    application at full width in float32 over 2 x 256 tokens, against the
+    naive plain build (the sequential recurrence)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import (Campaign, CaseJob, EvalCache, H100Platform,
+                                  HeuristicProposer, PatternStore, ResultsDB,
+                                  get_case, integrate)
+    from repro_torch.kernels.suites import hpc
+    from repro_torch.models import get_model
+
+    platform = H100Platform()
+    db_path = OUT.parent / "campaign_table4.jsonl"
+    db_path.unlink(missing_ok=True)
+    store = PatternStore()
+    camp = Campaign(platform, patterns=store, cache=EvalCache(),
+                    db=ResultsDB(str(db_path)))
+    print(f"Table 4 on {platform.name} (heuristic proposer, D=6 N=3 R=30 "
+          "k=3, as phase 5):", flush=True)
+    recs = {kind: FirstCalls.at(hpc, kind, lambda *a, **kw: (
+        tuple(a[0].shape), str(a[0].dtype), kw.get("chunk")))
+        for kind in ("wkv", "ssd")}
+    rows = []
+    try:
+        for name, (kind, arch) in TABLE4_CASES.items():
+            kernel, _ = kernel_pair(kind)
+            kernel.launches = 0                 # this path's run
+            t = time.perf_counter()
+            res = camp.run([CaseJob(get_case(name), HeuristicProposer(
+                0, store, platform.name))])[0]
+            cands = [c for rl in res.rounds for c in rl.candidates]
+            status = {st: sum(c.status == st for c in cands)
+                      for st in ("ok", "fe_fail", "build_error",
+                                 "run_error")}
+            row = {"case": name, "scale": mep_scale(res.mep_log),
+                   "baseline_ms": res.baseline_time_s * 1e3,
+                   "best_ms": res.best_time_s * 1e3,
+                   "speedup": res.speedup, "best_variant": res.best_variant,
+                   "candidates": len(cands), "status": status,
+                   "aer_repairs": res.aer_records,
+                   "campaign_launches": kernel.launches,
+                   "campaign_s": time.perf_counter() - t}
+            print(f"  {name:9s} MEP scale {row['scale']}: baseline "
+                  f"{row['baseline_ms']:.4f} ms -> best {row['best_ms']:.4f}"
+                  f" ms ({row['speedup']:.3f}x, {row['best_variant']}); "
+                  f"{status['ok']} ok of {len(cands)} evaluated, FE fails "
+                  f"{status['fe_fail']}, AER repairs {res.aer_records}; "
+                  f"{kind} launches {kernel.launches} "
+                  f"({row['campaign_s']:.1f} s)", flush=True)
+            if kernel.launches == 0 or status["ok"] == 0:
+                fail(f"{name}: {kernel.launches} {kind} launches, "
+                     f"{status['ok']} ok candidates")
+
+            gc.collect()
+            torch.cuda.empty_cache()
+            cfg = dataclasses.replace(get_config(arch),
+                                      param_dtype="float32")
+            t = time.perf_counter()
+            model = get_model(cfg, device="cuda")
+            model.init_params(torch.Generator(device="cuda").manual_seed(0))
+            torch.cuda.synchronize()
+            toks = torch.as_tensor(np.random.default_rng(1).integers(
+                0, cfg.vocab_size, (2, 256)), device="cuda")
+            gib = sum(p.numel() for p in model.parameters()) * 4 / 2**30
+            print(f"  {arch} float32 ({cfg.n_layers} layers, d_model "
+                  f"{cfg.d_model}, {gib:.2f} GiB) initialised in "
+                  f"{time.perf_counter() - t:.1f} s", flush=True)
+            before = kernel.launches
+            t = time.perf_counter()
+            ir = integrate.integrated_speedup(
+                get_case(name), res.best_variant,
+                lambda: (lambda tokens: model.forward(tokens)[0]), (toks,),
+                platform=platform, r=5, k=1)
+            int_launches = kernel.launches - before
+            need = cfg.n_layers * (1 + 5 + 1)   # warmup, 5 reps, the output
+            print(f"  integrated speedup of {name} in {arch} (2x256 tokens, "
+                  f"f32): naive {ir.baseline_time_s * 1e3:.2f} ms -> "
+                  f"{kind} {ir.optimized_time_s * 1e3:.2f} ms per forward = "
+                  f"{ir.integrated_speedup:.3f}x, fe_ok {ir.fe_ok} (max abs "
+                  f"err {ir.max_abs_err:.3g}); {kind} launches "
+                  f"{int_launches} ({time.perf_counter() - t:.1f} s)",
+                  flush=True)
+            if not ir.fe_ok or int_launches < need:
+                fail(f"{name} integration: fe_ok {ir.fe_ok}, "
+                     f"{int_launches} launches ({need} expected)")
+            row.update(app=f"{arch} float32, {cfg.n_layers} layers, 2x256 "
+                           "tokens",
+                       app_baseline_ms=ir.baseline_time_s * 1e3,
+                       app_optimized_ms=ir.optimized_time_s * 1e3,
+                       integrated_speedup=ir.integrated_speedup,
+                       fe_ok=ir.fe_ok, app_max_abs_err=ir.max_abs_err,
+                       app_launches=int_launches)
+            rows.append(row)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        for rec in recs.values():
+            rec.restore()
+    checks = {}
+    for kind, rec in recs.items():
+        checks[kind] = []
+        for key, (args, kw) in sorted(rec.calls.items(), key=str):
+            r = compare_recurrent(kind, args, kw["chunk"])
+            checks[kind].append(r)
+            print(f"  {kind} {r['dtype']} {r['shape']} chunk {r['chunk']}: "
+                  f"max_abs_err {r['max_abs_err']:.3g} (of tol "
+                  f"{r['tol_ratio']:.2f})", flush=True)
+            if not agrees(r):
+                fail(f"{kind} disagrees at the pipeline's shape: {r}")
+    report["table4"] = {"platform": platform.name, "cases": rows,
+                        "checks": checks,
+                        "journal": str(db_path.relative_to(ROOT))}
+    return checks
+
+
 def fresh_device_time(calls):
     """Profiler device ms of each ``(kernel, args, kwargs)`` call, taken in
     a fresh process (``--device-time``).  Late in this process a trace loses
@@ -777,7 +1301,10 @@ def device_time_child(path: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.matmul import matmul
-    kernels = {"flash_attention": flash_attention, "matmul": matmul}
+    from repro_torch.kernels.rwkv_wkv import wkv
+    from repro_torch.kernels.ssd_scan import ssd
+    kernels = {"flash_attention": flash_attention, "matmul": matmul,
+               "wkv": wkv, "ssd": ssd}
     out = []
     for name, args, kw in torch.load(path):
         split = time_split(lambda: kernels[name](*args, **kw),
@@ -788,6 +1315,7 @@ def device_time_child(path: str) -> None:
 
 
 def main() -> None:
+    import gc
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on a GPU")
@@ -803,22 +1331,13 @@ def main() -> None:
     t_start = time.perf_counter()
     name, smi = phase_device(report)
     phase_kernel(report)
-    launches, shapes = phase_serve(report)
-
-    print("kernel vs plain at the serving run's shapes, on its inputs:",
-          flush=True)
-    checks = []
-    for (B, S), (q, k, v, causal) in sorted(shapes.items()):
-        r = compare(q, k, v, causal)
-        checks.append(r)
-        print(f"  {r['dtype']:8s} B={B} S={S:3d}  max_abs_err "
-              f"{r['max_abs_err']:.3g} (of tol {r['tol_ratio']:.2f})",
-              flush=True)
-        if not agrees(r):
-            fail(f"kernel disagrees at the serving run's shape: {r}")
-    report["main_path_checks"] = checks
-    q, k, v, causal = max(shapes.values(), key=lambda a: (
-        a[0].shape[0] * a[0].shape[1] * a[1].shape[1]))
+    glm_launches, glm_calls, glm_checks = phase_serve(report, "glm4-9b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    args, kw = max(glm_calls["flash_attention"].values(), key=lambda c: (
+        c[0][0].shape[0] * c[0][0].shape[1] * c[0][1].shape[1]))
+    q, k, v = args
+    causal = kw.get("causal", True)
     main_shape = measure_attention(q, k, v, causal=causal, device_time=False)
     if not agrees(main_shape):
         fail(f"kernel disagrees at the serving run's shape: {main_shape}")
@@ -827,24 +1346,50 @@ def main() -> None:
     k1_launches, k1_calls, main_key = phase_campaign(report)
     k1_rows, k1_main = phase_k1_checks(report, k1_calls, main_key)
     k2_pipeline_checks = phase_integrate(report)
-    for r, dev in zip((main_shape, k1_main), fresh_device_time(
+
+    phase_recurrent_kernels(report)
+    rwkv_launches, rwkv_calls, rwkv_checks = phase_serve(report, "rwkv6-7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    hymba_launches, hymba_calls, hymba_checks = phase_serve(report,
+                                                            "hymba-1.5b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    table4_checks = phase_table4(report)
+    wkv_main, wkv_call = main_recurrent_shape("wkv", rwkv_calls["wkv"])
+    ssd_main, ssd_call = main_recurrent_shape("ssd", hymba_calls["ssd"])
+    report["wkv_main_shape"], report["ssd_main_shape"] = wkv_main, ssd_main
+
+    mains = (main_shape, k1_main, wkv_main, ssd_main)
+    for r, dev in zip(mains, fresh_device_time(
             [("flash_attention", (q, k, v), {"causal": causal}),
-             ("matmul", *k1_calls[main_key])])):
+             ("matmul", *k1_calls[main_key]), ("wkv", *wkv_call),
+             ("ssd", *ssd_call)])):
         r["kernel_device_ms"] = dev["device_ms"]
         r["kernel_trace"] = {key: dev[key]
                              for key in ("traces", "sentinels_lost")}
-    print(f"profiler device ms in a fresh process: flash_attention "
-          f"{main_shape['kernel_device_ms']:.4f} (CUDA events "
-          f"{main_shape['ms']:.4f}), matmul {k1_main['kernel_device_ms']:.4f}"
-          f" (CUDA events {k1_main['ms']:.4f})", flush=True)
+    print("profiler device ms in a fresh process (CUDA events): "
+          + ", ".join(f"{n} {r['kernel_device_ms']:.4f} ({r['ms']:.4f})"
+                      for n, r in zip(("flash_attention", "matmul", "wkv",
+                                       "ssd"), mains)), flush=True)
+
+    def recurrent_entry(name, source, replaces, launches, checks, r):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(c["max_abs_err"] for c in checks),
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": None}
 
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:82",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"]
-                           for r in checks + k2_pipeline_checks),
+        "launches": glm_launches["flash_attention"]
+        + hymba_launches["flash_attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           glm_checks["flash_attention"] + k2_pipeline_checks
+                           + hymba_checks["flash_attention"]),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
@@ -858,14 +1403,23 @@ def main() -> None:
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
         "library_ms": k1_main["library_ms"],
-    }]
+    }, recurrent_entry(
+        "rwkv_wkv", "src/repro_torch/kernels/csrc/rwkv_wkv.cu",
+        "src/repro/kernels/rwkv_wkv.py:65", rwkv_launches["wkv"],
+        rwkv_checks["wkv"] + table4_checks["wkv"], wkv_main),
+        recurrent_entry(
+        "ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan.py:73", hymba_launches["ssd"],
+        hymba_checks["ssd"] + table4_checks["ssd"], ssd_main)]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     OUT.parent.mkdir(exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1))
     print(f"flash_attention at the serving run's heaviest shape "
           f"(B={main_shape['B']}, S={main_shape['S']}, {main_shape['dtype']}); "
-          f"matmul at gemm's winner {list(main_key)}; "
+          f"matmul at gemm's winner {list(main_key)}; wkv and ssd at their "
+          f"serving runs' heaviest prefill ({wkv_main['shape']}, "
+          f"{ssd_main['shape']}, {wkv_main['dtype']}); "
           f"all phases passed in {report['seconds']:.1f} s; details in "
           f"{OUT.relative_to(ROOT)}", flush=True)
     print(smi, flush=True)

@@ -1,7 +1,8 @@
 """Architecture registry: arch id → ModelConfig.
 
-Holds the configs whose families the port runs so far (dense: glm4-9b);
-the others arrive with their families (ROADMAP queue 1).
+Holds the configs whose families the port runs so far (dense: glm4-9b;
+ssm: rwkv6-7b; hybrid: hymba-1.5b); the others arrive with their families
+(ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -12,9 +13,9 @@ from repro_torch.configs.base import (  # noqa: F401  (re-exported)
     SHAPES, cell_applicable, get_shape,
 )
 
-from repro_torch.configs import glm4_9b
+from repro_torch.configs import glm4_9b, hymba_1_5b, rwkv6_7b
 
-_MODULES = (glm4_9b,)
+_MODULES = (glm4_9b, rwkv6_7b, hymba_1_5b)
 
 REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

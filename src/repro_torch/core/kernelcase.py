@@ -153,8 +153,7 @@ UNPORTED = {
         "adi", "binomialoption", "bitonicsort", "dwthaar1d",
         "fastwalshtransform", "matrixmultiplication", "reduction",
         "simpleconvolution", "vectoradd")},
-    **{n: "ROADMAP queue 1 item 7" for n in (
-        "rwkv_wkv", "mamba_ssd", "moe_grouped_gemm")},
+    "moe_grouped_gemm": "ROADMAP queue 1 item 7",
 }
 
 _loaded = False

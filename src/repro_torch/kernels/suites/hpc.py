@@ -2,17 +2,23 @@
 (paper Table 4 — kernels extracted from a large application whose full
 build is too expensive to re-run per candidate).
 
-Port of ``repro.kernels.suites.hpc``; holds ``attention_prefill``
-(``hpc.py:31-89``), whose ``app_site`` is the ``attention`` site the port's
-LM consults, so ``core.integrate`` can reintegrate the winner and measure
-the Integrated Speedup.  ``rwkv_wkv``, ``mamba_ssd`` and
-``moe_grouped_gemm`` wait for ROADMAP queue 1 item 7.
+Port of ``repro.kernels.suites.hpc``; holds ``attention_prefill``,
+``rwkv_wkv`` and ``mamba_ssd`` (``hpc.py:31-193``), whose ``app_site``s
+(``attention``, ``rwkv_wkv``, ``ssm_chunk``) are the sites the port's LM
+consults, so ``core.integrate`` can reintegrate a winner and measure the
+Integrated Speedup.  The ``cuda`` builds are the hand-written kernels K2,
+K6 and K7 where the JAX builds call their Pallas kernels; specs, variant
+spaces, baselines and cost models are the JAX package's.
+``moe_grouped_gemm`` waits for ROADMAP queue 1 item 7 (the MoE family).
 """
 from __future__ import annotations
 
 from repro_torch.core.kernelcase import ArraySpec, KernelCase, register
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rwkv_wkv import wkv
+from repro_torch.kernels.ssd_scan import ssd
+from repro_torch.models.ssm import _ssd_chunked, _wkv_chunked
 
 F32 = "float32"
 
@@ -73,4 +79,117 @@ register(KernelCase(
     latency=lambda v, s: 1e-6 * (s / v.get("block_q", 64)
                                  if v.get("chunked") else 3.0),
     app_site="attention",
+    scales=(256, 512, 1024, 2048)))
+
+
+# ---------------------------------------------------------- rwkv wkv ------
+_WKV_B, _WKV_H, _WKV_K = 2, 8, 64
+
+
+def _wkv_case_ref(r, k, v, lw, u):
+    o, _ = kref.wkv_ref(r, k, v, lw, u)
+    return o
+
+
+def _wkv_build(variant, impl="torch"):
+    """Site signature: (r, k, v, lw, u, chunk=...) → o.
+
+    ``impl="cuda"`` is the hand-written WKV kernel K6, with ``chunk`` the
+    time steps it stages per load (its output only, as the Pallas build
+    returns).  The ``chunked`` torch build is the model's three-phase
+    chunked WKV; the naive one the sequential recurrence."""
+    chunk = variant.get("chunk", 64)
+    if impl == "cuda":
+        def fn(r, k, v, lw, u, **kw):
+            return wkv(r, k, v, lw, u, chunk=chunk, device=r.device.type)[0]
+        return fn
+    if variant.get("chunked"):
+        def chunked(r, k, v, lw, u, **kw):
+            o, _ = _wkv_chunked(r, k, v, lw, u, chunk, use_impl=False)
+            return o.to(r.dtype)
+        return chunked
+
+    # naive: sequential token-by-token recurrence (the extracted hotspot)
+    def seq(r, k, v, lw, u, **kw):
+        o, _ = kref.wkv_ref(r, k, v, lw, u)
+        return o.to(r.dtype)
+    return seq
+
+
+def _wkv_specs(s):
+    shp = (_WKV_B, s, _WKV_H, _WKV_K)
+    return [ArraySpec(shp, F32), ArraySpec(shp, F32), ArraySpec(shp, F32),
+            ArraySpec(shp, F32, "uniform", -3.0, -0.01),
+            ArraySpec((_WKV_H, _WKV_K), F32)]
+
+
+register(KernelCase(
+    name="rwkv_wkv", suite="hpc", family="scan",
+    ref=_wkv_case_ref, build=_wkv_build,
+    input_specs=_wkv_specs,
+    variant_space={"chunked": [False, True], "chunk": [16, 32, 64, 128]},
+    baseline_variant={"chunked": False, "chunk": 64},
+    flops=lambda s: 6.0 * _WKV_B * _WKV_H * s * _WKV_K * _WKV_K,
+    traffic=lambda v, s: 4.0 * _WKV_B * _WKV_H * s * _WKV_K * (
+        4 + (2 * _WKV_K / max(v.get("chunk", 64), 1)
+             if v.get("chunked") else 2 * _WKV_K)),
+    latency=lambda v, s: 3e-6 * ((v.get("chunk", 64) + s / v.get("chunk", 64))
+                                 if v.get("chunked") else s),
+    app_site="rwkv_wkv",
+    scales=(128, 256, 512, 1024)))
+
+
+# ---------------------------------------------------------- mamba ssd -----
+_SSD_B, _SSD_H, _SSD_P, _SSD_N = 2, 8, 64, 16
+
+
+def _ssd_case_ref(xh, dt, a_log, B_t, C_t):
+    y, _ = kref.ssd_ref(xh, dt, a_log, B_t, C_t)
+    return y
+
+
+def _ssd_build(variant, impl="torch"):
+    """Site signature: (xh, dt, a_log, B_t, C_t, chunk=...) → y.
+
+    ``impl="cuda"`` is the hand-written SSD kernel K7 at the variant's
+    ``chunk`` (its output only, as the Pallas build returns).  The
+    ``chunked`` torch build is the model's chunked SSD; the naive one the
+    sequential scan."""
+    chunk = variant.get("chunk", 128)
+    if impl == "cuda":
+        def fn(xh, dt, a_log, B_t, C_t, **kw):
+            return ssd(xh, dt, a_log, B_t, C_t, chunk=chunk,
+                       device=xh.device.type)[0]
+        return fn
+    if variant.get("chunked"):
+        def chunked(xh, dt, a_log, B_t, C_t, **kw):
+            y, _ = _ssd_chunked(xh, dt, a_log, B_t, C_t, chunk,
+                                use_impl=False)
+            return y
+        return chunked
+
+    def seq(xh, dt, a_log, B_t, C_t, **kw):
+        y, _ = kref.ssd_ref(xh, dt, a_log, B_t, C_t)
+        return y
+    return seq
+
+
+def _ssd_specs(s):
+    return [ArraySpec((_SSD_B, s, _SSD_H, _SSD_P), F32),
+            ArraySpec((_SSD_B, s, _SSD_H), F32, "uniform", 0.001, 0.1),
+            ArraySpec((_SSD_H,), F32, "uniform", -1.0, 1.0),
+            ArraySpec((_SSD_B, s, _SSD_N), F32),
+            ArraySpec((_SSD_B, s, _SSD_N), F32)]
+
+
+register(KernelCase(
+    name="mamba_ssd", suite="hpc", family="scan",
+    ref=_ssd_case_ref, build=_ssd_build,
+    input_specs=_ssd_specs,
+    variant_space={"chunked": [False, True], "chunk": [32, 64, 128, 256]},
+    baseline_variant={"chunked": False, "chunk": 128},
+    flops=lambda s: 6.0 * _SSD_B * _SSD_H * s * _SSD_P * _SSD_N,
+    latency=lambda v, s: 3e-6 * ((s / v.get("chunk", 128))
+                                 if v.get("chunked") else s),
+    app_site="ssm_chunk",
     scales=(256, 512, 1024, 2048)))

@@ -4,7 +4,11 @@ The JAX tree is ``{"layers": {name: [L, ...]}, "embed", "final_ln",
 "lm_head"}`` with every leaf as a numpy array.  The port keeps the same
 names and the same ``[in, out]`` weight layout, so conversion only splits
 the stacked ``[L, ...]`` layer arrays into ``layers.<i>.<name>``; no weight
-needs a transpose.
+needs a transpose.  The same holds for every ported family: rwkv6 layers
+carry the time-mix/channel-mix names (``mu_*``, ``w_r`` … ``cm_r``), hybrid
+layers the attention and MLP names plus ``mamba_*``, ``attn_out_ln`` and
+``mamba_out_ln``; a config with tied embeddings (hymba) has no ``lm_head``
+in either tree.
 """
 from __future__ import annotations
 

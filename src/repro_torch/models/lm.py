@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense family, as an ``nn.Module``.
+"""Decoder-only LM, dense, ssm and hybrid families, as an ``nn.Module``.
 
 Port of ``repro.models.lm``.  Layers are an ``nn.ModuleList`` run by an
 explicit Python loop (the JAX twin scans stacked layers with remat).
@@ -8,8 +8,11 @@ module's state dict.
 
 Entry points:
   forward(tokens)                     — parallel forward → hidden states
-  prefill(tokens, max_len, lengths)   — last-token logits + KV cache
-  decode_step(cache, token, pos)      — one token per row; the KV cache is
+  prefill(tokens, max_len, lengths)   — last-token logits + cache: K/V
+                                        (dense, hybrid) and the recurrent
+                                        state (ssm: wkv, token shifts;
+                                        hybrid: conv tail, SSD state)
+  decode_step(cache, token, pos)      — one token per row; the cache is
                                         updated in place
 """
 from __future__ import annotations
@@ -23,8 +26,38 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def layer_spec(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """name → shape of one layer's parameters (the JAX twin's names)."""
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        spec = {"ln1": (d,), "ln2": (d,)}
+        spec.update(SSM.rwkv_param_spec(cfg))
+        return spec
+    spec = {"ln1": (d,)}
+    spec.update(L.attn_param_spec(cfg))
+    if not cfg.parallel_block:
+        spec["ln2"] = (d,)
+    spec.update(L.mlp_param_spec(cfg))
+    if cfg.family == "hybrid":
+        spec.update({f"mamba_{k}": v
+                     for k, v in SSM.mamba_param_spec(cfg).items()})
+        spec["attn_out_ln"] = (d,)
+        spec["mamba_out_ln"] = (d,)
+    return spec
+
+
+def top_spec(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """name → shape of the parameters outside the layers."""
+    vp, d = cfg.padded_vocab(), cfg.d_model
+    spec = {"embed": (vp, d), "final_ln": (d,)}
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = (d, vp)
+    return spec
 
 
 class ParamGroup(nn.Module):
@@ -44,38 +77,22 @@ class ParamGroup(nn.Module):
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device="cuda"):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: the dense family "
-                "is; the others come with ROADMAP.md queue 1 item 7")
+                f"family {cfg.family!r} is not ported yet: dense, ssm and "
+                "hybrid are; moe, encdec and vlm come with ROADMAP.md queue 1 "
+                "item 7")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.param_dtype]
         self.layers = nn.ModuleList(
-            ParamGroup(self.layer_spec(), self.dtype, self.device)
+            ParamGroup(layer_spec(cfg), self.dtype, self.device)
             for _ in range(cfg.n_layers))
-        self.top = ParamGroup(self.top_spec(), self.dtype, self.device)
+        self.top = ParamGroup(top_spec(cfg), self.dtype, self.device)
 
     # ------------------------------------------------------------------
     # parameters
     # ------------------------------------------------------------------
-    def layer_spec(self) -> Dict[str, Tuple[int, ...]]:
-        cfg = self.cfg
-        spec = {"ln1": (cfg.d_model,)}
-        spec.update(L.attn_param_spec(cfg))
-        if not cfg.parallel_block:
-            spec["ln2"] = (cfg.d_model,)
-        spec.update(L.mlp_param_spec(cfg))
-        return spec
-
-    def top_spec(self) -> Dict[str, Tuple[int, ...]]:
-        cfg = self.cfg
-        vp, d = cfg.padded_vocab(), cfg.d_model
-        spec = {"embed": (vp, d), "final_ln": (d,)}
-        if not cfg.tie_embeddings:
-            spec["lm_head"] = (d, vp)
-        return spec
-
     def init_params(self, generator: torch.Generator) -> None:
         """Fill every parameter in place by the JAX package's init rule
         (``layers.init_rule``), drawing from ``generator``, which must live
@@ -91,29 +108,64 @@ class LM(nn.Module):
     # blocks
     # ------------------------------------------------------------------
     def _block(self, x, p, positions, cache=None, pos=None):
-        """One transformer block.  With ``cache`` (k_cache, v_cache) it
-        decodes: writes this step's K/V at ``pos`` in place and attends
-        over the cache.  Returns (x, (k, v) of this call)."""
+        """One block.  With ``cache`` (this layer's slice of the decode
+        cache) it decodes one token: K/V are written at ``pos`` in place,
+        attention runs over the cache, and the recurrent state continues
+        from the cache.  Returns (x, this call's cache entries: k/v of the
+        call, the new recurrent state)."""
         cfg = self.cfg
         B, S, _ = x.shape
+        if cfg.family == "ssm":
+            return self._rwkv_block(x, p, cache)
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         q, k, v = L._project_qkv(h, p, cfg, positions)
         if cache is None:
             att = L.attention_chunked(q, k, v, causal=True,
                                       softcap=cfg.logit_softcap)
         else:
-            k_cache, v_cache = cache
-            L.cache_update(k_cache, k, pos)
-            L.cache_update(v_cache, v, pos)
+            L.cache_update(cache["k"], k, pos)
+            L.cache_update(cache["v"], v, pos)
             length = L.decode_lengths(pos, B, x.device)
-            att = L.attention_decode(q, k_cache, v_cache, length,
+            att = L.attention_decode(q, cache["k"], cache["v"], length,
                                      cfg.logit_softcap)
         attn_out = att.reshape(B, S, -1) @ p["wo"]
+        new = {"k": k, "v": v}
+        if cfg.family == "hybrid":
+            mp = {name[len("mamba_"):]: t for name, t in p.items()
+                  if name.startswith("mamba_")}
+            m_state = None if cache is None else {"conv": cache["conv"],
+                                                  "ssm": cache["ssm"]}
+            mamba_out, m_new = SSM.mamba_block(h, mp, cfg, state=m_state)
+            # mean of per-branch normalized outputs (hymba parallel heads)
+            attn_out = L.rms_norm(attn_out, p["attn_out_ln"], cfg.norm_eps)
+            mamba_out = L.rms_norm(mamba_out, p["mamba_out_ln"], cfg.norm_eps)
+            attn_out = 0.5 * (attn_out + mamba_out)
+            new.update(conv=m_new["conv"], ssm=m_new["ssm"].float())
         if cfg.parallel_block:
-            return x + attn_out + L.mlp(h, p, cfg), (k, v)
+            return x + attn_out + L.mlp(h, p, cfg), new
         x = x + attn_out
         x = x + L.mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps), p, cfg)
-        return x, (k, v)
+        return x, new
+
+    def _rwkv_block(self, x, p, cache):
+        """One RWKV6 block (time mix, channel mix); decodes from ``cache``
+        when given, else starts from zero token shifts and state."""
+        cfg = self.cfg
+        zeros = torch.zeros((x.shape[0], cfg.d_model), dtype=x.dtype,
+                            device=x.device)
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        tm_out, (shift_tm, wkv) = SSM.rwkv_time_mix(
+            h, p, cfg,
+            shift_state=zeros if cache is None else cache["shift_tm"],
+            wkv_state=None if cache is None else cache["wkv"])
+        x = x + tm_out
+        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        cm_out, shift_cm = SSM.rwkv_channel_mix(
+            h, p, cfg,
+            shift_state=zeros if cache is None else cache["shift_cm"])
+        x = x + cm_out
+        return x, {"wkv": wkv.float(), "shift_tm": shift_tm,
+                   "shift_cm": shift_cm}
 
     # ------------------------------------------------------------------
     # forward passes
@@ -122,18 +174,19 @@ class LM(nn.Module):
         return F.embedding(tokens, self.top.embed).to(self.dtype)
 
     def forward(self, tokens, *, collect_cache: bool = False):
-        """Parallel forward over [B, S].  Returns (hidden, kv) where kv is
-        the per-layer list of (k, v) [B, S, KV, hd] with ``collect_cache``,
-        else None."""
+        """Parallel forward over [B, S].  Returns (hidden, caches) where
+        caches is the per-layer list of cache entries with
+        ``collect_cache`` (k/v [B, S, KV, hd]; the recurrent state at the
+        end of the row), else None."""
         x = self._embed(tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-        kv: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        caches: List[Dict[str, torch.Tensor]] = []
         for layer in self.layers:
-            x, kv_l = self._block(x, layer.tensors(), positions)
+            x, new = self._block(x, layer.tensors(), positions)
             if collect_cache:
-                kv.append(kv_l)
+                caches.append(new)
         x = L.rms_norm(x, self.top.final_ln, self.cfg.norm_eps)
-        return x, (kv if collect_cache else None)
+        return x, (caches if collect_cache else None)
 
     def logits_fn(self, hidden):
         cfg = self.cfg
@@ -148,11 +201,26 @@ class LM(nn.Module):
     # serving
     # ------------------------------------------------------------------
     def cache_shapes(self, batch: int, max_len: int):
-        """name → (shape, dtype) of the KV cache."""
+        """name → (shape, dtype) of the decode cache: K/V for the attention
+        families, the recurrent state (f32 for wkv/ssm) for ssm/hybrid;
+        every entry has the layer axis first."""
         cfg = self.cfg
-        kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
-              cfg.resolved_head_dim)
-        return {"k": (kv, self.dtype), "v": (kv, self.dtype)}
+        Lc = cfg.n_layers
+        shapes = {}
+        if cfg.family != "ssm":
+            kv = (Lc, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+            shapes["k"] = (kv, self.dtype)
+            shapes["v"] = (kv, self.dtype)
+        if cfg.family == "hybrid":
+            ms = SSM.mamba_state_shape(cfg, batch)
+            shapes["conv"] = ((Lc,) + ms["conv"], self.dtype)
+            shapes["ssm"] = ((Lc,) + ms["ssm"], torch.float32)
+        if cfg.family == "ssm":
+            rs = SSM.rwkv_state_shape(cfg, batch)
+            shapes["wkv"] = ((Lc,) + rs["wkv"], torch.float32)
+            shapes["shift_tm"] = ((Lc,) + rs["shift_tm"], self.dtype)
+            shapes["shift_cm"] = ((Lc,) + rs["shift_cm"], self.dtype)
+        return shapes
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
         return {name: torch.zeros(shape, dtype=dtype, device=self.device)
@@ -172,7 +240,7 @@ class LM(nn.Module):
         """
         B, Sq = tokens.shape
         max_len = max_len or Sq
-        hidden, kv = self.forward(tokens, collect_cache=True)
+        hidden, caches = self.forward(tokens, collect_cache=True)
         if lengths is None:
             h_last = hidden[:, -1:, :]
         else:
@@ -180,15 +248,18 @@ class LM(nn.Module):
             h_last = hidden[torch.arange(B, device=hidden.device), idx][:, None]
         logits = self.logits_fn(h_last)
         cache = self.init_cache(B, max_len)
-        for i, (k, v) in enumerate(kv):
-            cache["k"][i, :, :Sq] = k
-            cache["v"][i, :, :Sq] = v
+        for i, new in enumerate(caches):
+            for name, t in new.items():
+                if name in ("k", "v"):
+                    cache[name][i, :, :Sq] = t
+                else:                      # recurrent state: the row's end
+                    cache[name][i] = t
         return logits, cache
 
     def decode_step(self, cache, token, pos):
         """token [B,1]; pos an int (current cache length, shared by every
         row) or a [B] tensor of per-slot cache lengths (ragged decode).
-        Writes the new K/V into ``cache`` in place.
+        Writes the new K/V and recurrent state into ``cache`` in place.
         Returns (logits [B,1,V], cache)."""
         x = self._embed(token)
         if L.is_shared_pos(pos):
@@ -197,7 +268,11 @@ class LM(nn.Module):
             pos = torch.as_tensor(pos, device=x.device).long()
             positions = pos[:, None]                        # [B, 1] per slot
         for i, layer in enumerate(self.layers):
-            x, _ = self._block(x, layer.tensors(), positions,
-                               cache=(cache["k"][i], cache["v"][i]), pos=pos)
+            x, new = self._block(x, layer.tensors(), positions,
+                                 cache={n: c[i] for n, c in cache.items()},
+                                 pos=pos)
+            for name, t in new.items():
+                if name not in ("k", "v"):  # K/V were written at pos
+                    cache[name][i].copy_(t)
         x = L.rms_norm(x, self.top.final_ln, self.cfg.norm_eps)
         return self.logits_fn(x), cache

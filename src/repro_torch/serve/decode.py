@@ -11,7 +11,9 @@ KV-cache *slots* and streams greedy decode continuously:
   prefilled as one packed batch per bucket per admission wave.  Under
   causal attention the pad tail cannot influence earlier positions and pad
   K/V beyond the true length is masked out at decode, so packed prefill
-  equals per-request prefill.
+  equals per-request prefill.  The recurrent families (ssm, hybrid) pack
+  exact-length groups instead: a pad token would enter the cumulative
+  state (``padded_packing`` False, ``bucket_of`` the prompt length).
 * **Swap epochs** — the registry (``ops.registry_epoch``) is re-checked at
   every step boundary and each change is counted.  Execution is eager, so
   the model consults the registry on every call and a newly installed impl
@@ -20,8 +22,9 @@ KV-cache *slots* and streams greedy decode continuously:
 * **Per-bucket telemetry** — every prefill/decode event is observed at the
   ``attention`` site and tagged with the request's bucket.
 
-The dense family only: recurrent families (exact-length packing) and
-``FixedBatchServer`` come with their ports.
+Every ported family (dense, ssm, hybrid); the cache's recurrent-state
+entries are spliced into their slots like K/V.  ``FixedBatchServer`` comes
+with its port (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -115,7 +118,13 @@ class BatchedServer:
         self.slots = slots
         self.max_len = max_len
         self.eos_id = eos_id
-        self.buckets: Tuple[int, ...] = _pow2_buckets(max_len)
+        # padding a packed batch is only exact when positions beyond a
+        # row's true length cannot leak into it: causal attention masks
+        # them, but cumulative recurrent state (ssm / hybrid) would absorb
+        # the pads — those families pack exact-length groups instead
+        self.padded_packing = model.cfg.family not in ("ssm", "hybrid")
+        self.buckets: Tuple[int, ...] = (_pow2_buckets(max_len)
+                                         if self.padded_packing else ())
         self.telemetry = telemetry if telemetry is not None else ops.telemetry
         self.queue: List[Request] = []
         self.active: List[Optional[Request]] = [None] * slots
@@ -136,7 +145,13 @@ class BatchedServer:
 
     # --------------------------------------------------------- admission --
     def bucket_of(self, prompt_len: int) -> int:
-        """The prefill bucket a prompt of this length is admitted under."""
+        """The prefill bucket a prompt of this length is admitted under (its
+        own length under exact-length packing)."""
+        if not self.padded_packing:
+            if prompt_len > self.max_len:
+                raise ValueError(f"prompt length {prompt_len} exceeds "
+                                 f"max_len={self.max_len}")
+            return prompt_len
         for b in self.buckets:
             if prompt_len <= b:
                 return b

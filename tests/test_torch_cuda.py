@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels (K1, K2, K6, K7) against their plain PyTorch
+versions, on a card.
 
 Imports no JAX, so it runs on the GPU machine:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -10,6 +11,8 @@ import torch
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.kernels.matmul import matmul, matmul_ref
+from repro_torch.kernels.rwkv_wkv import wkv, wkv_plain
+from repro_torch.kernels.ssd_scan import ssd, ssd_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -119,3 +122,77 @@ def test_matmul_kernel_refuses_an_oversized_tile(cuda):
     with pytest.raises(RuntimeError, match="shared memory"):
         matmul(a, a, block_m=256, block_n=256, block_k=256)
     assert matmul.launches == before
+
+
+def recurrence_tolerance(dtype):
+    """(rtol, atol) of K6/K7 against their plain versions: f32 sums the
+    same terms in another order (chunked vs sequential for K7's plain
+    version); bf16 outputs are rounded from f32 on both sides, two ulps."""
+    return (1e-3, 1e-3) if dtype == torch.float32 else (2.0 ** -6, 1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,chunk", [
+    (1, 8, 64, 64, 128),          # rwkv6-7b decode-sized prefill
+    (4, 256, 64, 64, 128),        # rwkv6-7b, two stages
+    (2, 96, 8, 64, 64),           # ragged last stage
+    (2, 33, 4, 16, 16),           # the reduced config's head size
+    (1, 40, 2, 128, 32),          # the widest head
+])
+def test_wkv_kernel_matches_plain_version(cuda, dtype, B, S, H, K, chunk):
+    g = torch.Generator(device=cuda).manual_seed(S + K)
+    r, k, v = (0.5 * torch.randn(B, S, H, K, device=cuda, generator=g)
+               for _ in range(3))
+    lw = -torch.rand(B, S, H, K, device=cuda, generator=g) * 3 - 0.01
+    u = 0.5 * torch.randn(H, K, device=cuda, generator=g)
+    r, k, v, u = (t.to(dtype) for t in (r, k, v, u))
+    before = wkv.launches
+    o, st = wkv(r, k, v, lw, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wkv.launches == before + 1
+    assert o.dtype == dtype and st.dtype == torch.float32
+    want_o, want_st = wkv_plain(r, k, v, lw, u, chunk=chunk)
+    rtol, atol = recurrence_tolerance(dtype)
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(st, want_st, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 8, 50, 64, 16, 128),      # hymba, one short chunk
+    (4, 256, 50, 64, 16, 128),    # hymba, two chunks
+    (2, 200, 8, 64, 16, 256),     # the case's largest chunk, ragged
+    (2, 70, 8, 16, 4, 32),        # the reduced config's P and N
+    (1, 64, 2, 128, 16, 64),      # the widest head
+])
+def test_ssd_kernel_matches_plain_version(cuda, dtype, B, S, H, P, N,
+                                          chunk):
+    g = torch.Generator(device=cuda).manual_seed(S + P)
+    xh = torch.randn(B, S, H, P, device=cuda, generator=g)
+    dt = torch.rand(B, S, H, device=cuda, generator=g) * 0.1 + 0.001
+    a_log = torch.rand(H, device=cuda, generator=g) * 2 - 1
+    bc = torch.randn(B, S, 2 * N, device=cuda, generator=g)
+    B_t, C_t = (t.to(dtype) for t in torch.chunk(bc, 2, dim=-1))
+    xh = xh.to(dtype)
+    before = ssd.launches
+    y, st = ssd(xh, dt, a_log, B_t, C_t, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    assert y.dtype == dtype and st.dtype == torch.float32
+    want_y, want_st = ssd_plain(xh, dt, a_log, B_t, C_t, chunk=chunk)
+    rtol, atol = recurrence_tolerance(dtype)
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(st, want_st, rtol=1e-3, atol=1e-3)
+
+
+def test_recurrent_kernels_refuse_an_oversized_stage(cuda):
+    x = torch.zeros(1, 512, 1, 64, device=cuda)
+    before = ssd.launches
+    with pytest.raises(RuntimeError, match="shared memory"):
+        ssd(x, torch.zeros(1, 512, 1, device=cuda), torch.zeros(1,
+                                                                 device=cuda),
+            torch.zeros(1, 512, 16, device=cuda),
+            torch.zeros(1, 512, 16, device=cuda), chunk=512)
+    assert ssd.launches == before

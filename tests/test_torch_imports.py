@@ -18,6 +18,8 @@ from repro_torch.core import H100ModelPlatform, fe, get_case
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.matmul import matmul
+from repro_torch.kernels.rwkv_wkv import wkv
+from repro_torch.kernels.ssd_scan import ssd
 from repro_torch.models import get_model
 from repro_torch.models.lm import LM
 from repro_torch.serve import BatchedServer, generate
@@ -51,6 +53,11 @@ def test_guard_sees_every_port_module():
                  "src/repro_torch/kernels/matmul.py",
                  "src/repro_torch/kernels/suites/polybench.py",
                  "src/repro_torch/kernels/suites/hpc.py",
+                 "src/repro_torch/kernels/rwkv_wkv.py",
+                 "src/repro_torch/kernels/ssd_scan.py",
+                 "src/repro_torch/models/ssm.py",
+                 "src/repro_torch/configs/rwkv6_7b.py",
+                 "src/repro_torch/configs/hymba_1_5b.py",
                  "src/repro_torch/hw.py"):
         assert must in names
     for mod in ("kernelcase", "datagen", "fe", "measure", "evalcache",
@@ -62,10 +69,14 @@ def test_guard_sees_every_port_module():
 
 CFG = dataclasses.replace(get_config("glm4-9b").reduced(),
                           param_dtype="float32")
+RWKV = dataclasses.replace(get_config("rwkv6-7b").reduced(),
+                           param_dtype="float32")
+HYMBA = dataclasses.replace(get_config("hymba-1.5b").reduced(),
+                            param_dtype="float32")
 
 
-def _cpu_model():
-    m = get_model(CFG, device="cpu")
+def _cpu_model(cfg=CFG):
+    m = get_model(cfg, device="cpu")
     m.init_params(torch.Generator().manual_seed(0))
     return m
 
@@ -84,6 +95,14 @@ ENTRY_POINTS = {
         torch.zeros(1, 8, 1, 16), **kw),
     "matmul": lambda **kw: matmul(torch.zeros(8, 16), torch.zeros(16, 8),
                                   **kw),
+    "wkv": lambda **kw: wkv(*([torch.zeros(1, 4, 2, 16)] * 4),
+                            torch.zeros(2, 16), **kw),
+    "ssd": lambda **kw: ssd(torch.zeros(1, 4, 2, 16), torch.zeros(1, 4, 2),
+                            torch.zeros(2), torch.zeros(1, 4, 3),
+                            torch.zeros(1, 4, 3), **kw),
+    "get_model(rwkv6)": lambda **kw: get_model(RWKV, **kw),
+    "BatchedServer(hymba)": lambda **kw: BatchedServer(
+        _cpu_model(HYMBA), slots=1, max_len=16, **kw),
     "H100ModelPlatform": lambda **kw: H100ModelPlatform(**kw),
     "fe.check": lambda **kw: fe.check(
         get_case("gemm"), get_case("gemm").baseline_variant, 16,
@@ -110,6 +129,10 @@ def test_a_cuda_request_never_runs_cpu_data(monkeypatch):
         ENTRY_POINTS["flash_attention"](device="cuda")
     with pytest.raises(ValueError, match="lies on cpu"):
         ENTRY_POINTS["matmul"](device="cuda")
+    with pytest.raises(ValueError, match="lies on cpu"):
+        ENTRY_POINTS["wkv"](device="cuda")
+    with pytest.raises(ValueError, match="lies on cpu"):
+        ENTRY_POINTS["ssd"](device="cuda")
     with pytest.raises(ValueError, match="model lives on cpu"):
         ENTRY_POINTS["BatchedServer"](device="cuda")
     with pytest.raises(ValueError, match="model lives on cpu"):

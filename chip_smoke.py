@@ -5,10 +5,12 @@
 
 Phases, each fatal on failure (exit 1, no result line):
 
-1. Device: the card's name and power limit; the four CUDA kernels (K2
-   flash attention, K1 tiled GEMM, K6 WKV6, K7 Mamba-2 SSD) are built from
-   the sources in the checkout (nvcc, sm_90a, one nvcc per source, started
-   together) and the build times shown.  A failed build is fatal.
+1. Device: the card's name and power limit; the six CUDA sources (K2
+   flash attention, K1 tiled GEMM, K6 WKV6, K7 Mamba-2 SSD, K3 blocked
+   sum, K5 grouped GEMM) are built from the checkout (nvcc, sm_90a, one
+   nvcc per source, started together) and the build times shown; the
+   Triton map kernel K4 is compiled (into build/triton/) by one launch,
+   checked against a + b.  A failed build or compile is fatal.
 2. Kernel vs plain: the flash-attention kernel against its plain PyTorch
    version at the serving shapes (B 1 and 4; S 8, 64, 96, 256; H 32, KV 2,
    hd 128; bf16 and f32; causal), with CUDA-event times of the kernel, the
@@ -71,9 +73,24 @@ Phases, each fatal on failure (exit 1, no result line):
    2x256 tokens against the naive sequential recurrence; ``fe_ok`` must be
    true.  K6 and K7 are held against their plain versions at every shape
    the phase gave them.
+12. The rest of the suites' kernels: a ``Campaign`` on ``h100`` over the
+   four cases whose ``cuda`` build launches a hand-written kernel,
+   ``matrixmultiplication`` (K1), ``reduction`` (K3), ``vectoradd`` (K4)
+   and ``moe_grouped_gemm`` (K5), as phase 5; each must launch its kernel
+   and reach an ``ok`` candidate.
+13. K1, K3, K4 and K5 against their plain versions at every call phase 12
+   gave them, on its inputs (K3 also repeated and on integer-valued inputs,
+   both bitwise equal); K3, K4 and K5 timed at their case's winner beside
+   the bound, the plain version and the library yardstick (``torch.sum``,
+   ``torch.add``, ``torch.bmm``).
+14. Tables 1-3 on the card: a ``Campaign`` on ``h100-torch`` (the torch
+   build timed with CUDA events, the counterpart of the JAX ``CPUPlatform``
+   on its default device) over every PolyBench and APP SDK case and
+   ``moe_grouped_gemm``, as phase 5; each case's speedup and the suites'
+   means beside the paper's (labelled as the paper's).
 Then the device times at the main shapes (K2, K1 as above; K6, K7 at their
-serving runs' heaviest prefill) in a fresh process, the ``kernels`` JSON
-line (K2, K1, K6, K7) and the result line.
+serving runs' heaviest prefill; K3, K4, K5 as in phase 13) in a fresh
+process, the ``kernels`` JSON line (K1-K7) and the result line.
 
 Details of every case go to chiprun_out/chip_smoke.json.
 """
@@ -104,7 +121,8 @@ KERNEL_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2.0 ** -6, 1e-5)}
 # last-token logits through the kernel vs the plain version, 40 bf16 layers,
 # relative to the logits' largest magnitude
 LOGITS_RTOL = 5e-2
-KERNEL_SOURCES = ("flash_attention", "matmul", "rwkv_wkv", "ssd_scan")
+KERNEL_SOURCES = ("flash_attention", "matmul", "rwkv_wkv", "ssd_scan",
+                  "reduce_sum", "moe_gemm")
 MATMUL_CASES = ("gemm", "2mm", "3mm", "syrk", "syr2k")
 
 
@@ -276,8 +294,24 @@ def phase_device(report):
             if "registers" in line or "spill" in line:
                 print("    ptxas:" + line.split(":", 1)[-1].rstrip(),
                       flush=True)
+    # K4 is Triton: compiled at its first launch, which is checked here
+    from repro_torch.kernels.elementwise import elementwise
+    from repro_torch.kernels.suites.appsdk import _add
+    t0 = time.perf_counter()
+    a, b = (torch.randn(10000, device="cuda") for _ in range(2))
+    try:
+        got = elementwise(_add, a, b, block=4096)
+        torch.cuda.synchronize()
+    except Exception as e:
+        fail(f"compiling the Triton map kernel failed: {e}")
+    if not torch.equal(got, a + b):
+        fail("the Triton map kernel's first launch disagrees with a + b")
+    triton_s = time.perf_counter() - t0
+    print(f"  elementwise.py (Triton): compile and first launch "
+          f"{triton_s:.2f} s", flush=True)
     report["device"] = {"name": name, "nvidia_smi": smi,
                         "torch": torch.__version__,
+                        "triton_compile_s": triton_s,
                         "build_s": {n: build.build_info[n]["seconds"]
                                     for n in KERNEL_SOURCES},
                         "ptxas": {n: [line.strip() for line in str(
@@ -393,7 +427,7 @@ def compare_k1(key, args, kw, timed: bool = True):
     import torch
     from repro_torch.kernels.matmul import matmul, matmul_ref
     M, K, N, ep, dtype, bm, bn, bk, layout = key
-    a, b, c = args
+    a, b, c = (*args, None)[:3]
     ab = dict(epilogue=ep, alpha=kw.get("alpha", 1.0),
               beta=kw.get("beta", 1.0))
     got = matmul(*args, **kw)
@@ -429,12 +463,32 @@ def mep_scale(log):
     fail(f"no MEP scale in {log}")
 
 
+def run_case(camp, store, platform, name):
+    """One case through ``camp`` with the heuristic proposer: the result
+    and its row (MEP scale, baseline -> best, candidates by status, AER
+    repairs, seconds)."""
+    from repro_torch.core import CaseJob, HeuristicProposer, get_case
+    t = time.perf_counter()
+    res = camp.run([CaseJob(get_case(name), HeuristicProposer(
+        0, store, platform.name))])[0]
+    cands = [c for rl in res.rounds for c in rl.candidates]
+    status = {st: sum(c.status == st for c in cands)
+              for st in ("ok", "fe_fail", "build_error", "run_error")}
+    return res, {"case": name, "suite": get_case(name).suite,
+                 "scale": mep_scale(res.mep_log),
+                 "baseline_ms": res.baseline_time_s * 1e3,
+                 "best_ms": res.best_time_s * 1e3, "speedup": res.speedup,
+                 "best_variant": res.best_variant,
+                 "candidates": len(cands), "status": status,
+                 "aer_repairs": res.aer_records,
+                 "seconds": time.perf_counter() - t}
+
+
 def phase_campaign(report):
     """A Campaign on the measured h100 platform over the matmul family;
     every FE check and timing of a candidate goes through K1."""
-    from repro_torch.core import (Campaign, CaseJob, EvalCache, H100Platform,
-                                  HeuristicProposer, PatternStore, ResultsDB,
-                                  get_case)
+    from repro_torch.core import (Campaign, EvalCache, H100Platform,
+                                  PatternStore, ResultsDB)
     from repro_torch.kernels.matmul import fit, matmul
     from repro_torch.kernels.suites import polybench
 
@@ -455,34 +509,21 @@ def phase_campaign(report):
     try:
         for name in MATMUL_CASES:
             before = matmul.launches
-            t = time.perf_counter()
-            res = camp.run([CaseJob(get_case(name), HeuristicProposer(
-                0, store, platform.name))])[0]
-            cands = [c for rl in res.rounds for c in rl.candidates]
-            status = {st: sum(c.status == st for c in cands)
-                      for st in ("ok", "fe_fail", "build_error",
-                                 "run_error")}
-            scale = mep_scale(res.mep_log)
-            row = {"case": name, "scale": scale,
-                   "baseline_ms": res.baseline_time_s * 1e3,
-                   "best_ms": res.best_time_s * 1e3,
-                   "speedup": res.speedup, "best_variant": res.best_variant,
-                   "rounds": len(res.rounds), "candidates": len(cands),
-                   "status": status, "aer_repairs": res.aer_records,
-                   "launches": matmul.launches - before,
-                   "stop_reason": res.stop_reason,
-                   "seconds": time.perf_counter() - t}
+            res, row = run_case(camp, store, platform, name)
+            row.update(launches=matmul.launches - before,
+                       rounds=len(res.rounds), stop_reason=res.stop_reason)
             rows.append(row)
             results[name] = res
-            print(f"  {name:5s} MEP scale {scale}: baseline "
+            print(f"  {name:5s} MEP scale {row['scale']}: baseline "
                   f"{row['baseline_ms']:.4f} ms -> best {row['best_ms']:.4f}"
                   f" ms ({row['speedup']:.2f}x, {row['best_variant']}); "
-                  f"{len(cands)} candidates FE-checked: {status}; AER "
-                  f"repairs {res.aer_records}; K1 launches "
-                  f"{row['launches']} ({row['seconds']:.1f} s)", flush=True)
+                  f"{row['candidates']} candidates FE-checked: "
+                  f"{row['status']}; AER repairs {res.aer_records}; K1 "
+                  f"launches {row['launches']} ({row['seconds']:.1f} s)",
+                  flush=True)
             if row["launches"] == 0:
                 fail(f"the {name} campaign never launched K1")
-            if status["ok"] == 0:
+            if row["status"]["ok"] == 0:
                 fail(f"no {name} candidate reached status ok through K1")
     finally:
         rec.restore()
@@ -1162,9 +1203,9 @@ def phase_table4(report):
     import gc
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core import (Campaign, CaseJob, EvalCache, H100Platform,
-                                  HeuristicProposer, PatternStore, ResultsDB,
-                                  get_case, integrate)
+    from repro_torch.core import (Campaign, EvalCache, H100Platform,
+                                  PatternStore, ResultsDB, get_case,
+                                  integrate)
     from repro_torch.kernels.suites import hpc
     from repro_torch.models import get_model
 
@@ -1184,28 +1225,16 @@ def phase_table4(report):
         for name, (kind, arch) in TABLE4_CASES.items():
             kernel, _ = kernel_pair(kind)
             kernel.launches = 0                 # this path's run
-            t = time.perf_counter()
-            res = camp.run([CaseJob(get_case(name), HeuristicProposer(
-                0, store, platform.name))])[0]
-            cands = [c for rl in res.rounds for c in rl.candidates]
-            status = {st: sum(c.status == st for c in cands)
-                      for st in ("ok", "fe_fail", "build_error",
-                                 "run_error")}
-            row = {"case": name, "scale": mep_scale(res.mep_log),
-                   "baseline_ms": res.baseline_time_s * 1e3,
-                   "best_ms": res.best_time_s * 1e3,
-                   "speedup": res.speedup, "best_variant": res.best_variant,
-                   "candidates": len(cands), "status": status,
-                   "aer_repairs": res.aer_records,
-                   "campaign_launches": kernel.launches,
-                   "campaign_s": time.perf_counter() - t}
+            res, row = run_case(camp, store, platform, name)
+            row["campaign_launches"] = kernel.launches
+            status = row["status"]
             print(f"  {name:9s} MEP scale {row['scale']}: baseline "
                   f"{row['baseline_ms']:.4f} ms -> best {row['best_ms']:.4f}"
                   f" ms ({row['speedup']:.3f}x, {row['best_variant']}); "
-                  f"{status['ok']} ok of {len(cands)} evaluated, FE fails "
-                  f"{status['fe_fail']}, AER repairs {res.aer_records}; "
-                  f"{kind} launches {kernel.launches} "
-                  f"({row['campaign_s']:.1f} s)", flush=True)
+                  f"{status['ok']} ok of {row['candidates']} evaluated, FE "
+                  f"fails {status['fe_fail']}, AER repairs "
+                  f"{res.aer_records}; {kind} launches {kernel.launches} "
+                  f"({row['seconds']:.1f} s)", flush=True)
             if kernel.launches == 0 or status["ok"] == 0:
                 fail(f"{name}: {kernel.launches} {kind} launches, "
                      f"{status['ok']} ok candidates")
@@ -1273,6 +1302,342 @@ def phase_table4(report):
     return checks
 
 
+# --------------------------------------------------------------------------
+# the rest of the paper's suites (phases 12-14): K3, K4 and K5
+# --------------------------------------------------------------------------
+# the cases whose cuda build launches a hand-written kernel: case → (the
+# module that looks the wrapper up, its name there)
+SUITE_KERNEL_CASES = {"matrixmultiplication": ("appsdk", "matmul"),
+                      "reduction": ("appsdk", "reduce_sum"),
+                      "vectoradd": ("appsdk", "elementwise"),
+                      "moe_grouped_gemm": ("hpc", "grouped_matmul")}
+PAPER_MEAN_SPEEDUP = {"polybench": 5.05, "appsdk": 1.77}   # NVIDIA, paper
+
+
+def suite_wrappers():
+    """name → the wrapper of K1, K3, K4 and K5."""
+    from repro_torch.kernels.elementwise import elementwise
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.kernels.moe_gemm import grouped_matmul
+    from repro_torch.kernels.reduce_sum import reduce_sum
+    return {"matmul": matmul, "reduce_sum": reduce_sum,
+            "elementwise": elementwise, "grouped_matmul": grouped_matmul}
+
+
+def suite_key(name):
+    """The recorded-call key of each wrapper: shape, dtype and the fitted
+    block or tile."""
+    from repro_torch.kernels.matmul import fit
+
+    def dtype(t):
+        return str(t.dtype).replace("torch.", "")
+    if name == "matmul":
+        return k1_key
+    if name == "reduce_sum":
+        return lambda x, block=4096, **_: (
+            x.shape[0], dtype(x), fit(block, x.shape[0]))
+    if name == "elementwise":
+        return lambda fn, *arrs, block=8192, **_: (
+            fn.__name__, len(arrs), arrs[0].shape[0], dtype(arrs[0]),
+            fit(block, arrs[0].shape[0]))
+    return lambda x, w, block_m=128, block_n=128, block_k=128, **_: (
+        tuple(x.shape), w.shape[-1], dtype(x), fit(block_m, x.shape[1]),
+        fit(block_n, w.shape[-1]), fit(block_k, x.shape[2]))
+
+
+def phase_suite_kernels(report):
+    """Phase 12: a Campaign on the measured h100 platform over the four
+    cases whose cuda build launches a hand-written kernel (K1, K3, K4,
+    K5), every candidate FE-checked and timed through it."""
+    from repro_torch.core import Campaign, EvalCache, H100Platform, \
+        PatternStore, ResultsDB
+    from repro_torch.kernels.suites import appsdk, hpc
+
+    platform = H100Platform()
+    db_path = OUT.parent / "campaign_suites.jsonl"
+    db_path.unlink(missing_ok=True)
+    store = PatternStore()
+    camp = Campaign(platform, patterns=store, cache=EvalCache(),
+                    db=ResultsDB(str(db_path)))
+    print(f"the suites' kernel cases on {platform.name} (heuristic proposer,"
+          " D=6 N=3 R=30 k=3, as phase 5):", flush=True)
+    wrappers = suite_wrappers()
+    modules = {"appsdk": appsdk, "hpc": hpc}
+    recs = {w: FirstCalls.at(modules[m], w, suite_key(w))
+            for m, w in SUITE_KERNEL_CASES.values()}
+    rows, results = [], {}
+    try:
+        for name, (_, wname) in SUITE_KERNEL_CASES.items():
+            kernel = wrappers[wname]
+            kernel.launches = 0                 # this path's run
+            res, row = run_case(camp, store, platform, name)
+            row["launches"] = kernel.launches
+            rows.append(row)
+            results[name] = res
+            print(f"  {name:20s} MEP scale {row['scale']}: baseline "
+                  f"{row['baseline_ms']:.4f} ms -> best {row['best_ms']:.4f}"
+                  f" ms ({row['speedup']:.3f}x, {row['best_variant']}); "
+                  f"{row['status']['ok']} ok of {row['candidates']} "
+                  f"evaluated, FE fails {row['status']['fe_fail']}, AER "
+                  f"repairs {row['aer_repairs']}; {wname} launches "
+                  f"{row['launches']} ({row['seconds']:.1f} s)", flush=True)
+            if row["launches"] == 0 or row["status"]["ok"] == 0:
+                fail(f"{name}: {row['launches']} {wname} launches, "
+                     f"{row['status']['ok']} ok candidates")
+    finally:
+        for rec in recs.values():
+            rec.restore()
+    report["suite_kernels"] = {"platform": platform.name, "cases": rows,
+                               "journal": str(db_path.relative_to(ROOT))}
+    return ({w: wrappers[w].launches for _, w in SUITE_KERNEL_CASES.values()},
+            {w: rec.calls for w, rec in recs.items()}, results)
+
+
+def reduce_tolerance(x, want):
+    """K3 vs its plain version: both sum the same n terms in f32 in
+    another order; rounding moves each sum by far less than 2^-20 sum|x|
+    (16 ulps of the sum of magnitudes, where the random-walk error of n
+    roundings is ~sqrt(n) ulps of a partial sum).  A bf16 total is also
+    rounded from f32 on both sides: one ulp (2^-8 |want|) more."""
+    import torch
+    tol = 2.0 ** -20 * x.float().abs().sum().item()
+    if x.dtype == torch.bfloat16:
+        tol += 2.0 ** -8 * abs(float(want))
+    return tol
+
+
+def suite_bound(name, args, kw):
+    """(bound_ms, bound_by) of K3, K4 or K5 on a call's inputs: the larger
+    of the bytes over the HBM rate (each input read once, the output
+    written once) and the operations over the peak for the input type."""
+    if name == "reduce_sum":
+        (x,) = args
+        nbytes, flops, dtype = x.element_size() * (x.numel() + 1), \
+            x.numel(), "float32"
+    elif name == "elementwise":
+        arrs = args[1:]
+        n = arrs[0].numel()
+        nbytes = sum(a.element_size() * n for a in arrs) \
+            + arrs[0].element_size() * n
+        flops, dtype = n * (len(arrs) - 1), str(arrs[0].dtype)[6:]
+    else:
+        x, w = args
+        E, M, K = x.shape
+        N = w.shape[-1]
+        nbytes = x.element_size() * (E * M * K + E * K * N + E * M * N)
+        flops, dtype = 2 * E * M * K * N, str(x.dtype)[6:]
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def compare_suite(name, key, args, kw, timed: bool = False):
+    """K3, K4 or K5 against its plain version on one recorded call's
+    inputs; K3 also called again (bitwise equal) and on integer-valued
+    inputs of the same size (every partial sum exact: bitwise equal).
+    With ``timed``, CUDA-event times of the kernel, the plain version and
+    the library yardstick (torch.sum, torch.add, torch.bmm) beside the
+    bound."""
+    import torch
+    from repro_torch.kernels.elementwise import elementwise_plain
+    from repro_torch.kernels.ref import grouped_matmul_ref
+    from repro_torch.kernels.reduce_sum import reduce_sum_plain
+    kernel = suite_wrappers()[name]
+    pkw = {k: v for k, v in kw.items() if k != "device"}
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    r = {"kernel": name, "key": [str(k) for k in key],
+         "finite": bool(torch.isfinite(got).all())}
+    if name == "reduce_sum":
+        (x,) = args
+        plain = lambda: reduce_sum_plain(x, **pkw)  # noqa: E731
+        library = lambda: torch.sum(x)  # noqa: E731
+        want = plain()
+        diff = abs(float(got) - float(want))
+        r["tol_ratio"] = diff / reduce_tolerance(x, want)
+        r["repeat_bitwise_equal"] = bool(torch.equal(got, kernel(*args,
+                                                                 **kw)))
+        g = torch.Generator(device=x.device).manual_seed(x.numel())
+        xi = torch.randint(-2, 3, x.shape, device=x.device,
+                           generator=g).to(x.dtype)
+        r["integer_bitwise_equal"] = bool(torch.equal(
+            kernel(xi, **kw), reduce_sum_plain(xi, **pkw)))
+        if not (r["repeat_bitwise_equal"] and r["integer_bitwise_equal"]):
+            r["tol_ratio"] = float("inf")
+    elif name == "elementwise":
+        fn, *arrs = args
+        plain = lambda: elementwise_plain(fn, *arrs, **pkw)  # noqa: E731
+        library = lambda: torch.add(*arrs)  # noqa: E731
+        want = plain()
+        diff = (got.float() - want.float()).abs()
+        # as tests/test_torch_cuda.py: within 2^-22 fn(|args|) (a sum alone
+        # is exact)
+        terms = fn(*[a.float().abs() for a in arrs])
+        r["tol_ratio"] = (diff / (2.0 ** -22 * terms + 1e-30)).max().item()
+        diff = diff.max().item()
+    else:
+        x, w = args
+        plain = lambda: grouped_matmul_ref(x, w)  # noqa: E731
+        library = lambda: torch.bmm(x, w)  # noqa: E731
+        want = plain().float()
+        d = (got.float() - want).abs()
+        r["tol_ratio"] = max(
+            (d[e] / k1_tolerance(x[e], w[e], None, want[e], "none", 1.0,
+                                 0.0)).max().item() for e in range(x.shape[0]))
+        diff = d.max().item()
+    r["max_abs_err"] = diff
+    if timed:
+        r["ms"] = cuda_ms(lambda: kernel(*args, **kw))
+        r["plain_ms"] = cuda_ms(plain)
+        r["library_ms"] = cuda_ms(library)
+        r["bound_ms"], r["bound_by"] = suite_bound(name, args, kw)
+    return r
+
+
+def winner_key(case, variant, scale):
+    """The recorded-call key (``suite_key``) of the kernel call that the
+    case's cuda build makes for ``variant`` at ``scale``, with the builds'
+    defaults (block 4096 and 8192, tiles 128)."""
+    from repro_torch.kernels.matmul import fit
+    from repro_torch.kernels.suites.hpc import _GMM_E, _GMM_K, _GMM_N
+    if case == "reduction":
+        return (scale, "float32", fit(variant.get("block", 4096), scale))
+    if case == "vectoradd":
+        return ("_add", 2, scale, "float32",
+                fit(variant.get("block", 8192), scale))
+    dtype = "bfloat16" if variant.get("compute_dtype") == "bf16" \
+        else "float32"
+    return ((_GMM_E, scale, _GMM_K), _GMM_N, dtype,
+            fit(variant.get("block_m", 128), scale),
+            fit(variant.get("block_n", 128), _GMM_N),
+            fit(variant.get("block_k", 128), _GMM_K))
+
+
+def phase_suite_kernel_checks(report, calls, results):
+    """Phase 13: K1, K3, K4 and K5 against their plain versions at every
+    shape, block or tile and dtype phase 12 gave them, on its inputs; at
+    each of K3, K4 and K5's main shape (its case's winner at the MEP
+    scale), times beside the bound."""
+    print("K1, K3, K4, K5 vs plain at every call phase 12 gave them, on its "
+          "inputs (K3 also repeated and on integer inputs, bitwise):",
+          flush=True)
+    checks, mains = {}, {}
+    for case, (_, name) in SUITE_KERNEL_CASES.items():
+        checks[name] = []
+        for key, (args, kw) in sorted(calls[name].items(), key=str):
+            r = compare_k1(key, args, kw, timed=False) if name == "matmul" \
+                else compare_suite(name, key, args, kw)
+            checks[name].append(r)
+            print(f"  {name} {key}: max_abs_err {r['max_abs_err']:.3g} (of "
+                  f"tol {r['tol_ratio']:.2f})", flush=True)
+            if not agrees(r):
+                fail(f"{name} disagrees with its plain version: {r}")
+        if name == "matmul":
+            continue
+        res = results[case]
+        scale, v = mep_scale(res.mep_log), res.best_variant
+        key = winner_key(case, v, scale)
+        if key not in calls[name]:
+            fail(f"{case}'s winner {key} never reached {name}")
+        args, kw = calls[name][key]
+        main = compare_suite(name, key, args, kw, timed=True)
+        if not agrees(main):
+            fail(f"{name} disagrees at its main shape: {main}")
+        mains[name] = (main, (args, kw))
+        print(f"  {name} at {case}'s winner {v} (scale {scale}): kernel "
+              f"{main['ms']:.4f} ms, plain {main['plain_ms']:.4f}, library "
+              f"{main['library_ms']:.4f}, bound {main['bound_ms']:.4f} "
+              f"({main['bound_by']})", flush=True)
+    report["suite_kernel_checks"] = checks
+    report["suite_main_shapes"] = {n: m for n, (m, _) in mains.items()}
+    return checks, mains
+
+
+def phase_tables(report):
+    """Phase 14: Tables 1-3 on the card.  A Campaign on h100-torch, which
+    times the torch build on the card as the JAX CPUPlatform times the jnp
+    build on its default device, over every PolyBench and APP SDK case and
+    moe_grouped_gemm; every case must reach an ok candidate."""
+    from repro_torch.core import (Campaign, EvalCache, H100TorchPlatform,
+                                  PatternStore, ResultsDB, cases)
+    platform = H100TorchPlatform()
+    db_path = OUT.parent / "campaign_tables.jsonl"
+    db_path.unlink(missing_ok=True)
+    store = PatternStore()
+    camp = Campaign(platform, patterns=store, cache=EvalCache(),
+                    db=ResultsDB(str(db_path)))
+    names = [c.name for c in cases("polybench")] + \
+        [c.name for c in cases("appsdk")] + ["moe_grouped_gemm"]
+    print(f"Tables 1-3 on {platform.name} ({len(names)} cases, heuristic "
+          f"proposer, D=6 N=3 R=30 k=3, as phase 5):", flush=True)
+    rows = []
+    t0 = time.perf_counter()
+    for name in names:
+        _, row = run_case(camp, store, platform, name)
+        rows.append(row)
+        print(f"  {row['suite']:9s} {name:20s} MEP scale {row['scale']}: "
+              f"baseline {row['baseline_ms']:.4f} ms -> best "
+              f"{row['best_ms']:.4f} ms = {row['speedup']:.3f}x "
+              f"({row['best_variant']}); {row['status']['ok']} ok of "
+              f"{row['candidates']}, FE fails {row['status']['fe_fail']}, "
+              f"AER repairs {row['aer_repairs']} ({row['seconds']:.1f} s)",
+              flush=True)
+        if row["status"]["ok"] == 0:
+            fail(f"{name}: no candidate reached status ok on "
+                 f"{platform.name}")
+    means = {}
+    for suite in ("polybench", "appsdk", "hpc"):
+        sp = [r["speedup"] for r in rows if r["suite"] == suite]
+        means[suite] = {"cases": len(sp), "mean": sum(sp) / len(sp),
+                        "geomean": float(np.exp(np.mean(np.log(sp))))}
+        print(f"  {suite}: mean speedup {means[suite]['mean']:.3f}x "
+              f"(geometric {means[suite]['geomean']:.3f}x) over "
+              f"{len(sp)} cases" + (
+                  f"; the paper reports {PAPER_MEAN_SPEEDUP[suite]}x on its "
+                  "NVIDIA platform (the paper's figure, not this port's)"
+                  if suite in PAPER_MEAN_SPEEDUP else ""), flush=True)
+    print(f"Tables 1-3: {len(rows)} cases in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    report["tables"] = {"platform": platform.name, "cases": rows,
+                        "means": means,
+                        "journal": str(db_path.relative_to(ROOT))}
+
+
+# kernels a wrapper call launches (K3: its two passes); the others one
+KERNELS_PER_CALL = {"reduce_sum": 2}
+
+
+def device_time_args(name, call):
+    """(args, kwargs) of a main-shape call as ``torch.load`` takes them
+    back: K4's map (the vectoradd case's ``_add``) is left out."""
+    args, kw = call
+    return (args[1:] if name == "elementwise" else args), kw
+
+
+def suite_entries(launches, checks, mains):
+    """The kernels-line entries of K3, K4 and K5."""
+    meta = {"reduce_sum": ("reduce_sum", "cuda",
+                           "src/repro_torch/kernels/csrc/reduce_sum.cu",
+                           "src/repro/kernels/suites/pallas_lib.py:101"),
+            "elementwise": ("elementwise", "triton",
+                            "src/repro_torch/kernels/elementwise.py",
+                            "src/repro/kernels/suites/pallas_lib.py:125"),
+            "grouped_matmul": ("moe_gemm", "cuda",
+                               "src/repro_torch/kernels/csrc/moe_gemm.cu",
+                               "src/repro/kernels/moe_gemm.py:49")}
+    out = []
+    for name, (entry, route, source, replaces) in meta.items():
+        r = mains[name][0]
+        out.append({"name": entry, "route": route, "source": source,
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": max(c["max_abs_err"]
+                                       for c in checks[name] + [r]),
+                    "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"]})
+    return out
+
+
 def fresh_device_time(calls):
     """Profiler device ms of each ``(kernel, args, kwargs)`` call, taken in
     a fresh process (``--device-time``).  Late in this process a trace loses
@@ -1300,15 +1665,17 @@ def device_time_child(path: str) -> None:
     warnings.filterwarnings("ignore", message=".*Profiler clears events")
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.matmul import matmul
     from repro_torch.kernels.rwkv_wkv import wkv
     from repro_torch.kernels.ssd_scan import ssd
-    kernels = {"flash_attention": flash_attention, "matmul": matmul,
-               "wkv": wkv, "ssd": ssd}
+    from repro_torch.kernels.suites.appsdk import _add
+    kernels = {"flash_attention": flash_attention, "wkv": wkv, "ssd": ssd,
+               **suite_wrappers()}
     out = []
     for name, args, kw in torch.load(path):
+        if name == "elementwise":       # saved without the map: the case's
+            args = (_add, *args)
         split = time_split(lambda: kernels[name](*args, **kw),
-                           kernels_per_call=1)
+                           kernels_per_call=KERNELS_PER_CALL.get(name, 1))
         out.append({key: split[key] for key in
                     ("device_ms", "traces", "sentinels_lost")})
     print(json.dumps(out), flush=True)
@@ -1356,22 +1723,29 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     table4_checks = phase_table4(report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    suite_launches, suite_calls, suite_results = phase_suite_kernels(report)
+    suite_checks, suite_mains = phase_suite_kernel_checks(
+        report, suite_calls, suite_results)
+    phase_tables(report)
     wkv_main, wkv_call = main_recurrent_shape("wkv", rwkv_calls["wkv"])
     ssd_main, ssd_call = main_recurrent_shape("ssd", hymba_calls["ssd"])
     report["wkv_main_shape"], report["ssd_main_shape"] = wkv_main, ssd_main
 
-    mains = (main_shape, k1_main, wkv_main, ssd_main)
-    for r, dev in zip(mains, fresh_device_time(
-            [("flash_attention", (q, k, v), {"causal": causal}),
-             ("matmul", *k1_calls[main_key]), ("wkv", *wkv_call),
-             ("ssd", *ssd_call)])):
+    timed = {"flash_attention": (main_shape, ((q, k, v), {"causal": causal})),
+             "matmul": (k1_main, k1_calls[main_key]),
+             "wkv": (wkv_main, wkv_call), "ssd": (ssd_main, ssd_call),
+             **suite_mains}
+    for (r, _), dev in zip(timed.values(), fresh_device_time(
+            [(n, *device_time_args(n, call))
+             for n, (_, call) in timed.items()])):
         r["kernel_device_ms"] = dev["device_ms"]
         r["kernel_trace"] = {key: dev[key]
                              for key in ("traces", "sentinels_lost")}
     print("profiler device ms in a fresh process (CUDA events): "
           + ", ".join(f"{n} {r['kernel_device_ms']:.4f} ({r['ms']:.4f})"
-                      for n, r in zip(("flash_attention", "matmul", "wkv",
-                                       "ssd"), mains)), flush=True)
+                      for n, (r, _) in timed.items()), flush=True)
 
     def recurrent_entry(name, source, replaces, launches, checks, r):
         return {"name": name, "route": "cuda", "source": source,
@@ -1398,12 +1772,14 @@ def main() -> None:
         "name": "matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/matmul.cu",
         "replaces": "src/repro/kernels/suites/pallas_lib.py:70",
-        "launches": k1_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
+        "launches": k1_launches + suite_launches["matmul"],
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           k1_rows + suite_checks["matmul"]),
         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
         "library_ms": k1_main["library_ms"],
-    }, recurrent_entry(
+    }, *suite_entries(suite_launches, suite_checks, suite_mains),
+        recurrent_entry(
         "rwkv_wkv", "src/repro_torch/kernels/csrc/rwkv_wkv.cu",
         "src/repro/kernels/rwkv_wkv.py:65", rwkv_launches["wkv"],
         rwkv_checks["wkv"] + table4_checks["wkv"], wkv_main),
@@ -1419,7 +1795,10 @@ def main() -> None:
           f"(B={main_shape['B']}, S={main_shape['S']}, {main_shape['dtype']}); "
           f"matmul at gemm's winner {list(main_key)}; wkv and ssd at their "
           f"serving runs' heaviest prefill ({wkv_main['shape']}, "
-          f"{ssd_main['shape']}, {wkv_main['dtype']}); "
+          f"{ssd_main['shape']}, {wkv_main['dtype']}); reduce_sum, "
+          f"elementwise and grouped_matmul at their cases' winners ("
+          + "; ".join(f"{n} {m['key']}" for n, (m, _) in suite_mains.items())
+          + "); "
           f"all phases passed in {report['seconds']:.1f} s; details in "
           f"{OUT.relative_to(ROOT)}", flush=True)
     print(smi, flush=True)

@@ -12,7 +12,8 @@ from repro_torch.core.measure import (MeasureConfig, TimingLease, get_lease,
                                       trimmed_stats)
 from repro_torch.core.mep import MEP, MEPConstraints, build_mep, emit_script
 from repro_torch.core.profiler import (H100ModelPlatform, H100Platform,
-                                       Platform, TimingResult,
+                                       H100TorchPlatform, Platform,
+                                       TimingResult,
                                        TorchCPUPlatform, platform_from_name,
                                        register_platform, trimmed_mean)
 from repro_torch.core.fe import FEResult, check as fe_check, outputs_match

@@ -10,8 +10,8 @@ model-in-the-loop when an endpoint is configured.
 
 Port of ``repro.core.aer``.  The rules and thresholds are the JAX
 package's, but for one: VMEM overflow becomes shared-memory overflow.  K1's
-wrapper refuses a tile whose shared memory exceeds what an H100 block may
-use, with a message naming "shared memory" and the bytes, and the
+and K5's wrappers refuse a tile whose shared memory exceeds what an H100
+block may use, with a message naming "shared memory" and the bytes, and the
 ``_smem_overflow`` rule halves the largest block, as ``_vmem_overflow`` did.
 Process-level faults (``WorkerFault``) arrive with the worker fabric
 (ROADMAP queue 1 item 9).
@@ -61,7 +61,7 @@ def _block_divisibility(case, variant, error, scale) -> Optional[Tuple[str, Vari
 def _smem_overflow(case, variant, error, scale) -> Optional[Tuple[str, Variant]]:
     over = re.search(r"shared memory|vmem|memory|resource exhausted|alloc",
                      error, re.I) \
-        or variant_smem_bytes(variant, scale) > SMEM_BYTES
+        or variant_smem_bytes(variant, scale, case) > SMEM_BYTES
     if not over:
         return None
     v = dict(variant)

@@ -5,9 +5,9 @@ Port of ``repro.core.kernelcase``.  The same dataclasses and registry; the
 builds return PyTorch callables: ``impl='torch'`` (the counterpart of
 ``'jnp'``) gives the algorithmic restructuring as plain PyTorch, and
 ``impl='cuda'`` (the counterpart of ``'pallas'``) calls the hand-written
-Hopper kernel where the JAX build calls its Pallas kernel.  Only the ported
-suites are registered; ``get_case`` of a case still to be ported raises
-``NotImplementedError`` naming its ROADMAP item.
+Hopper kernel where the JAX build calls its Pallas kernel.  The registry
+holds every case of the JAX package: PolyBench, APP SDK and the hpc
+hotspots.
 
 A case bundles everything the MEP framework needs to optimize a kernel
 without its host application:
@@ -83,6 +83,10 @@ class KernelCase:
     latency: Optional[Callable[[Variant, int], float]] = None
     # hotspot site in the full application ('' = standalone benchmark only)
     app_site: str = ""
+    # (M, N, K) of the GEMM whose tile the variant's block_m/n/k name, at a
+    # scale (None: square, (scale, scale, scale)); the shared-memory
+    # estimate fits the tile to it as the kernel's wrapper does
+    gemm_dims: Optional[Callable[[int], Tuple[int, int, int]]] = None
     notes: str = ""
     # init=False: dataclasses.replace(case, build=...) must re-derive the
     # digest for the new build, never inherit the stale cached one
@@ -107,6 +111,9 @@ class KernelCase:
     def variant_latency(self, variant: Variant, scale: int) -> float:
         return self.latency(variant, scale) if self.latency else 0.0
 
+    def tile_dims(self, scale: int) -> Tuple[int, int, int]:
+        return self.gemm_dims(scale) if self.gemm_dims else (scale,) * 3
+
     def generic_traffic(self, variant: Variant, scale: int) -> float:
         """Default HBM traffic model: every input read once, output written
         once — cases with tiling-dependent reuse override via ``traffic``."""
@@ -130,13 +137,8 @@ def get_case(name: str) -> KernelCase:
     try:
         return _REGISTRY[name]
     except KeyError:
-        pass
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"kernel case {name!r} is not ported to PyTorch yet "
-            f"({UNPORTED[name]})")
-    raise KeyError(f"unknown kernel case {name!r}; have "
-                   f"{sorted(_REGISTRY)}")
+        raise KeyError(f"unknown kernel case {name!r}; have "
+                       f"{sorted(_REGISTRY)}") from None
 
 
 def cases(suite: Optional[str] = None) -> List[KernelCase]:
@@ -144,17 +146,6 @@ def cases(suite: Optional[str] = None) -> List[KernelCase]:
     out = [c for c in _REGISTRY.values() if suite is None or c.suite == suite]
     return sorted(out, key=lambda c: c.name)
 
-
-# the JAX package's cases that this package does not register yet, with
-# the ROADMAP item (queue 1) that ports each
-UNPORTED = {
-    **{n: "ROADMAP queue 1 item 6" for n in (
-        "atax", "bicg", "gemver", "gesummv", "corr", "covar", "gramschm",
-        "adi", "binomialoption", "bitonicsort", "dwthaar1d",
-        "fastwalshtransform", "matrixmultiplication", "reduction",
-        "simpleconvolution", "vectoradd")},
-    "moe_grouped_gemm": "ROADMAP queue 1 item 7",
-}
 
 _loaded = False
 
@@ -164,5 +155,5 @@ def _ensure_suites() -> None:
     if _loaded:
         return
     _loaded = True
-    # importing registers the cases (the ported suites only)
-    from repro_torch.kernels.suites import hpc, polybench  # noqa: F401
+    # importing registers the cases
+    from repro_torch.kernels.suites import appsdk, hpc, polybench  # noqa: F401

@@ -7,10 +7,15 @@ lives in ``repro_torch.core.measure``: R is the cap, and the adaptive
 engine stops early once the trimmed mean's CI half-width converges (or the
 candidate provably loses to the incumbent).
 
-Three platforms:
+Four platforms:
 
 * ``TorchCPUPlatform`` (``"torch-cpu"``) — wall-clocks a variant's
-  ``torch`` build on the host CPU (the counterpart of ``CPUPlatform``).
+  ``torch`` build on the host CPU.
+* ``H100TorchPlatform`` (``"h100-torch"``) — times a variant's ``torch``
+  build on the card with CUDA events (measured).  The JAX package's
+  ``CPUPlatform`` times the ``jnp`` build on JAX's default device, which on
+  a TPU host is the TPU (the paper's "Platform A" rows of Tables 1–3);
+  this is its counterpart on the card.
 * ``H100Platform`` (``"h100"``) — times a variant's ``cuda`` build, the
   hand-written kernel, on the card with CUDA events (measured).  Every
   candidate it times passes functional equivalence through the kernel
@@ -186,6 +191,18 @@ class H100Platform(Platform):
         return _hopper_feedback(self, case, variant, scale)
 
 
+class H100TorchPlatform(H100Platform):
+    """Times the ``torch`` build on the card with CUDA events (measured),
+    as the JAX ``CPUPlatform`` times the ``jnp`` build on JAX's default
+    device.  Raises without a GPU."""
+    name = "h100-torch"
+    impl = "torch"
+    check_kernel = False
+
+    def profile_feedback(self, case, variant, scale):
+        return Platform.profile_feedback(self, case, variant, scale)
+
+
 class H100ModelPlatform(Platform):
     """Analytic H100 roofline: t = max(flops/peak ÷ tile fill,
     traffic/3.35 TB/s) + launch overhead + the case's latency term.
@@ -227,7 +244,7 @@ class H100ModelPlatform(Platform):
 def _hopper_feedback(platform, case, variant, scale):
     fb = Platform.profile_feedback(platform, case, variant, scale)
     fb["mxu_utilization"] = variant_mxu_utilization(variant)
-    fb["vmem_bytes"] = variant_smem_bytes(variant, scale)
+    fb["vmem_bytes"] = variant_smem_bytes(variant, scale, case)
     lat = case.variant_latency(variant, scale)
     roof = max(case.flops(scale) / hw.PEAK_FLOPS_BF16,
                case.generic_traffic(variant, scale) / hw.HBM_BW)
@@ -238,6 +255,7 @@ def _hopper_feedback(platform, case, variant, scale):
 
 register_platform(TorchCPUPlatform.name, TorchCPUPlatform)
 register_platform(H100Platform.name, H100Platform)
+register_platform(H100TorchPlatform.name, H100TorchPlatform)
 register_platform(H100ModelPlatform.name, H100ModelPlatform)
 
 
@@ -258,20 +276,24 @@ def variant_mxu_utilization(variant: Variant) -> float:
     return max(util, 0.05)
 
 
-def variant_smem_bytes(variant: Variant, scale: Optional[int] = None) -> int:
-    """Shared memory one block of K1 allocates for the variant's tile,
-    equal to the kernel's own allocation (``kernels.matmul.smem_bytes``):
-    with ``scale`` the tile is first fitted to the square dimension as the
-    wrapper fits it; without, the variant's tile as named (an upper bound,
-    since fitting only shrinks).  Variants without a K1 tile (``block_m``/
-    ``block_n``) allocate nothing that the variant changes: 0."""
+def variant_smem_bytes(variant: Variant, scale: Optional[int] = None,
+                       case: Optional[KernelCase] = None) -> int:
+    """Shared memory one block of K1 (or K5, whose tile is K1's) allocates
+    for the variant's tile, equal to the kernel's own allocation
+    (``kernels.matmul.smem_bytes``): with ``scale`` the tile is first
+    fitted to the GEMM's (M, N, K) at that scale as the wrapper fits it
+    (``case.tile_dims``; square without a case); without, the variant's
+    tile as named (an upper bound, since fitting only shrinks).  Variants
+    without a GEMM tile (``block_m``/``block_n``) allocate nothing that the
+    variant changes: 0."""
     if "block_m" not in variant and "block_n" not in variant:
         return 0
     bm = variant.get("block_m", 128)
     bn = variant.get("block_n", 128)
     bk = variant.get("block_k", 128)
     if scale is not None:
-        bm, bn, bk = fit(bm, scale), fit(bn, scale), fit(bk, scale)
+        M, N, K = case.tile_dims(scale) if case else (scale,) * 3
+        bm, bn, bk = fit(bm, M), fit(bn, N), fit(bk, K)
     dt = 2 if variant.get("compute_dtype") == "bf16" else 4
     return smem_bytes(bm, bn, bk, dt)
 

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes``.  Libraries go
 to ``build/kernels/`` at the repository root (listed in ``.gitignore``),
-named by a hash of the source and the compiler flags, so an edited source
-is rebuilt and an unchanged one is reused.  Nothing is built at import.
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+compiler flags, so an edited source or header is rebuilt and an unchanged
+one is reused.  Nothing is built at import.
 """
 from __future__ import annotations
 
@@ -47,10 +48,12 @@ def build(*names: str) -> List[ctypes.CDLL]:
     failed build raises with nvcc's report."""
     with _lock:
         todo = [n for n in dict.fromkeys(names) if n not in _libs]
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))
+                           ) if todo else b""
         jobs = []
         for name in todo:
             src = CSRC / f"{name}.cu"
-            digest = hashlib.sha256(src.read_bytes()
+            digest = hashlib.sha256(src.read_bytes() + headers
                                     + " ".join(FLAGS).encode()).hexdigest()
             out = BUILD_DIR / f"{name}-{digest[:16]}.so"
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -86,5 +89,7 @@ def build(*names: str) -> List[ctypes.CDLL]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (built if
-    missing)."""
-    return build(name)[0]
+    missing).  A loaded one is returned without the lock: every launch
+    asks."""
+    lib = _libs.get(name)
+    return lib if lib is not None else build(name)[0]

@@ -1,9 +1,8 @@
 """Plain PyTorch oracles for the hotspot kernels.
 
-Port of ``repro.kernels.ref`` (``ref.py:14-69``): ``attention_ref``,
-``wkv_ref`` and ``ssd_ref``; ``grouped_matmul_ref`` arrives with its
-kernel.  Deliberately naive: the full score matrix, sequential
-recurrences, f32 throughout.
+Port of ``repro.kernels.ref`` (``ref.py:14-75``): ``attention_ref``,
+``wkv_ref``, ``ssd_ref`` and ``grouped_matmul_ref``.  Deliberately naive:
+the full score matrix, sequential recurrences, f32 throughout.
 """
 from __future__ import annotations
 
@@ -67,3 +66,9 @@ def ssd_ref(xh, dt, a_log, B_t, C_t):
             + torch.einsum("bhp,bn->bhpn", u[:, t], Bf[:, t])
         ys.append(torch.einsum("bn,bhpn->bhp", Cf[:, t], h))
     return torch.stack(ys, dim=1).to(xh.dtype), h
+
+
+def grouped_matmul_ref(x, w):
+    """x [E,M,K] @ w [E,K,N] → [E,M,N] (MoE expert GEMM): an f32 einsum,
+    the result in x's dtype."""
+    return torch.einsum("emk,ekn->emn", x.float(), w.float()).to(x.dtype)

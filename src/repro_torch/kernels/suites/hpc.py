@@ -2,20 +2,24 @@
 (paper Table 4 — kernels extracted from a large application whose full
 build is too expensive to re-run per candidate).
 
-Port of ``repro.kernels.suites.hpc``; holds ``attention_prefill``,
-``rwkv_wkv`` and ``mamba_ssd`` (``hpc.py:31-193``), whose ``app_site``s
-(``attention``, ``rwkv_wkv``, ``ssm_chunk``) are the sites the port's LM
-consults, so ``core.integrate`` can reintegrate a winner and measure the
-Integrated Speedup.  The ``cuda`` builds are the hand-written kernels K2,
-K6 and K7 where the JAX builds call their Pallas kernels; specs, variant
-spaces, baselines and cost models are the JAX package's.
-``moe_grouped_gemm`` waits for ROADMAP queue 1 item 7 (the MoE family).
+Port of ``repro.kernels.suites.hpc``: ``attention_prefill``, ``rwkv_wkv``,
+``mamba_ssd`` and ``moe_grouped_gemm``.  The ``app_site``s of the first
+three (``attention``, ``rwkv_wkv``, ``ssm_chunk``) are the sites the
+port's LM consults, so ``core.integrate`` can reintegrate a winner and
+measure the Integrated Speedup; ``moe_gemm`` is declared in ``ops`` but no
+model consults it, in the JAX package as here (its ``moe_block`` runs
+einsums).  The ``cuda`` builds are the hand-written kernels K2, K6, K7 and
+K5 where the JAX builds call their Pallas kernels; specs, variant spaces,
+baselines and cost models are the JAX package's.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.core.kernelcase import ArraySpec, KernelCase, register
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.moe_gemm import grouped_matmul
 from repro_torch.kernels.rwkv_wkv import wkv
 from repro_torch.kernels.ssd_scan import ssd
 from repro_torch.models.ssm import _ssd_chunked, _wkv_chunked
@@ -193,3 +197,57 @@ register(KernelCase(
                                  if v.get("chunked") else s),
     app_site="ssm_chunk",
     scales=(256, 512, 1024, 2048)))
+
+
+# ---------------------------------------------------------- moe gemm ------
+_GMM_E, _GMM_K, _GMM_N = 8, 256, 512
+
+
+def _gmm_ref(x, w):
+    return kref.grouped_matmul_ref(x, w)
+
+
+def _gmm_build(variant, impl="torch"):
+    """Site signature: (x, w) → [E, M, N] in f32.
+
+    ``impl="cuda"`` is the hand-written grouped GEMM K5 with the variant's
+    tile.  The ``batched`` torch build is one batched product (a library
+    call standing in for the JAX einsum); the naive one a GEMM per expert,
+    one after another, as ``lax.map`` runs them."""
+    dt = torch.bfloat16 if variant.get("compute_dtype") == "bf16" \
+        else torch.float32
+    if impl == "cuda":
+        b = dict(block_m=variant.get("block_m", 128),
+                 block_n=variant.get("block_n", 128),
+                 block_k=variant.get("block_k", 128))
+        return lambda x, w, **kw: grouped_matmul(
+            x.to(dt), w.to(dt), device=x.device.type, **b).float()
+    if variant.get("batched"):
+        return lambda x, w, **kw: torch.bmm(x.to(dt), w.to(dt)).float()
+
+    def per_expert(x, w, **kw):
+        return torch.stack([(x[e].to(dt) @ w[e].to(dt)).float()
+                            for e in range(x.shape[0])])
+    return per_expert
+
+
+def _gmm_specs(s):
+    return [ArraySpec((_GMM_E, s, _GMM_K), F32),
+            ArraySpec((_GMM_E, _GMM_K, _GMM_N), F32)]
+
+
+register(KernelCase(
+    name="moe_grouped_gemm", suite="hpc", family="matmul",
+    ref=_gmm_ref, build=_gmm_build,
+    input_specs=_gmm_specs,
+    variant_space={"batched": [False, True], "compute_dtype": ["f32", "bf16"],
+                   "block_m": [32, 64, 128, 256],
+                   "block_n": [32, 64, 128, 256],
+                   "block_k": [32, 64, 128, 256]},
+    baseline_variant={"batched": False, "compute_dtype": "f32",
+                      "block_m": 32, "block_n": 32, "block_k": 32},
+    flops=lambda s: 2.0 * _GMM_E * s * _GMM_K * _GMM_N,
+    latency=lambda v, s: (2e-6 if v.get("batched") else 5e-6 * _GMM_E),
+    app_site="moe_gemm",
+    gemm_dims=lambda s: (s, _GMM_N, _GMM_K),
+    scales=(64, 128, 256, 512)))

@@ -37,7 +37,8 @@ from repro.core.profiler import TPUModelPlatform
 from repro.core.proposer import DirectProposer as JDirectProposer
 from repro_torch.core import (AER, Campaign, CaseJob, DirectProposer,
                               EvalCache, Evaluator, H100ModelPlatform,
-                              H100Platform, HeuristicProposer,
+                              H100Platform, H100TorchPlatform,
+                              HeuristicProposer,
                               MEPConstraints, OptConfig, PatternStore,
                               ResultsDB, TorchCPUPlatform, build_mep,
                               canonical_spec, emit_script, get_case,
@@ -293,6 +294,15 @@ def test_h100_platforms_run_on_the_card_unless_asked(monkeypatch):
         H100Platform(device="cpu")
     assert platform_from_name("torch-cpu").device == "cpu"
     assert H100Platform.check_kernel and H100Platform.impl == "cuda"
+    # the torch build on the card: the JAX CPUPlatform's counterpart
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        H100TorchPlatform()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        platform_from_name("h100-torch")
+    with pytest.raises(ValueError, match="on the card"):
+        H100TorchPlatform(device="cpu")
+    assert H100TorchPlatform.impl == "torch"
+    assert not H100TorchPlatform.check_kernel
 
 
 def test_campaign_on_a_measured_cuda_platform_runs_one_job_at_a_time():

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, K2, K6, K7) against their plain PyTorch
-versions, on a card.
+"""The port's kernels (K1, K2, K3, K4, K5, K6, K7) against their plain
+PyTorch versions, on a card.
 
 Imports no JAX, so it runs on the GPU machine:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -10,7 +10,11 @@ import torch
 
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
+from repro_torch.kernels.elementwise import elementwise, elementwise_plain
 from repro_torch.kernels.matmul import matmul, matmul_ref
+from repro_torch.kernels.moe_gemm import grouped_matmul
+from repro_torch.kernels.reduce_sum import reduce_sum, reduce_sum_plain
+from repro_torch.kernels.ref import grouped_matmul_ref
 from repro_torch.kernels.rwkv_wkv import wkv, wkv_plain
 from repro_torch.kernels.ssd_scan import ssd, ssd_plain
 
@@ -196,3 +200,124 @@ def test_recurrent_kernels_refuse_an_oversized_stage(cuda):
             torch.zeros(1, 512, 16, device=cuda),
             torch.zeros(1, 512, 16, device=cuda), chunk=512)
     assert ssd.launches == before
+
+
+# ------------------------------------------------------------------ K3 ----
+def reduce_tolerance(x, want):
+    """K3 vs its plain version: both sum the same n terms in f32 in
+    another order; rounding moves each sum by far less than 2^-20 sum|x|
+    (16 ulps of the sum of magnitudes, where the random-walk error of n
+    roundings is ~sqrt(n) ulps of a partial sum).  A bf16 total is also
+    rounded from f32 on both sides: one ulp (2^-8 |want|) more."""
+    tol = 2.0 ** -20 * x.float().abs().sum().item()
+    if x.dtype == torch.bfloat16:
+        tol += 2.0 ** -8 * abs(float(want))
+    return tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,block", [
+    (8192, 1024),                 # test_kernels.py
+    (4194304, 1024),              # the reduction case's largest scale
+    (1048576, 16384),
+    (6000, 1024),                 # fitted to 1000: not a multiple of 256
+    (4099, 4096),                 # prime: 4099 blocks of one
+    (1, 4096),
+])
+def test_reduce_kernel_matches_plain_version(cuda, dtype, n, block):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(n, device=cuda, generator=g).to(dtype)
+    before = reduce_sum.launches
+    got = reduce_sum(x, block=block)
+    torch.cuda.synchronize()
+    assert reduce_sum.launches == before + 1
+    assert got.dtype == dtype and got.shape == ()
+    want = reduce_sum_plain(x, block=block)
+    assert abs(float(got) - float(want)) <= reduce_tolerance(x, want)
+    # bit-identical on every call: two passes, no atomics
+    again = reduce_sum(x, block=block)
+    assert torch.equal(got, again)
+    # integers in [-2, 2]: every partial sum is exact in f32, so any order
+    # gives the same bits; a lost or doubled element shows
+    xi = torch.randint(-2, 3, (n,), device=cuda, generator=g).to(dtype)
+    assert torch.equal(reduce_sum(xi, block=block),
+                       reduce_sum_plain(xi, block=block))
+
+
+# ------------------------------------------------------------------ K4 ----
+def add(x, y):
+    return x + y
+
+
+def affine(x):
+    return 2.0 * x + 1.0
+
+
+def fma(x, y, z):
+    return x * y + z
+
+
+@pytest.mark.parametrize("fn,n_in,n,block,dtype", [
+    (add, 2, 8192, 2048, torch.float32),          # test_kernels.py
+    (add, 2, 16777216, 16384, torch.float32),     # vectoradd's largest
+    (add, 2, 6000, 4096, torch.float32),          # fitted to 3000: masked
+    (add, 2, 4096, 4096, torch.bfloat16),
+    (affine, 1, 1000, 8192, torch.float32),
+    (fma, 3, 65536, 8192, torch.float32),
+])
+def test_elementwise_kernel_matches_plain_version(cuda, fn, n_in, n, block,
+                                                  dtype):
+    """Element by element the same IEEE arithmetic, but Triton may contract
+    a product and a sum into one FMA (one rounding fewer), which moves the
+    result by at most an ulp of the terms: within 2^-22 fn(|args|), the
+    size of the terms for these maps; a sum alone is exact."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    arrs = [torch.randn(n, device=cuda, generator=g).to(dtype)
+            for _ in range(n_in)]
+    before = elementwise.launches
+    got = elementwise(fn, *arrs, block=block)
+    torch.cuda.synchronize()
+    assert elementwise.launches == before + 1
+    assert got.dtype == dtype and got.shape == (n,)
+    want = elementwise_plain(fn, *arrs)
+    if fn is add:
+        assert torch.equal(got, want)
+    else:
+        terms = fn(*[a.float().abs() for a in arrs])
+        assert bool(((got.float() - want.float()).abs()
+                     <= 2.0 ** -22 * terms).all())
+
+
+# ------------------------------------------------------------------ K5 ----
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,M,K,N,bm,bn,bk", [
+    (4, 64, 32, 48, 32, 32, 16),       # test_kernels.py
+    (2, 128, 128, 128, 128, 64, 64),
+    (8, 32, 16, 32, 64, 64, 64),       # blocks larger than dims → fitted
+    (8, 512, 256, 512, 128, 128, 128),  # moe_grouped_gemm's largest scale
+    (8, 64, 256, 512, 32, 32, 32),     # its baseline tile at its smallest
+    (8, 384, 256, 512, 256, 256, 64),  # 256-wide tiles: 128^2 sub-tiles
+])
+def test_grouped_matmul_kernel_matches_plain_version(cuda, dtype, E, M, K,
+                                                     N, bm, bn, bk):
+    g = torch.Generator(device=cuda).manual_seed(M + K)
+    x = torch.randn(E, M, K, device=cuda, generator=g).to(dtype)
+    w = torch.randn(E, K, N, device=cuda, generator=g).to(dtype)
+    before = grouped_matmul.launches
+    got = grouped_matmul(x, w, block_m=bm, block_n=bn, block_k=bk)
+    torch.cuda.synchronize()
+    assert grouped_matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (E, M, N)
+    want = grouped_matmul_ref(x, w).float()
+    for e in range(E):
+        tol = k1_tolerance(x[e], w[e], None, want[e], "none", 1.0, 0.0)
+        assert bool(((got[e].float() - want[e]).abs() <= tol).all()), e
+
+
+def test_grouped_matmul_kernel_refuses_an_oversized_tile(cuda):
+    x = torch.zeros(2, 512, 256, device=cuda)
+    w = torch.zeros(2, 256, 512, device=cuda)
+    before = grouped_matmul.launches
+    with pytest.raises(RuntimeError, match="shared memory"):
+        grouped_matmul(x, w, block_m=256, block_n=256, block_k=256)
+    assert grouped_matmul.launches == before

@@ -17,7 +17,10 @@ from repro_torch.configs import get_config
 from repro_torch.core import H100ModelPlatform, fe, get_case
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.elementwise import elementwise
 from repro_torch.kernels.matmul import matmul
+from repro_torch.kernels.moe_gemm import grouped_matmul
+from repro_torch.kernels.reduce_sum import reduce_sum
 from repro_torch.kernels.rwkv_wkv import wkv
 from repro_torch.kernels.ssd_scan import ssd
 from repro_torch.models import get_model
@@ -53,6 +56,10 @@ def test_guard_sees_every_port_module():
                  "src/repro_torch/kernels/matmul.py",
                  "src/repro_torch/kernels/suites/polybench.py",
                  "src/repro_torch/kernels/suites/hpc.py",
+                 "src/repro_torch/kernels/suites/appsdk.py",
+                 "src/repro_torch/kernels/reduce_sum.py",
+                 "src/repro_torch/kernels/elementwise.py",
+                 "src/repro_torch/kernels/moe_gemm.py",
                  "src/repro_torch/kernels/rwkv_wkv.py",
                  "src/repro_torch/kernels/ssd_scan.py",
                  "src/repro_torch/models/ssm.py",
@@ -100,6 +107,12 @@ ENTRY_POINTS = {
     "ssd": lambda **kw: ssd(torch.zeros(1, 4, 2, 16), torch.zeros(1, 4, 2),
                             torch.zeros(2), torch.zeros(1, 4, 3),
                             torch.zeros(1, 4, 3), **kw),
+    "reduce_sum": lambda **kw: reduce_sum(torch.zeros(16), **kw),
+    "elementwise": lambda **kw: elementwise(torch.add, torch.zeros(16),
+                                            torch.zeros(16), **kw),
+    "grouped_matmul": lambda **kw: grouped_matmul(torch.zeros(2, 8, 16),
+                                                  torch.zeros(2, 16, 8),
+                                                  **kw),
     "get_model(rwkv6)": lambda **kw: get_model(RWKV, **kw),
     "BatchedServer(hymba)": lambda **kw: BatchedServer(
         _cpu_model(HYMBA), slots=1, max_len=16, **kw),
@@ -133,6 +146,9 @@ def test_a_cuda_request_never_runs_cpu_data(monkeypatch):
         ENTRY_POINTS["wkv"](device="cuda")
     with pytest.raises(ValueError, match="lies on cpu"):
         ENTRY_POINTS["ssd"](device="cuda")
+    for name in ("reduce_sum", "elementwise", "grouped_matmul"):
+        with pytest.raises(ValueError, match="lies on cpu"):
+            ENTRY_POINTS[name](device="cuda")
     with pytest.raises(ValueError, match="model lives on cpu"):
         ENTRY_POINTS["BatchedServer"](device="cuda")
     with pytest.raises(ValueError, match="model lives on cpu"):

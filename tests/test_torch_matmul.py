@@ -20,11 +20,12 @@ import pytest
 import torch
 
 from repro.core import datagen as jdatagen
+from repro.core.kernelcase import cases as jax_cases
 from repro.core.kernelcase import get_case as jax_case
 from repro.kernels.suites.pallas_lib import matmul_pallas
 from repro_torch.core import datagen
 from repro_torch.core.fe import as_tensors, outputs_match, to_numpy
-from repro_torch.core.kernelcase import ArraySpec, get_case
+from repro_torch.core.kernelcase import ArraySpec, cases, get_case
 from repro_torch.kernels.matmul import fit, matmul, matmul_ref, smem_bytes
 
 # f32 on both sides, summation order only: the test_kernels.py tolerance
@@ -162,9 +163,14 @@ def test_case_builds_match_jax_jnp_build_and_ref(name, vname):
 
 
 def test_unported_case_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        get_case("atax")
-    with pytest.raises(KeyError):
+    """Every case is ported now: the registry holds exactly the JAX
+    package's case names, suite by suite, and an unknown name is a
+    KeyError."""
+    for suite in ("polybench", "appsdk", "hpc"):
+        assert [c.name for c in cases(suite)] == \
+            sorted(c.name for c in jax_cases(suite))
+    assert get_case("atax").suite == "polybench"
+    with pytest.raises(KeyError, match="no_such_case"):
         get_case("no_such_case")
 
 

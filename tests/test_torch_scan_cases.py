@@ -23,6 +23,7 @@ import torch
 
 from repro.configs import get_config as jax_config
 from repro.core.aer import AER as JAER
+from repro.core.kernelcase import cases as jax_cases
 from repro.core.kernelcase import get_case as jget_case
 from repro.core.mep import build_mep as jbuild_mep
 from repro.core.optimizer import Evaluator as JEvaluator
@@ -172,7 +173,11 @@ def test_integrated_speedup_into_the_reduced_model(name):
 
 
 def test_only_the_moe_case_is_still_unported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        get_case("moe_grouped_gemm")
-    assert {c.name for c in cases("hpc")} == {
-        "attention_prefill", "rwkv_wkv", "mamba_ssd"}
+    """The moe case is ported now: the hpc suite holds exactly the JAX
+    package's hotspots, and an unknown name is a KeyError."""
+    assert get_case("moe_grouped_gemm").app_site == "moe_gemm"
+    assert [c.name for c in cases("hpc")] == \
+        sorted(c.name for c in jax_cases("hpc")) == [
+            "attention_prefill", "mamba_ssd", "moe_grouped_gemm", "rwkv_wkv"]
+    with pytest.raises(KeyError, match="no_such_case"):
+        get_case("no_such_case")

@@ -7,6 +7,13 @@ accumulator, epilogues ``none``, ``alpha_beta`` (αAB + βC) and ``relu``, the
 output in A's dtype.  Block sizes go through ``fit`` as in the Pallas
 wrapper, so one variant names the same tile in both packages.
 
+The kernel has two bodies, chosen before launch by ``path_for`` (which the
+CUDA side mirrors): ``"mma"``, the tensor cores through ``mma.sync`` fed by
+a ``cp.async`` ring (f32 as three TF32 passes, within f32 rounding of the
+plain product), for tiles in multiples of 16 on aligned operands; and
+``"simt"``, IEEE f32 FMA on the CUDA cores, for every other tile.  A failed
+launch raises; it is never retried on the other path.
+
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
 launches the kernel or raises.  A tile whose shared memory exceeds what one
 block may use raises before launch on either device, naming the bytes, so
@@ -24,6 +31,7 @@ from repro_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _EPILOGUE = {"none": 0, "alpha_beta": 1, "relu": 2}
+_PATH = {"simt": 0, "mma": 1}
 SUB = 128          # the kernel's largest sub-tile side (csrc/matmul.cu)
 MAX_TILE = 256
 
@@ -40,6 +48,33 @@ def smem_bytes(bm: int, bn: int, bk: int, itemsize: int) -> int:
     """Shared memory one block of the kernel allocates for a (bm, bn, bk)
     tile: A[min(bm,128), bk] and B[bk, min(bn,128)] in the input dtype."""
     return (min(bm, SUB) + min(bn, SUB)) * bk * itemsize
+
+
+def _operand_ok(ptr: int, s_mn: int, s_k: int, item: int) -> bool:
+    """A 16-byte-aligned operand contiguous along k or along m/n, its other
+    stride a multiple of 16 bytes: what 16-byte ``cp.async`` copies need."""
+    if ptr % 16:
+        return False
+    if s_k == 1:
+        return s_mn * item % 16 == 0
+    return s_mn == 1 and s_k * item % 16 == 0
+
+
+def path_for(dtype: torch.dtype, bm: int, bn: int, bk: int, strides,
+             ptrs=(0, 0)) -> str:
+    """The body a launch of the fitted tile (bm, bn, bk) takes: ``"mma"``
+    when every side is a multiple of 16 and both operands suit ``cp.async``
+    (``strides`` = A's (m, k) and B's (k, n) strides in elements, ``ptrs``
+    their addresses), else ``"simt"``.  ``mma_tile::mma_path`` in
+    ``csrc/mma_tile.cuh`` is the same rule."""
+    item = dtype.itemsize
+    sa_m, sa_k, sb_k, sb_n = strides
+    if bm % 16 or bn % 16 or bk % 16:
+        return "simt"
+    if not (_operand_ok(ptrs[0], sa_m, sa_k, item)
+            and _operand_ok(ptrs[1], sb_n, sb_k, item)):
+        return "simt"
+    return "mma"
 
 
 def _check(a, b, c, epilogue: str, bm: int, bn: int, bk: int) -> None:
@@ -84,7 +119,7 @@ def _lib() -> ctypes.CDLL:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.mm_forward.argtypes = ([ptr] * 4 + [i32] * 8 + [i64] * 6
                                    + [i32, ctypes.c_float, ctypes.c_float,
-                                      ptr])
+                                      i32, ptr])
         lib.mm_forward.restype = ctypes.c_int
         lib.mm_error_string.argtypes = [i32]
         lib.mm_error_string.restype = ctypes.c_char_p
@@ -98,8 +133,9 @@ def matmul(a, b, c=None, *, block_m: int = 128, block_n: int = 128,
 
     ``device`` names where the caller expects to run (default the GPU) and
     must match the tensors'.  CPU tensors take ``matmul_ref``; CUDA tensors
-    launch the kernel on the current stream, with no fallback.  A and B may
-    be strided views (a transpose needs no copy).
+    launch the kernel on the current stream, with no fallback, on the body
+    ``path_for`` names.  A and B may be strided views (a transpose needs no
+    copy).
     """
     dev = resolve_device(device)
     for name, t in (("A", a), ("B", b), ("C", c)):
@@ -115,6 +151,8 @@ def matmul(a, b, c=None, *, block_m: int = 128, block_n: int = 128,
         return matmul_ref(a, b, c, epilogue=epilogue, alpha=alpha, beta=beta)
     if a.device != b.device or (c is not None and c.device != a.device):
         raise ValueError("A, B and C must lie on one device")
+    path = path_for(a.dtype, bm, bn, bk, (*a.stride(), *b.stride()),
+                    (a.data_ptr(), b.data_ptr()))
     lib = _lib()
     o = torch.empty((M, N), dtype=a.dtype, device=a.device)
     use_c = epilogue == "alpha_beta"
@@ -123,15 +161,17 @@ def matmul(a, b, c=None, *, block_m: int = 128, block_n: int = 128,
         o.data_ptr(), _DTYPE_CODE[a.dtype], a.device.index, M, N, K,
         bm, bn, bk, *a.stride(), *b.stride(),
         *(c.stride() if use_c else (0, 0)), _EPILOGUE[epilogue],
-        float(alpha), float(beta),
+        float(alpha), float(beta), _PATH[path],
         torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(
-            f"matmul kernel launch failed (tile {bm}x{bn}x{bk}, "
+            f"matmul kernel launch failed ({path} path, tile {bm}x{bn}x{bk}, "
             f"{smem_bytes(bm, bn, bk, a.element_size())} bytes of shared "
             f"memory): {lib.mm_error_string(err).decode()}")
     matmul.launches += 1
+    matmul.launches_by_path[path] += 1
     return o
 
 
 matmul.launches = 0
+matmul.launches_by_path = {"mma": 0, "simt": 0}

@@ -10,6 +10,9 @@ scales, variant space and baseline are the JAX package's.  Builds:
   logical pass where the JAX build jits passes separately; ``lax.scan``
   loops become Python loops.  The gathers of the baselines (``idx ^ d``
   partners) stay gathers: they are what the reshape variants remove.
+  ``one_pass`` of ``dwthaar1d`` and ``fastwalshtransform``, one jit over
+  every level in the JAX build, is one CUDA graph replay on the card
+  (``OnePass``) and the eager chain on the CPU.
 * ``impl="cuda"`` (the counterpart of ``"pallas"``) mirrors the JAX
   ``pallas`` branch: ``matrixmultiplication`` calls K1
   (``kernels.matmul``), ``reduction`` K3 (``kernels.reduce_sum``) and
@@ -174,6 +177,45 @@ register(KernelCase(
     scales=(4096, 16384, 65536, 262144)))
 
 
+# ------------------------------------------------------------ one pass ----
+class OnePass:
+    """A chain of passes run as one launch on the card: the counterpart of
+    the JAX build's single ``jax.jit`` over the chain.  On a CUDA tensor the
+    chain is captured once per (shape, dtype, device) as a CUDA graph and
+    replayed: the input is copied into the graph's static input, and the
+    caller gets a clone of its static output, so a later call never sees an
+    earlier call's buffer.  On the CPU the chain runs eagerly.  ``fn`` takes
+    and returns one tensor; tensors it caches (index tables) are made by the
+    warm-up call, before capture, so they live outside the graph's pool."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.graphs = {}
+
+    def __call__(self, x):
+        if x.device.type != "cuda":
+            return self.fn(x)
+        key = (tuple(x.shape), x.dtype, x.device)
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(x)
+        graph, static_in, static_out = self.graphs[key]
+        static_in.copy_(x)
+        graph.replay()
+        return static_out.clone()
+
+    def _capture(self, x):
+        static_in = x.clone()
+        side = torch.cuda.Stream(device=x.device)
+        side.wait_stream(torch.cuda.current_stream(x.device))
+        with torch.cuda.stream(side):       # warm-up, as torch.cuda.graph asks
+            self.fn(static_in)
+        torch.cuda.current_stream(x.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static_out = self.fn(static_in)
+        return graph, static_in, static_out
+
+
 # ----------------------------------------------------------- dwthaar1d ----
 _SQRT2 = math.sqrt(2.0)
 
@@ -199,9 +241,10 @@ def _dwt_ref(x):
 
 
 def _dwt_build(variant, impl="torch"):
-    """``one_pass`` is one jit in the JAX build; eager PyTorch launches
-    the same passes either way, so both are the level loop here."""
-    return _dwt_ref
+    """The baseline launches each level's passes in turn (one jit per level
+    in the JAX build); ``one_pass`` runs every level as one graph on the
+    card (one jit over all of them)."""
+    return OnePass(_dwt_ref) if variant.get("one_pass") else _dwt_ref
 
 
 register(KernelCase(
@@ -240,18 +283,20 @@ def _fwt_gather(n: int, device: str):
     return out
 
 
-def _fwt_build(variant, impl="torch"):
-    """``one_pass`` is one jit over the stages in the JAX build; eager
-    PyTorch launches each stage either way.  ``reshape_butterfly`` replaces
-    the partner gather by a reshape."""
-    if variant.get("reshape_butterfly", False):
-        return _fwt_ref
+def _fwt_gathered(x):
+    for partner, sign in _fwt_gather(x.shape[0], str(x.device)):
+        x = sign * x + x[partner]
+    return x
 
-    def run(x):
-        for partner, sign in _fwt_gather(x.shape[0], str(x.device)):
-            x = sign * x + x[partner]
-        return x
-    return run
+
+def _fwt_build(variant, impl="torch"):
+    """``reshape_butterfly`` replaces the partner gather by a reshape;
+    ``one_pass`` runs every stage, in either form, as one graph on the card
+    (one jit over the stages in the JAX build), where the baseline launches
+    each stage's passes in turn."""
+    run = _fwt_ref if variant.get("reshape_butterfly", False) \
+        else _fwt_gathered
+    return OnePass(run) if variant.get("one_pass", False) else run
 
 
 register(KernelCase(

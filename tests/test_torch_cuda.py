@@ -11,12 +11,14 @@ import torch
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.kernels.elementwise import elementwise, elementwise_plain
-from repro_torch.kernels.matmul import matmul, matmul_ref
+from repro_torch.kernels.matmul import fit, matmul, matmul_ref, path_for
 from repro_torch.kernels.moe_gemm import grouped_matmul
 from repro_torch.kernels.reduce_sum import reduce_sum, reduce_sum_plain
 from repro_torch.kernels.ref import grouped_matmul_ref
 from repro_torch.kernels.rwkv_wkv import wkv, wkv_plain
 from repro_torch.kernels.ssd_scan import ssd, ssd_plain
+from repro_torch.core import get_case
+from repro_torch.core.fe import outputs_match
 
 pytestmark = pytest.mark.cuda
 
@@ -110,14 +112,65 @@ def test_matmul_kernel_matches_plain_version(cuda, dtype, M, K, N, bm, bn,
         a = a.T.contiguous().T
     kw = dict(block_m=bm, block_n=bn, block_k=bk, epilogue=ep, alpha=1.5,
               beta=1.2)
-    before = matmul.launches
+    tile = (fit(bm, M), fit(bn, N), fit(bk, K))
+    # aligned operands: every tile in multiples of 16 runs on the tensor
+    # cores, the others (here 24 and the repaired 8) on the CUDA cores
+    path = "mma" if all(t % 16 == 0 for t in tile) else "simt"
+    assert path_for(dtype, *tile, (*a.stride(), *b.stride()),
+                    (a.data_ptr(), b.data_ptr())) == path
+    before, by_path = matmul.launches, dict(matmul.launches_by_path)
     got = matmul(a, b, c, **kw)
     torch.cuda.synchronize()
     assert matmul.launches == before + 1
+    assert matmul.launches_by_path[path] == by_path[path] + 1
     assert got.dtype == dtype and got.shape == (M, N)
     want = matmul_ref(a, b, c, epilogue=ep, alpha=1.5, beta=1.2).float()
     tol = k1_tolerance(a, b, c, want, ep, 1.5, 1.2)
     assert bool(((got.float() - want).abs() <= tol).all())
+
+
+def tf32(x):
+    """x rounded to TF32 to nearest, ties away from zero (cvt.rna)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("layout", ["AB", "A^TB", "AB^T", "A^TB^T"])
+def test_matmul_main_shape_runs_on_the_tensor_cores(cuda, layout):
+    """gemm's winner, 1024^3 f32 alpha*AB + beta*C on a 128^3 tile, in each
+    operand layout: three TF32 passes on the tensor cores, within the
+    gate; positive inputs, where every error has one sign, included."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for a, b in ((torch.randn(1024, 1024, device=cuda, generator=g),
+                  torch.randn(1024, 1024, device=cuda, generator=g)),
+                 (torch.rand(1024, 1024, device=cuda, generator=g),
+                  torch.rand(1024, 1024, device=cuda, generator=g))):
+        c = torch.randn(1024, 1024, device=cuda, generator=g)
+        if "A^T" in layout:
+            a = a.T.contiguous().T
+        if "B^T" in layout:
+            b = b.T.contiguous().T
+        before = matmul.launches_by_path["mma"]
+        got = matmul(a, b, c, epilogue="alpha_beta", alpha=1.5, beta=1.2)
+        torch.cuda.synchronize()
+        assert matmul.launches_by_path["mma"] == before + 1
+        want = matmul_ref(a, b, c, epilogue="alpha_beta", alpha=1.5, beta=1.2)
+        tol = k1_tolerance(a, b, c, want, "alpha_beta", 1.5, 1.2)
+        assert bool(((got - want).abs() <= tol).all())
+
+
+def test_matmul_gate_sees_one_tf32_pass(cuda):
+    """The control: K1 on operands rounded to TF32 makes the error of one
+    TF32 pass, which the gate, held against the exact operands, must
+    catch."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    a, b, c = (torch.randn(1024, 1024, device=cuda, generator=g)
+               for _ in range(3))
+    want = matmul_ref(a, b, c, epilogue="alpha_beta", alpha=1.5, beta=1.2)
+    tol = k1_tolerance(a, b, c, want, "alpha_beta", 1.5, 1.2)
+    got = matmul(tf32(a), tf32(b), c, epilogue="alpha_beta", alpha=1.5,
+                 beta=1.2)
+    torch.cuda.synchronize()
+    assert ((got - want).abs() / tol).max().item() > 1.0
 
 
 def test_matmul_kernel_refuses_an_oversized_tile(cuda):
@@ -321,3 +374,39 @@ def test_grouped_matmul_kernel_refuses_an_oversized_tile(cuda):
     with pytest.raises(RuntimeError, match="shared memory"):
         grouped_matmul(x, w, block_m=256, block_n=256, block_k=256)
     assert grouped_matmul.launches == before
+
+
+# ---- one_pass builds: one CUDA graph replay --------------------------------
+ONE_PASS = [("dwthaar1d", {"one_pass": True}),
+            ("fastwalshtransform", {"reshape_butterfly": False,
+                                    "one_pass": True}),
+            ("fastwalshtransform", {"reshape_butterfly": True,
+                                    "one_pass": True})]
+
+
+@pytest.mark.parametrize("name,variant", ONE_PASS)
+def test_one_pass_graph_equals_the_eager_build(cuda, name, variant):
+    """The replayed graph against the baseline's eager chain within the
+    case's FE tolerance; a second call with new data returns its own result
+    (not the first call's buffer); a second shape captures a second
+    graph."""
+    case = get_case(name)
+    fn = case.build(variant, impl="torch")
+    eager = case.build(dict(case.baseline_variant), impl="torch")
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x1 = torch.randn(65536, device=cuda, generator=g)
+    x2 = torch.randn(65536, device=cuda, generator=g)
+    y1 = fn(x1)
+    y2 = fn(x2)
+    torch.cuda.synchronize()
+    assert len(fn.graphs) == 1
+    assert y1.data_ptr() != y2.data_ptr()
+    assert outputs_match(y1, eager(x1)).ok
+    assert outputs_match(y2, eager(x2)).ok
+    assert not torch.equal(y1, y2)
+    x3 = torch.randn(16384, device=cuda, generator=g)
+    y3 = fn(x3)
+    torch.cuda.synchronize()
+    assert len(fn.graphs) == 2 and y3.shape == x3.shape
+    assert outputs_match(y3, eager(x3)).ok
+    assert outputs_match(fn(x1), y1).ok     # the first graph still replays

@@ -10,20 +10,30 @@ Phases, each fatal on failure (exit 1, no result line):
    sum, K5 grouped GEMM) are built from the checkout (nvcc, sm_90a, one
    nvcc per source, started together) and the build times shown; the
    Triton map kernel K4 is compiled (into build/triton/) by one launch,
-   checked against a + b.  A failed build or compile is fatal.
+   checked against a + b.  A failed build or compile is fatal, and so is a
+   spill in K2's tensor-core body at any head_dim (registers printed).
 2. Kernel vs plain: the flash-attention kernel against its plain PyTorch
    version at the serving shapes (B 1 and 4; S 8, 64, 96, 256; H 32, KV 2,
-   hd 128; bf16 and f32; causal), with CUDA-event times of the kernel, the
-   plain version and PyTorch's SDPA (a yardstick only), beside the bound.
+   hd 128; bf16 and f32; causal) and at hymba-1.5b's heads (H 25, KV 5, hd
+   64) and stablelm-3b's head_dim 80 (bf16, B 2, S 256), each with the body
+   it took (``mma``: the tensor cores, which every bf16 row must take;
+   ``simt``: the CUDA cores, f32) and CUDA-event times of the kernel, of
+   the ``simt`` body on the same bf16 inputs, of the plain version and of
+   PyTorch's SDPA (a yardstick only), beside the bound.
 3. Serve glm4-9b at full width and depth (40 layers, bf16, random weights
    from a seeded generator) with the kernel installed at the ``attention``
    site: a BatchedServer (4 slots, max_len 256) answers 8 requests of mixed
    prompt length.  Checks every request's token count, the kernel's launch
-   count, and the last-token prefill logits through the kernel against the
-   plain version; prints the agreement with generate(), tokens/s and peak
-   memory.
+   count and its launches by body (none may take ``simt``), and the
+   last-token prefill logits through the kernel against the plain version;
+   prints the agreement with generate(), tokens/s and peak memory.
 4. The kernel against its plain version at every shape the serving run gave
-   it, on that run's own inputs (the first call at each (B, S)).
+   it, on that run's own inputs (the first call at each (B, S)), each on
+   ``mma``.  Then K2 at the main shape (the heaviest of them): the kernel,
+   the ``simt`` body and SDPA timed in 5 alternated rounds, the wrapper's
+   host µs per call, and a control: the plain version with P cast to bf16
+   before PV (as ``attention_chunked`` does) against the plain version,
+   which must read above the gate.
 5. The paper's pipeline on the card: a ``Campaign`` on the measured ``h100``
    platform with the heuristic proposer over the PolyBench matmul family
    (gemm, 2mm, 3mm, syrk, syr2k), every candidate FE-checked and timed
@@ -46,8 +56,9 @@ Phases, each fatal on failure (exit 1, no result line):
    K2), then its ``integrated_speedup`` into full-width glm4-9b over 2×256
    tokens: the naive plain-PyTorch attention against the winner's ``cuda``
    build (K2) at the ``attention`` site, in float32, the dtype the case is
-   optimized in.  Prints the speedup and ``fe_ok`` (must be true); K2 is
-   held against its plain version at every shape this phase gave it.
+   optimized in.  Prints the speedup and ``fe_ok`` (must be true) and K2's
+   launches by body (f32: all ``simt``); K2 is held against its plain
+   version at every shape this phase gave it.
 8. K6 and K7 against their plain versions (outputs and final states) at
    the serving shapes (B 1 and 4; S 8, 64, 128, 256; K6 H 64, K = V 64; K7
    H 50, P 64, N 16), every chunk of the ``rwkv_wkv``/``mamba_ssd``
@@ -69,8 +80,8 @@ Phases, each fatal on failure (exit 1, no result line):
    (B, S) of the run.
 10. The same for hymba-1.5b (32 layers, bf16, 3.0 GiB, max_len 272) with
    K7 at ``ssm_chunk`` and K2 at ``attention`` (H 25, KV 5, hd 64): both
-   launch counts, the final ``ssm`` state, and both kernels held against
-   their plain versions at every (B, S) of the run.
+   launch counts (K2 all on ``mma``), the final ``ssm`` state, and both
+   kernels held against their plain versions at every (B, S) of the run.
 11. The paper's Table 4 hotspots: a ``Campaign`` on ``h100`` over
    ``rwkv_wkv`` and ``mamba_ssd`` (every candidate FE-checked and timed
    through K6 or K7), then each winner's ``integrated_speedup`` into
@@ -99,8 +110,10 @@ Phases, each fatal on failure (exit 1, no result line):
    re-timed, beside the paper's (labelled as the paper's).
 Then the device times at the main shapes (K2, K1 as above; K6, K7 at their
 serving runs' heaviest prefill; K3, K4, K5 as in phase 13) in a fresh
-process, the ``kernels`` JSON line (K1-K7; K1 with its launches by body,
-its device time and the TF32 control) and the result line.  An f32 GEMM's
+process (with the wrapper's host µs per call where K2's CUDA-event time
+exceeds 1.5x its device time), the ``kernels`` JSON line (K1-K7; K1 and K2
+with their launches by body, the main shape's body, the device time and
+the TF32 or P-in-bf16 control) and the result line.  An f32 GEMM's
 bound (K1, K5) counts three TF32 passes on the tensor cores, 165 TFLOP/s.
 
 Details of every case go to chiprun_out/chip_smoke.json.
@@ -238,6 +251,7 @@ def compare(q, k, v, causal=True):
                                                      flash_attention_ref)
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
+    path = k2_path(q, k, v)
     want = flash_attention_ref(q, k, v, causal=causal).float()
     diff = (got.float() - want).abs()
     B, S, H, hd = q.shape
@@ -245,7 +259,7 @@ def compare(q, k, v, causal=True):
     rtol, atol = KERNEL_TOL[dtype]
     return {
         "B": B, "S": S, "T": k.shape[1], "H": H, "KV": k.shape[2], "hd": hd,
-        "dtype": dtype, "causal": causal,
+        "dtype": dtype, "causal": causal, "path": path,
         "finite": bool(torch.isfinite(got).all()),
         "max_abs_err": diff.max().item(),
         "max_rel_err": (diff.max() / want.abs().max()).item(),
@@ -257,12 +271,75 @@ def agrees(r) -> bool:
     return r["finite"] and r["tol_ratio"] <= 1.0
 
 
+def k2_path(q, k, v) -> str:
+    """The body K2 takes on these inputs (``flash_attention.path_for``)."""
+    from repro_torch.kernels.flash_attention import path_for
+    return path_for(q.dtype, q.shape[3], (q.stride(), k.stride(), v.stride()),
+                    (q.data_ptr(), k.data_ptr(), v.data_ptr()))
+
+
+def require_mma(r, where: str) -> None:
+    """A bf16 K2 call at head_dim <= 128 must run on the tensor cores."""
+    if r["dtype"] == "bfloat16" and r["hd"] <= 128 and r["path"] != "mma":
+        fail(f"K2 ran the {r['path']} body at {where}: {r}")
+
+
+def p_bf16_control(q, k, v, causal=True) -> float:
+    """The plain version with P cast to bf16 before PV, as
+    ``attention_chunked`` computes it, against ``flash_attention_ref``, as
+    a ratio to K2's gate: it must read above 1, or the gate could not tell
+    a one-pass bf16 P from the kernel's hi + lo pair."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models.layers import attention_chunked
+    want = flash_attention_ref(q, k, v, causal=causal).float()
+    got = attention_chunked(q, k, v, causal=causal, use_impl=False).float()
+    torch.cuda.synchronize()
+    rtol, atol = KERNEL_TOL[str(q.dtype).replace("torch.", "")]
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
+def host_us_per_call(fn, calls: int = 1000) -> float:
+    """Host µs per call of ``fn``: ``calls`` launches without a sync."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def ptxas_kernels(text: str):
+    """{kernel: {"registers": n, "spill_bytes": n}} from nvcc's -Xptxas -v
+    report (spill stores + loads)."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([\w.$]+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {"registers": 0, "spill_bytes": 0})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def measure_attention(q, k, v, causal=True, device_time=True):
     """Kernel vs plain version on the same inputs: errors and times (the
     profiler's device time of the kernel only with ``device_time``)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_ref)
+                                                     flash_attention_ref,
+                                                     run_body)
     r = compare(q, k, v, causal)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     bound_ms, bound_by = attention_bound(r["B"], r["S"], r["T"], r["H"],
@@ -273,6 +350,9 @@ def measure_attention(q, k, v, causal=True, device_time=True):
         r["kernel_device_ms"] = split["device_ms"]
         r["kernel_trace"] = {key: split[key]
                              for key in ("traces", "sentinels_lost")}
+    if r["dtype"] == "bfloat16":     # the CUDA-core body on the same inputs
+        r["simt_ms"] = cuda_ms(lambda: run_body(q, k, v, causal=causal,
+                                                path="simt"))
     return {
         **r,
         "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=causal)),
@@ -309,6 +389,16 @@ def phase_device(report):
             if "registers" in line or "spill" in line:
                 print("    ptxas:" + line.split(":", 1)[-1].rstrip(),
                       flush=True)
+    # K2's tensor-core body, one instantiation per head_dim: no spills
+    fa_mma = {int(re.search(r"ILi(\d+)E", n).group(1)): r for n, r in
+              ptxas_kernels(str(build.build_info["flash_attention"]["ptxas"])
+                            ).items() if "fa_mma_kernel" in n}
+    print("  K2 mma body by head_dim (registers, spill bytes): "
+          + ", ".join(f"hd {hd} {r['registers']} {r['spill_bytes']}"
+                      for hd, r in sorted(fa_mma.items())), flush=True)
+    if sorted(fa_mma) != list(range(16, 129, 16)) or any(
+            r["spill_bytes"] for r in fa_mma.values()):
+        fail(f"K2's mma body: instantiations or spills {fa_mma}")
     # K4 is Triton: compiled at its first launch, which is checked here
     from repro_torch.kernels.elementwise import elementwise
     from repro_torch.kernels.suites.appsdk import _add
@@ -329,6 +419,7 @@ def phase_device(report):
                         "triton_compile_s": triton_s,
                         "build_s": {n: build.build_info[n]["seconds"]
                                     for n in KERNEL_SOURCES},
+                        "k2_mma_ptxas": fa_mma,
                         "ptxas": {n: [line.strip() for line in str(
                             build.build_info[n]["ptxas"]).splitlines()
                             if "registers" in line or "spill" in line]
@@ -336,29 +427,38 @@ def phase_device(report):
     return name, smi
 
 
+def print_k2(r):
+    simt = f"  simt {r['simt_ms']:.4f}" if "simt_ms" in r else ""
+    print(f"  {r['dtype']:8s} B={r['B']} S={r['S']:3d} H {r['H']} KV "
+          f"{r['KV']} hd {r['hd']:3d} {r['path']:4s} max_abs_err "
+          f"{r['max_abs_err']:.3g} (of tol {r['tol_ratio']:.2f})  kernel "
+          f"{r['ms']:.4f} ms (device {r['kernel_device_ms']:.4f}){simt}  "
+          f"plain {r['plain_ms']:.4f} ms  sdpa {r['library_ms']:.4f} ms  "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+
+
 def phase_kernel(report):
     import torch
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    print("kernel vs plain (flash_attention, causal, H 32, KV 2, hd 128):",
+    print("kernel vs plain (flash_attention, causal; body: mma = tensor "
+          "cores, simt = CUDA cores, timed on the same bf16 inputs):",
           flush=True)
-    for dtype in (torch.bfloat16, torch.float32):
-        for B in (1, 4):
-            for S in (8, 64, 96, 256):
-                q = torch.randn(B, S, 32, 128, device="cuda", generator=g)
-                k = torch.randn(B, S, 2, 128, device="cuda", generator=g)
-                v = torch.randn(B, S, 2, 128, device="cuda", generator=g)
-                r = measure_attention(q.to(dtype), k.to(dtype), v.to(dtype))
-                rows.append(r)
-                print(f"  {r['dtype']:8s} B={B} S={S:3d}  max_abs_err "
-                      f"{r['max_abs_err']:.3g} (of tol {r['tol_ratio']:.2f})  "
-                      f"kernel {r['ms']:.4f} ms "
-                      f"(device {r['kernel_device_ms']:.4f})  "
-                      f"plain {r['plain_ms']:.4f} ms  sdpa "
-                      f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} "
-                      f"ms ({r['bound_by']})", flush=True)
-                if not agrees(r):
-                    fail(f"kernel disagrees with its plain version: {r}")
+    shapes = [(dtype, B, S, 32, 2, 128) for dtype in (torch.bfloat16,
+                                                     torch.float32)
+              for B in (1, 4) for S in (8, 64, 96, 256)]
+    shapes += [(torch.bfloat16, 2, 256, 25, 5, 64),    # hymba-1.5b's heads
+               (torch.bfloat16, 2, 256, 32, 32, 80)]   # stablelm-3b's
+    for dtype, B, S, H, KV, hd in shapes:
+        q = torch.randn(B, S, H, hd, device="cuda", generator=g)
+        k = torch.randn(B, S, KV, hd, device="cuda", generator=g)
+        v = torch.randn(B, S, KV, hd, device="cuda", generator=g)
+        r = measure_attention(q.to(dtype), k.to(dtype), v.to(dtype))
+        rows.append(r)
+        print_k2(r)
+        if not agrees(r):
+            fail(f"kernel disagrees with its plain version: {r}")
+        require_mma(r, "phase 2")
     report["kernel_vs_plain"] = rows
 
 
@@ -689,21 +789,24 @@ def phase_integrate(report):
     platform = H100Platform()
     case = get_case("attention_prefill")
     rec = FirstCalls.at(hpc, "flash_attention", k2_key)
+    by_path = flash_attention.launches_by_path
     try:
         flash_attention.launches = 0
+        by_path.update(mma=0, simt=0)
         t = time.perf_counter()
         res = optimize(case, platform, HeuristicProposer(0, None,
                                                          platform.name),
                        cfg=OptConfig(d_rounds=2, n_candidates=3))
         opt_launches = flash_attention.launches
+        opt_by_path = dict(by_path)
         cands = [c for rl in res.rounds for c in rl.candidates]
         n_ok = sum(c.status == "ok" for c in cands)
         print(f"optimize(attention_prefill) on h100: {res.mep_log[0]}; "
               f"{res.baseline_time_s * 1e3:.4f} -> "
               f"{res.best_time_s * 1e3:.4f} ms ({res.speedup:.3f}x, "
               f"{res.best_variant}); {len(cands)} candidates, {n_ok} ok; "
-              f"K2 launches {opt_launches} ({time.perf_counter() - t:.1f} s)",
-              flush=True)
+              f"K2 launches {opt_launches} {opt_by_path} "
+              f"({time.perf_counter() - t:.1f} s)", flush=True)
         if opt_launches == 0 or n_ok == 0:
             fail("optimize(attention_prefill) did not run K2 to an ok "
                  "candidate")
@@ -726,27 +829,33 @@ def phase_integrate(report):
             return lambda tokens: model.forward(tokens)[0]
 
         flash_attention.launches = 0
+        by_path.update(mma=0, simt=0)
         ir = integrate.integrated_speedup(case, res.best_variant, make_step,
                                           (toks,), platform=platform, r=5,
                                           k=1)
         int_launches = flash_attention.launches
+        int_by_path = dict(by_path)
     finally:
         rec.restore()
     print(f"integrated speedup of attention_prefill in glm4-9b (2x256 "
           f"tokens, f32): naive {ir.baseline_time_s * 1e3:.2f} ms -> K2 "
           f"{ir.optimized_time_s * 1e3:.2f} ms per forward = "
           f"{ir.integrated_speedup:.3f}x, fe_ok {ir.fe_ok} (max abs err "
-          f"{ir.max_abs_err:.3g}); K2 launches {int_launches}", flush=True)
+          f"{ir.max_abs_err:.3g}); K2 launches {int_launches} {int_by_path}",
+          flush=True)
     need = cfg.n_layers * (1 + 5 + 1)     # warmup, 5 reps, the output call
     if not ir.fe_ok or int_launches < need:
         fail(f"integration: fe_ok {ir.fe_ok}, {int_launches} K2 launches "
              f"({need} expected)")
+    if opt_by_path["mma"] or int_by_path["mma"]:   # f32: the CUDA cores
+        fail(f"phase 7's f32 K2 calls took the tensor cores: {opt_by_path},"
+             f" {int_by_path}")
     checks = []
     for key, (args, kw) in sorted(rec.calls.items()):
         q, k, v = args
         r = compare(q, k, v, kw.get("causal", True))
         checks.append(r)
-        print(f"  K2 {r['dtype']} q {key[0]}: max_abs_err "
+        print(f"  K2 {r['dtype']} q {key[0]} ({r['path']}): max_abs_err "
               f"{r['max_abs_err']:.3g} (of tol {r['tol_ratio']:.2f})",
               flush=True)
         if not agrees(r):
@@ -760,12 +869,14 @@ def phase_integrate(report):
                      "best_ms": res.best_time_s * 1e3,
                      "best_variant": res.best_variant,
                      "candidates": len(cands), "ok": n_ok,
-                     "launches": opt_launches},
+                     "launches": opt_launches,
+                     "launches_by_path": opt_by_path},
         "model": "glm4-9b float32, 40 layers, 2x256 tokens",
         "baseline_ms": ir.baseline_time_s * 1e3,
         "optimized_ms": ir.optimized_time_s * 1e3,
         "integrated_speedup": ir.integrated_speedup, "fe_ok": ir.fe_ok,
         "max_abs_err": ir.max_abs_err, "launches": int_launches,
+        "launches_by_path": int_by_path,
         "k2_checks": checks}
     return checks
 
@@ -1135,11 +1246,15 @@ def phase_serve(report, arch):
     torch.cuda.reset_peak_memory_stats()
     for fn in fns.values():
         fn.launches = 0                      # the main path's run
+        for body in getattr(fn, "launches_by_path", ()):
+            fn.launches_by_path[body] = 0
     t = time.perf_counter()
     srv.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {k: fn.launches for k, fn in fns.items()}
+    by_path = {k: dict(fn.launches_by_path) for k, fn in fns.items()
+               if hasattr(fn, "launches_by_path")}
     calls = {k: dict(sites[s].calls) for s, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     del model.prefill, model.decode_step     # back to the class methods
@@ -1156,9 +1271,13 @@ def phase_serve(report, arch):
           f"{'exact-length packing' if recurrent else 'padded buckets'}) in "
           f"{wall:.2f} s: {stats['prefill_calls']} packed prefills, launches "
           f"{launches} ({need} each needed: every layer of every prefill), "
-          f"swap epochs {srv.swap_epochs}", flush=True)
+          f"swap epochs {srv.swap_epochs}; by body {by_path}", flush=True)
     if need == 0 or any(n != need for n in launches.values()):
         fail(f"{arch}: kernel launches {launches}, {need} expected")
+    # every serving call is bf16 at the config's head_dim
+    if (cfg.param_dtype == "bfloat16" and cfg.resolved_head_dim <= 128
+            and by_path.get("flash_attention", {}).get("simt")):
+        fail(f"{arch}: K2 serving calls on the CUDA cores: {by_path}")
 
     prefill_tokens = int(lengths.sum())
     decode_tokens = sum(len(r.tokens) - 1 for r in reqs)
@@ -1167,6 +1286,7 @@ def phase_serve(report, arch):
         "prompt_lengths": lengths.tolist(), "max_new": max_new, "slots": 4,
         "max_len": max_len, "params": n_params, "param_gib": gib,
         "prefill_calls": stats["prefill_calls"], "launches": launches,
+        "launches_by_path": by_path,
         "prefill_tokens": prefill_tokens, "prefill_s": stats["prefill_s"],
         "prefill_tokens_per_s": prefill_tokens / stats["prefill_s"],
         "decode_tokens": decode_tokens, "decode_s": stats["decode_s"],
@@ -1265,12 +1385,14 @@ def phase_serve(report, arch):
         for (B, S), (args, kw) in sorted(by_shape.items()):
             if name == "flash_attention":
                 r = compare(*args, kw.get("causal", True))
+                require_mma(r, f"{arch}'s serving shape B={B} S={S}")
             else:
                 r = compare_recurrent(name, args, kw["chunk"])
             checks[name].append(r)
             print(f"  {name} {r['dtype']} B={B} S={S:3d} at the serving "
-                  f"run's inputs: max_abs_err {r['max_abs_err']:.3g} (of "
-                  f"tol {r['tol_ratio']:.2f})", flush=True)
+                  f"run's inputs{' (' + r['path'] + ')' if 'path' in r else ''}"
+                  f": max_abs_err {r['max_abs_err']:.3g} (of tol "
+                  f"{r['tol_ratio']:.2f})", flush=True)
             if not agrees(r):
                 fail(f"{name} disagrees at {arch}'s serving shape: {r}")
     serve["checks"] = checks
@@ -1902,6 +2024,39 @@ def device_time_child(path: str) -> None:
     print(json.dumps(out), flush=True)
 
 
+def k2_main_shape_times(q, k, v, causal):
+    """At K2's main shape: the kernel (through the wrapper), the CUDA-core
+    body and SDPA in 5 alternated rounds (host-clock rates move between
+    calls), their medians, the wrapper's host µs per call and the P-in-bf16
+    control."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention, run_body
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fns = {"ms": lambda: flash_attention(q, k, v, causal=causal),
+           "simt_ms": lambda: run_body(q, k, v, causal=causal, path="simt"),
+           "library_ms": lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=causal, enable_gqa=True)}
+    rounds = {n: [] for n in fns}
+    for _ in range(5):
+        for n, fn in fns.items():
+            rounds[n].append(cuda_ms(fn))
+    out = {n: float(np.median(ms)) for n, ms in rounds.items()}
+    out["rounds"] = rounds
+    out["host_us_per_call"] = host_us_per_call(
+        lambda: flash_attention(q, k, v, causal=causal))
+    out["p_bf16_control_tol_ratio"] = p_bf16_control(q, k, v, causal)
+    print(f"K2 at the main shape (B={q.shape[0]}, S={q.shape[1]}, "
+          f"{str(q.dtype)[6:]}, {k2_path(q, k, v)}), medians of 5 alternated "
+          f"rounds: kernel {out['ms']:.4f} ms, simt body {out['simt_ms']:.4f}"
+          f", sdpa {out['library_ms']:.4f} (rounds {rounds}); wrapper host "
+          f"{out['host_us_per_call']:.1f} us a call; P-in-bf16 control "
+          f"{out['p_bf16_control_tol_ratio']:.2f} of the gate (must read "
+          "above 1)", flush=True)
+    if out["p_bf16_control_tol_ratio"] <= 1.0:
+        fail("the gate does not see a one-pass bf16 P at the main shape")
+    return out
+
+
 def main() -> None:
     import gc
     import torch
@@ -1929,6 +2084,8 @@ def main() -> None:
     main_shape = measure_attention(q, k, v, causal=causal, device_time=False)
     if not agrees(main_shape):
         fail(f"kernel disagrees at the serving run's shape: {main_shape}")
+    require_mma(main_shape, "the main shape")
+    main_shape.update(k2_main_shape_times(q, k, v, causal))
     report["main_path_shape"] = main_shape
 
     k1_launches, k1_calls, main_key = phase_campaign(report)
@@ -1967,6 +2124,17 @@ def main() -> None:
     print("profiler device ms in a fresh process (CUDA events): "
           + ", ".join(f"{n} {r['kernel_device_ms']:.4f} ({r['ms']:.4f})"
                       for n, (r, _) in timed.items()), flush=True)
+    main_shape["host_bound"] = bool(
+        main_shape["ms"] > 1.5 * main_shape["kernel_device_ms"])
+    if main_shape["host_bound"]:
+        print(f"K2 at the main shape is host-bound: CUDA events "
+              f"{main_shape['ms']:.4f} ms against device "
+              f"{main_shape['kernel_device_ms']:.4f} ms; the wrapper costs "
+              f"{main_shape['host_us_per_call']:.1f} us of host time a call",
+              flush=True)
+    k2_by_path = {body: sum(report[f"serve_{a}"]["launches_by_path"][
+        "flash_attention"][body] for a in ("glm4-9b", "hymba-1.5b"))
+        for body in ("mma", "simt")}
 
     def recurrent_entry(name, source, replaces, launches, checks, r):
         return {"name": name, "route": "cuda", "source": source,
@@ -1982,13 +2150,19 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:82",
         "launches": glm_launches["flash_attention"]
         + hymba_launches["flash_attention"],
+        "launches_by_path": k2_by_path,
+        "main_shape_path": main_shape["path"],
         "max_abs_err": max(r["max_abs_err"] for r in
                            glm_checks["flash_attention"] + k2_pipeline_checks
                            + hymba_checks["flash_attention"]),
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+        "ms": main_shape["ms"], "device_ms": main_shape["kernel_device_ms"],
+        "simt_ms": main_shape["simt_ms"],
+        "host_us_per_call": main_shape["host_us_per_call"],
+        "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
+        "p_bf16_control_tol_ratio": main_shape["p_bf16_control_tol_ratio"],
     }, {
         "name": "matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/matmul.cu",

@@ -16,6 +16,13 @@ Where the two differ on purpose:
   ``h // (H/KV)``;
 * S and T need not be multiples of the tile: the kernel masks the edge.
 
+The kernel has two bodies, chosen before launch by ``path_for`` (which the
+CUDA side mirrors): ``"mma"``, the tensor cores through ``mma.sync``, for
+bf16 at head_dim up to 128 on 16-byte aligned rows, with P applied as a bf16
+hi + lo pair so that it keeps f32 accuracy; and ``"simt"``, f32 FMA on the
+CUDA cores, for every other call (f32, head_dim 144-256, misaligned views).
+A failed launch raises; it is never retried on the other body.
+
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
 launches the kernel or raises.
 """
@@ -31,6 +38,25 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import attention_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_PATH = {"simt": 0, "mma": 1}
+MMA_MAX_HD = 128
+
+
+def path_for(dtype: torch.dtype, hd: int, strides, ptrs) -> str:
+    """The body a launch takes: ``"mma"`` for bf16 with ``hd`` a multiple
+    of 16 up to 128 when each of q, k and v (``strides``: their four
+    strides in elements; ``ptrs``: their addresses) has a contiguous last
+    dimension, its other strides multiples of 16 bytes and its base 16-byte
+    aligned, so that every row suits 16-byte ``cp.async`` copies; else
+    ``"simt"``.  ``mma_path`` in ``csrc/flash_attention.cu`` is the same
+    rule."""
+    item = dtype.itemsize
+    if dtype != torch.bfloat16 or hd % 16 or hd > MMA_MAX_HD:
+        return "simt"
+    for st, ptr in zip(strides, ptrs):
+        if st[-1] != 1 or ptr % 16 or any(x * item % 16 for x in st[:-1]):
+            return "simt"
+    return "mma"
 
 
 def _check(q, k, v, causal: bool, softcap: float) -> None:
@@ -73,7 +99,7 @@ def _lib() -> ctypes.CDLL:
     if lib.fa_forward.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.fa_forward.argtypes = ([ptr] * 4 + [i32] * 8 + [i64] * 12
-                                   + [i32, ctypes.c_float, ptr])
+                                   + [i32, ctypes.c_float, i32, ptr])
         lib.fa_forward.restype = ctypes.c_int
         lib.fa_error_string.argtypes = [i32]
         lib.fa_error_string.restype = ctypes.c_char_p
@@ -86,7 +112,8 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0,
 
     ``device`` names where the caller expects to run (default the GPU) and
     must match the tensors'.  CPU tensors take ``flash_attention_ref``;
-    CUDA tensors launch the kernel on the current stream, with no fallback.
+    CUDA tensors launch the kernel on the current stream, with no fallback,
+    on the body ``path_for`` names.
     """
     dev = resolve_device(device)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -99,6 +126,20 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0,
         raise ValueError("q, k and v must lie on one device")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the last (head_dim) dimension must be contiguous")
+    path = path_for(q.dtype, q.shape[3], (q.stride(), k.stride(), v.stride()),
+                    (q.data_ptr(), k.data_ptr(), v.data_ptr()))
+    o = run_body(q, k, v, causal=causal, path=path)
+    flash_attention.launches += 1
+    flash_attention.launches_by_path[path] += 1
+    return o
+
+
+def run_body(q, k, v, *, causal: bool, path: str):
+    """Launches the named body on CUDA tensors that ``flash_attention`` has
+    checked, and counts nothing.  ``"simt"`` runs any input; ``"mma"``
+    where ``path_for`` does not give it is refused by the kernel's entry.
+    The wrapper goes through here; ``chip_smoke.py`` and the card's tests
+    call it to hold the two bodies against each other."""
     lib = _lib()
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -107,13 +148,13 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         _DTYPE_CODE[q.dtype], q.device.index, B, S, T, H, KV, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        int(causal), 1.0 / math.sqrt(hd),
+        int(causal), 1.0 / math.sqrt(hd), _PATH[path],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError("flash attention kernel launch failed: "
-                           + lib.fa_error_string(err).decode())
-    flash_attention.launches += 1
+        raise RuntimeError(f"flash attention kernel launch failed ({path} "
+                           f"body): {lib.fa_error_string(err).decode()}")
     return o
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_path = {"mma": 0, "simt": 0}

@@ -8,6 +8,7 @@ Without a CUDA device every test skips (a CUDA kernel has no CPU mode).
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.kernels.elementwise import elementwise, elementwise_plain
@@ -30,6 +31,23 @@ def cuda():
     return torch.device("cuda")
 
 
+def flash_gate(got, want):
+    """K2 vs its plain version, element by element: |got - want| <= atol +
+    rtol |want|.  f32: summation order only; bf16: both round an f32 result
+    to bf16, at most one ulp (<= 2^-7 |want|) apart, allowed two."""
+    rtol = 1e-4 if got.dtype == torch.float32 else 2.0 ** -6
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-5)
+
+
+def flash_inputs(cuda, dtype, B, S, T, H, KV, hd):
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q = torch.randn(B, S, H, hd, device=cuda, generator=g).to(dtype)
+    k = torch.randn(B, T, KV, hd, device=cuda, generator=g).to(dtype)
+    v = torch.randn(B, T, KV, hd, device=cuda, generator=g).to(dtype)
+    return q, k, v
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,T,H,KV,hd,causal", [
     (1, 8, 8, 32, 2, 128, True),
@@ -37,25 +55,65 @@ def cuda():
     (2, 130, 130, 4, 2, 256, True),      # the widest head_dim
     (2, 70, 70, 4, 1, 16, False),
     (1, 24, 200, 8, 8, 64, False),       # non-causal, S != T
+    (2, 256, 256, 25, 5, 64, True),      # hymba-1.5b's heads
+    (1, 100, 100, 32, 32, 80, True),     # stablelm-3b's head_dim
 ])
 def test_flash_kernel_matches_plain_version(cuda, dtype, B, S, T, H, KV, hd,
                                             causal):
-    # element by element, |got - want| <= atol + rtol |want|.  f32: summation
-    # order only; bf16: both round an f32 result to bf16, at most one ulp
-    # (<= 2^-7 |want|) apart, allowed two
-    rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
-    g = torch.Generator(device=cuda).manual_seed(S)
-    q = torch.randn(B, S, H, hd, device=cuda, generator=g).to(dtype)
-    k = torch.randn(B, T, KV, hd, device=cuda, generator=g).to(dtype)
-    v = torch.randn(B, T, KV, hd, device=cuda, generator=g).to(dtype)
-    before = flash_attention.launches
+    q, k, v = flash_inputs(cuda, dtype, B, S, T, H, KV, hd)
+    # bf16 up to head_dim 128 on the tensor cores, the rest on the CUDA cores
+    path = "mma" if dtype == torch.bfloat16 and hd <= 128 else "simt"
+    before, by_path = flash_attention.launches, dict(
+        flash_attention.launches_by_path)
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    assert flash_attention.launches_by_path[path] == by_path[path] + 1
     assert got.dtype == dtype and got.shape == q.shape
+    flash_gate(got, flash_attention_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal", [
+    (2, 256, 256, 32, 2, 128, True),     # glm4-9b's main shape
+    (2, 256, 256, 25, 5, 64, True),
+    (1, 100, 100, 32, 32, 80, True),
+    (1, 24, 200, 8, 8, 64, False),
+])
+def test_flash_bodies_agree_on_bf16(cuda, B, S, T, H, KV, hd, causal):
+    """The tensor-core body and the CUDA-core body on the same bf16 inputs:
+    each within the gate of the plain version, and of each other."""
+    q, k, v = flash_inputs(cuda, torch.bfloat16, B, S, T, H, KV, hd)
+    mma = fa_mod.run_body(q, k, v, causal=causal, path="mma")
+    simt = fa_mod.run_body(q, k, v, causal=causal, path="simt")
+    torch.cuda.synchronize()
     want = flash_attention_ref(q, k, v, causal=causal)
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                               atol=1e-5)
+    flash_gate(mma, want)
+    flash_gate(simt, want)
+    flash_gate(mma, simt)
+
+
+def test_flash_misaligned_view_takes_the_cuda_cores(cuda):
+    """A bf16 view whose rows start 2 bytes off 16: the rule sends it to
+    ``simt``, which matches the plain version; ``mma`` is refused on it."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    base = torch.randn(2, 64, 32, 129, device=cuda,
+                       generator=g).to(torch.bfloat16)
+    q = base[..., 1:]
+    k = torch.randn(2, 64, 2, 128, device=cuda,
+                    generator=g).to(torch.bfloat16)
+    v = torch.randn(2, 64, 2, 128, device=cuda,
+                    generator=g).to(torch.bfloat16)
+    assert fa_mod.path_for(q.dtype, 128, (q.stride(), k.stride(), v.stride()),
+                           (q.data_ptr(), k.data_ptr(), v.data_ptr())) \
+        == "simt"
+    before = dict(flash_attention.launches_by_path)
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_path["simt"] == before["simt"] + 1
+    assert flash_attention.launches_by_path["mma"] == before["mma"]
+    flash_gate(got, flash_attention_ref(q, k, v))
+    with pytest.raises(RuntimeError, match="mma body"):
+        fa_mod.run_body(q, k, v, causal=True, path="mma")
 
 
 def test_flash_kernel_reads_strided_inputs(cuda):

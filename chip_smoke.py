@@ -11,7 +11,9 @@ Phases, each fatal on failure (exit 1, no result line):
    nvcc per source, started together) and the build times shown; the
    Triton map kernel K4 is compiled (into build/triton/) by one launch,
    checked against a + b.  A failed build or compile is fatal, and so is a
-   spill in K2's tensor-core body at any head_dim (registers printed).
+   spill in K2's tensor-core body at any head_dim or in any of K5's 16
+   tensor-core instantiations (registers printed, K3's and K5's by
+   kernel).
 2. Kernel vs plain: the flash-attention kernel against its plain PyTorch
    version at the serving shapes (B 1 and 4; S 8, 64, 96, 256; H 32, KV 2,
    hd 128; bf16 and f32; causal) and at hymba-1.5b's heads (H 25, KV 5, hd
@@ -93,13 +95,18 @@ Phases, each fatal on failure (exit 1, no result line):
    four cases whose ``cuda`` build launches a hand-written kernel,
    ``matrixmultiplication`` (K1), ``reduction`` (K3), ``vectoradd`` (K4)
    and ``moe_grouped_gemm`` (K5), as phase 5; each must launch its kernel
-   and reach an ``ok`` candidate.
+   and reach an ``ok`` candidate (K1's and K5's launches counted by body).
 13. K1, K3, K4 and K5 against their plain versions at every call phase 12
-   gave them, on its inputs (K3 also repeated and on integer-valued inputs,
-   both bitwise equal); each K1 call with its body and times, as phase 6;
-   K3, K4 and K5 timed at their case's winner beside the bound, the plain
-   version and the library yardstick (``torch.sum``, ``torch.add``,
-   ``torch.bmm``).
+   gave them, on its inputs (K3 also repeated, on integer-valued inputs and
+   one element off a 16-byte boundary, all bitwise equal); each K1 and K5
+   call with its body (a tile in multiples of 16 on ``simt`` fails), K1's
+   with its times, as phase 6; K3, K4 and K5 timed at their case's winner
+   beside the bound, the plain version and the library yardstick
+   (``torch.sum``, ``torch.add``, ``torch.bmm``), K3 and K5 in 5 alternated
+   rounds with the wrapper's host µs a call (K5 also its ``simt`` body on
+   the same inputs); K5 the same at its fixed main shape (E 8 M 512 K 256
+   N 512, f32 and bf16, 128^3), where it must take ``mma`` and a TF32
+   control must read above the gate.
 14. Tables 1-3 on the card: a ``Campaign`` on ``h100-torch`` (the torch
    build timed with CUDA events, the counterpart of the JAX ``CPUPlatform``
    on its default device) over every PolyBench and APP SDK case and
@@ -111,9 +118,11 @@ Phases, each fatal on failure (exit 1, no result line):
 Then the device times at the main shapes (K2, K1 as above; K6, K7 at their
 serving runs' heaviest prefill; K3, K4, K5 as in phase 13) in a fresh
 process (with the wrapper's host µs per call where K2's CUDA-event time
-exceeds 1.5x its device time), the ``kernels`` JSON line (K1-K7; K1 and K2
-with their launches by body, the main shape's body, the device time and
-the TF32 or P-in-bf16 control) and the result line.  An f32 GEMM's
+exceeds 1.5x its device time), the ``kernels`` JSON line (K1-K7; K1, K2 and
+K5 with their launches by body, the main shape's body, the device time and
+the TF32 or P-in-bf16 control; K2, K3 and K5 with the host µs a call and
+K5 at its fixed main shape, its bf16 and winner figures beside) and the
+result line.  An f32 GEMM's
 bound (K1, K5) counts three TF32 passes on the tensor cores, 165 TFLOP/s.
 
 Details of every case go to chiprun_out/chip_smoke.json.
@@ -333,6 +342,19 @@ def ptxas_kernels(text: str):
     return out
 
 
+def demangled(name: str) -> str:
+    """A kernel's mangled name cut to its name and template arguments, as
+    ``gmm_mma_kernel<f32, 32, 1, 0>`` (dtype, slice depth, A and B
+    K-major) or ``reduce_kernel<bf16, 1, 16>`` (dtype, 16-byte loads, G)."""
+    m = re.search(r"([a-z][a-z_]*_kernel)I(f|13__nv_bfloat16)((?:L[ib]\d+E)*)",
+                  name)
+    if not m:
+        return name
+    dtype = "bf16" if "bfloat16" in m.group(2) else "f32"
+    return f"{m.group(1)}<" + ", ".join(
+        [dtype] + re.findall(r"L[ib](\d+)E", m.group(3))) + ">"
+
+
 def measure_attention(q, k, v, causal=True, device_time=True):
     """Kernel vs plain version on the same inputs: errors and times (the
     profiler's device time of the kernel only with ``device_time``)."""
@@ -399,6 +421,17 @@ def phase_device(report):
     if sorted(fa_mma) != list(range(16, 129, 16)) or any(
             r["spill_bytes"] for r in fa_mma.values()):
         fail(f"K2's mma body: instantiations or spills {fa_mma}")
+    # K5's tensor-core body, 16 instantiations (dtype, slice depth, operand
+    # layouts): no spills; K5's and K3's registers by kernel
+    k5 = ptxas_kernels(str(build.build_info["moe_gemm"]["ptxas"]))
+    k3 = ptxas_kernels(str(build.build_info["reduce_sum"]["ptxas"]))
+    k5_mma = {n: r for n, r in k5.items() if "gmm_mma_kernel" in n}
+    for label, kern in (("K5", k5), ("K3", k3)):
+        print(f"  {label} kernels (registers, spill bytes): " + ", ".join(
+            f"{demangled(n)} {r['registers']} {r['spill_bytes']}"
+            for n, r in sorted(kern.items())), flush=True)
+    if len(k5_mma) != 16 or any(r["spill_bytes"] for r in k5_mma.values()):
+        fail(f"K5's mma body: instantiations or spills {k5_mma}")
     # K4 is Triton: compiled at its first launch, which is checked here
     from repro_torch.kernels.elementwise import elementwise
     from repro_torch.kernels.suites.appsdk import _add
@@ -420,6 +453,8 @@ def phase_device(report):
                         "build_s": {n: build.build_info[n]["seconds"]
                                     for n in KERNEL_SOURCES},
                         "k2_mma_ptxas": fa_mma,
+                        "k5_ptxas": {demangled(n): r for n, r in k5.items()},
+                        "k3_ptxas": {demangled(n): r for n, r in k3.items()},
                         "ptxas": {n: [line.strip() for line in str(
                             build.build_info[n]["ptxas"]).splitlines()
                             if "registers" in line or "spill" in line]
@@ -542,14 +577,14 @@ def matmul_bound(M, K, N, dtype: str, epilogue: str):
                                        else "bytes")
 
 
-def k1_launch(args, kw):
-    """K1 on a call's inputs and the body (path) the launch took."""
+def launch_body(kernel, *args, **kw):
+    """``kernel(*args, **kw)`` (K1 or K5) and the body (path) its launch
+    took."""
     import torch
-    from repro_torch.kernels.matmul import matmul
-    before = dict(matmul.launches_by_path)
-    got = matmul(*args, **kw)
+    before = dict(kernel.launches_by_path)
+    got = kernel(*args, **kw)
     torch.cuda.synchronize()
-    (path,) = [p for p, n in matmul.launches_by_path.items()
+    (path,) = [p for p, n in kernel.launches_by_path.items()
                if n != before[p]]
     return got, path
 
@@ -564,7 +599,7 @@ def compare_k1(key, args, kw, timed: bool = True):
     a, b, c = (*args, None)[:3]
     ab = dict(epilogue=ep, alpha=kw.get("alpha", 1.0),
               beta=kw.get("beta", 1.0))
-    got, path = k1_launch(args, kw)
+    got, path = launch_body(matmul, *args, **kw)
     want = matmul_ref(a, b, c, **ab).float()
     diff = (got.float() - want).abs()
     tol = k1_tolerance(a, b, c, want, ep, ab["alpha"], ab["beta"])
@@ -713,16 +748,18 @@ def require_tensor_cores(rows, calls, winners):
                      f"path at {key}")
 
 
+def tf32(x):
+    """x rounded to TF32 to nearest, ties away from zero (cvt.rna)."""
+    import torch
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
 def tf32_control(args, kw):
     """K1 on its operands rounded to TF32 (the error of one TF32 pass)
     against the plain version on the exact operands: the gate must read
     above 1, or it could not see what three passes avoid."""
-    import torch
     from repro_torch.kernels.matmul import matmul, matmul_ref
     a, b, c = args
-
-    def tf32(x):
-        return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
     ab = dict(epilogue=kw["epilogue"], alpha=kw.get("alpha", 1.0),
               beta=kw.get("beta", 1.0))
     want = matmul_ref(a, b, c, **ab)
@@ -1587,20 +1624,19 @@ def phase_suite_kernels(report):
     modules = {"appsdk": appsdk, "hpc": hpc}
     recs = {w: FirstCalls.at(modules[m], w, suite_key(w))
             for m, w in SUITE_KERNEL_CASES.values()}
-    rows, results = [], {}
-    k1_by_path = {}
+    rows, results, by_path = [], {}, {}
     try:
         for name, (_, wname) in SUITE_KERNEL_CASES.items():
             kernel = wrappers[wname]
             kernel.launches = 0                 # this path's run
-            if wname == "matmul":
+            if hasattr(kernel, "launches_by_path"):     # K1, K5
                 kernel.launches_by_path = dict.fromkeys(
                     kernel.launches_by_path, 0)
             res, row = run_case(camp, store, platform, name)
             row["launches"] = kernel.launches
-            if wname == "matmul":
-                k1_by_path = dict(kernel.launches_by_path)
-                row["launches_by_path"] = k1_by_path
+            if hasattr(kernel, "launches_by_path"):
+                by_path[wname] = dict(kernel.launches_by_path)
+                row["launches_by_path"] = by_path[wname]
             rows.append(row)
             results[name] = res
             print(f"  {name:20s} MEP scale {row['scale']}: baseline "
@@ -1609,7 +1645,8 @@ def phase_suite_kernels(report):
                   f"{row['status']['ok']} ok of {row['candidates']} "
                   f"evaluated, FE fails {row['status']['fe_fail']}, AER "
                   f"repairs {row['aer_repairs']}; {wname} launches "
-                  f"{row['launches']} ({row['seconds']:.1f} s)", flush=True)
+                  f"{row['launches']} {row.get('launches_by_path', '')} "
+                  f"({row['seconds']:.1f} s)", flush=True)
             if row["launches"] == 0 or row["status"]["ok"] == 0:
                 fail(f"{name}: {row['launches']} {wname} launches, "
                      f"{row['status']['ok']} ok candidates")
@@ -1619,7 +1656,8 @@ def phase_suite_kernels(report):
     report["suite_kernels"] = {"platform": platform.name, "cases": rows,
                                "journal": str(db_path.relative_to(ROOT))}
     launches = {w: wrappers[w].launches for _, w in SUITE_KERNEL_CASES.values()}
-    launches["matmul_by_path"] = k1_by_path
+    launches["matmul_by_path"] = by_path["matmul"]
+    launches["grouped_matmul_by_path"] = by_path["grouped_matmul"]
     return launches, {w: rec.calls for w, rec in recs.items()}, results
 
 
@@ -1675,11 +1713,14 @@ def compare_suite(name, key, args, kw, timed: bool = False):
     from repro_torch.kernels.ref import grouped_matmul_ref
     from repro_torch.kernels.reduce_sum import reduce_sum_plain
     kernel = suite_wrappers()[name]
-    pkw = {k: v for k, v in kw.items() if k != "device"}
-    got = kernel(*args, **kw)
-    torch.cuda.synchronize()
-    r = {"kernel": name, "key": [str(k) for k in key],
-         "finite": bool(torch.isfinite(got).all())}
+    pkw = {k: v for k, v in kw.items() if k not in ("device", "keepdim")}
+    r = {"kernel": name, "key": [str(k) for k in key]}
+    if name == "grouped_matmul":
+        got, r["path"] = launch_body(kernel, *args, **kw)
+    else:
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+    r["finite"] = bool(torch.isfinite(got).all())
     if name == "reduce_sum":
         (x,) = args
         plain = lambda: reduce_sum_plain(x, **pkw)  # noqa: E731
@@ -1693,8 +1734,17 @@ def compare_suite(name, key, args, kw, timed: bool = False):
         xi = torch.randint(-2, 3, x.shape, device=x.device,
                            generator=g).to(x.dtype)
         r["integer_bitwise_equal"] = bool(torch.equal(
-            kernel(xi, **kw), reduce_sum_plain(xi, **pkw)))
-        if not (r["repeat_bitwise_equal"] and r["integer_bitwise_equal"]):
+            kernel(xi, **kw).reshape(()), reduce_sum_plain(xi, **pkw)))
+        # the same values one element past a 16-byte boundary: element by
+        # element loads, the same grouping, the same bits
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        view = buf[1:]
+        view.copy_(x)
+        r["misaligned_bitwise_equal"] = bool(
+            view.data_ptr() % 16 != 0
+            and torch.equal(kernel(view, **kw), got))
+        if not (r["repeat_bitwise_equal"] and r["integer_bitwise_equal"]
+                and r["misaligned_bitwise_equal"]):
             r["tol_ratio"] = float("inf")
     elif name == "elementwise":
         fn, *arrs = args
@@ -1711,12 +1761,8 @@ def compare_suite(name, key, args, kw, timed: bool = False):
         x, w = args
         plain = lambda: grouped_matmul_ref(x, w)  # noqa: E731
         library = lambda: torch.bmm(x, w)  # noqa: E731
-        want = plain().float()
-        d = (got.float() - want).abs()
-        r["tol_ratio"] = max(
-            (d[e] / k1_tolerance(x[e], w[e], None, want[e], "none", 1.0,
-                                 0.0)).max().item() for e in range(x.shape[0]))
-        diff = d.max().item()
+        r["tol_ratio"] = k5_tol_ratio(got, x, w)
+        diff = (got.float() - plain().float()).abs().max().item()
     r["max_abs_err"] = diff
     if timed:
         r["ms"] = cuda_ms(lambda: kernel(*args, **kw))
@@ -1724,6 +1770,16 @@ def compare_suite(name, key, args, kw, timed: bool = False):
         r["library_ms"] = cuda_ms(library)
         r["bound_ms"], r["bound_by"] = suite_bound(name, args, kw)
     return r
+
+
+def k5_tol_ratio(got, x, w) -> float:
+    """K5 against its plain version, expert by expert, as a ratio to K1's
+    gate (``k1_tolerance``, no epilogue)."""
+    from repro_torch.kernels.ref import grouped_matmul_ref
+    want = grouped_matmul_ref(x, w).float()
+    return max((((got[e].float() - want[e]).abs()
+                 / k1_tolerance(x[e], w[e], None, want[e], "none", 1.0, 0.0))
+                .max().item()) for e in range(x.shape[0]))
 
 
 def winner_key(case, variant, scale):
@@ -1750,9 +1806,12 @@ def phase_suite_kernel_checks(report, calls, results):
     shape, block or tile and dtype phase 12 gave them, on its inputs; at
     each of K3, K4 and K5's main shape (its case's winner at the MEP
     scale), times beside the bound."""
+    import torch
+    from repro_torch.kernels.reduce_sum import reduce_sum
     print("K1, K3, K4, K5 vs plain at every call phase 12 gave them, on its "
-          "inputs (K3 also repeated and on integer inputs, bitwise):",
-          flush=True)
+          "inputs (K3 also repeated, on integer inputs and one element off "
+          "16 bytes, bitwise; K1 and K5 with their body: mma = tensor "
+          "cores, simt = CUDA cores):", flush=True)
     checks, mains = {}, {}
     for case, (_, name) in SUITE_KERNEL_CASES.items():
         checks[name] = []
@@ -1763,8 +1822,10 @@ def phase_suite_kernel_checks(report, calls, results):
                 print_k1(r)
             else:
                 r = compare_suite(name, key, args, kw)
-                print(f"  {name} {key}: max_abs_err {r['max_abs_err']:.3g} "
-                      f"(of tol {r['tol_ratio']:.2f})", flush=True)
+                body = f" {r['path']}" if "path" in r else ""
+                print(f"  {name} {key}{body}: max_abs_err "
+                      f"{r['max_abs_err']:.3g} (of tol "
+                      f"{r['tol_ratio']:.2f})", flush=True)
             checks[name].append(r)
             if not agrees(r):
                 fail(f"{name} disagrees with its plain version: {r}")
@@ -1778,17 +1839,127 @@ def phase_suite_kernel_checks(report, calls, results):
         if key not in calls[name]:
             fail(f"{case}'s winner {key} never reached {name}")
         args, kw = calls[name][key]
-        main = compare_suite(name, key, args, kw, timed=True)
+        if name == "grouped_matmul":
+            require_k5_tensor_cores(checks[name])
+            main = k5_times(key, args, kw)
+        else:
+            main = compare_suite(name, key, args, kw, timed=True)
+        if name == "reduce_sum":
+            # host-clock rates move between calls: 5 alternated rounds
+            x = args[0]
+            main.update(alternated({
+                "ms": lambda: reduce_sum(*args, **kw),
+                "library_ms": lambda: torch.sum(x)}))
+            main["host_us_per_call"] = host_us_per_call(
+                lambda: reduce_sum(*args, **kw))
+            main["library_host_us_per_call"] = host_us_per_call(
+                lambda: torch.sum(x))
         if not agrees(main):
             fail(f"{name} disagrees at its main shape: {main}")
         mains[name] = (main, (args, kw))
         print(f"  {name} at {case}'s winner {v} (scale {scale}): kernel "
               f"{main['ms']:.4f} ms, plain {main['plain_ms']:.4f}, library "
               f"{main['library_ms']:.4f}, bound {main['bound_ms']:.4f} "
-              f"({main['bound_by']})", flush=True)
+              f"({main['bound_by']})" + (
+                  f"; host {main['host_us_per_call']:.1f} us a call (library "
+                  f"{main['library_host_us_per_call']:.1f}), rounds "
+                  f"{main['rounds']}" if "rounds" in main else ""),
+              flush=True)
+    k5_fixed = k5_main_shapes()
     report["suite_kernel_checks"] = checks
     report["suite_main_shapes"] = {n: m for n, (m, _) in mains.items()}
-    return checks, mains
+    report["k5_main_shapes"] = {d: m for d, (m, _) in k5_fixed.items()}
+    return checks, mains, k5_fixed
+
+
+# K5's main shape in PERF.md: moe_grouped_gemm's largest scale on the
+# 128^3 tile, whatever the campaign picks
+K5_MAIN_SHAPE = (8, 512, 256, 512)                 # E, M, K, N
+K5_MAIN_TILE = {"block_m": 128, "block_n": 128, "block_k": 128}
+
+
+def alternated(fns, rounds: int = 5):
+    """CUDA-event ms of each of ``fns`` in ``rounds`` alternated rounds
+    (host-clock rates move between calls): the medians, and the rounds
+    under "rounds"."""
+    times = {n: [] for n in fns}
+    for _ in range(rounds):
+        for n, fn in fns.items():
+            times[n].append(cuda_ms(fn))
+    out = {n: float(np.median(ms)) for n, ms in times.items()}
+    out["rounds"] = times
+    return out
+
+
+def require_k5_tensor_cores(rows):
+    """Fails unless every K5 call of phase 12 with a tile in multiples of
+    16 (the winner's among them; the case's inputs are contiguous) ran on
+    the tensor cores."""
+    for r in rows:
+        tile = [int(t) for t in r["key"][3:6]]
+        if all(t % 16 == 0 for t in tile) and r["path"] != "mma":
+            fail(f"K5 ran the {r['path']} body at {r['key']}")
+
+
+def k5_times(key, args, kw):
+    """K5 against its plain version on (x, w), then the kernel (through
+    the wrapper), its ``simt`` body on the same inputs and ``torch.bmm`` in
+    5 alternated rounds, the plain version, the bound and the wrapper's
+    host µs a call."""
+    import torch
+    from repro_torch.kernels.moe_gemm import grouped_matmul, run_body
+    x, w = args
+    tile = tuple(int(t) for t in key[3:6])          # fitted (suite_key)
+    r = compare_suite("grouped_matmul", key, args, kw, timed=True)
+    r.update(alternated({
+        "ms": lambda: grouped_matmul(x, w, **kw),
+        "simt_ms": lambda: run_body(x, w, tile, "simt"),
+        "library_ms": lambda: torch.bmm(x, w)}))
+    r["host_us_per_call"] = host_us_per_call(
+        lambda: grouped_matmul(x, w, **kw))
+    r["library_host_us_per_call"] = host_us_per_call(
+        lambda: torch.bmm(x, w))
+    return r
+
+
+def k5_main_shapes():
+    """K5 at its fixed main shape (``K5_MAIN_SHAPE`` on ``K5_MAIN_TILE``,
+    seeded inputs) in f32 and bf16, timed as ``k5_times``; each must run on
+    the tensor cores, and in f32 a TF32 control (K5 on operands rounded to
+    TF32, held against the exact operands) must read above the gate."""
+    import torch
+    from repro_torch.kernels.moe_gemm import grouped_matmul
+    E, M, K, N = K5_MAIN_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(14)
+    x32 = torch.randn(E, M, K, device="cuda", generator=g)
+    w32 = torch.randn(E, K, N, device="cuda", generator=g)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        x, w = x32.to(getattr(torch, dtype)), w32.to(getattr(torch, dtype))
+        kw = dict(K5_MAIN_TILE)
+        key = ((E, M, K), N, dtype, 128, 128, 128)
+        r = k5_times(key, (x, w), kw)
+        if not agrees(r) or r["path"] != "mma":
+            fail(f"K5 at its main shape ({dtype}): {r}")
+        if dtype == "float32":
+            got = grouped_matmul(tf32(x), tf32(w), **kw)
+            r["tf32_control_tol_ratio"] = k5_tol_ratio(got, x, w)
+            if r["tf32_control_tol_ratio"] <= 1.0:
+                fail("the gate does not see one TF32 pass's error at K5's "
+                     f"main shape: {r}")
+        out[dtype] = (r, ((x, w), kw))
+        print(f"  K5 at its main shape E {E} M {M} K {K} N {N} {dtype} "
+              f"128^3 ({r['path']}), medians of 5 alternated rounds: kernel "
+              f"{r['ms']:.4f} ms, simt body {r['simt_ms']:.4f}, torch.bmm "
+              f"{r['library_ms']:.4f} (rounds {r['rounds']}); plain "
+              f"{r['plain_ms']:.4f}; bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']}); wrapper host {r['host_us_per_call']:.1f} "
+              f"us a call (torch.bmm {r['library_host_us_per_call']:.1f}); "
+              f"gate {r['tol_ratio']:.2f}" + (
+                  f"; TF32 control {r['tf32_control_tol_ratio']:.2f} of the "
+                  "gate (must read above 1)" if dtype == "float32" else ""),
+              flush=True)
+    return out
 
 
 # the alternated re-timing of phase 14: rounds of REPS calls of the
@@ -1946,10 +2117,6 @@ def phase_tables(report):
                         "journal": str(db_path.relative_to(ROOT))}
 
 
-# kernels a wrapper call launches (K3: its two passes); the others one
-KERNELS_PER_CALL = {"reduce_sum": 2}
-
-
 def device_time_args(name, call):
     """(args, kwargs) of a main-shape call as ``torch.load`` takes them
     back: K4's map (the vectoradd case's ``_add``) is left out."""
@@ -1957,8 +2124,10 @@ def device_time_args(name, call):
     return (args[1:] if name == "elementwise" else args), kw
 
 
-def suite_entries(launches, checks, mains):
-    """The kernels-line entries of K3, K4 and K5."""
+def suite_entries(launches, checks, mains, k5_fixed):
+    """The kernels-line entries of K3, K4 and K5: K3 and K4 at their
+    case's winner, K5 at its fixed main shape in f32 (``K5_MAIN_SHAPE``),
+    with its bf16 and winner figures beside."""
     meta = {"reduce_sum": ("reduce_sum", "cuda",
                            "src/repro_torch/kernels/csrc/reduce_sum.cu",
                            "src/repro/kernels/suites/pallas_lib.py:101"),
@@ -1968,16 +2137,41 @@ def suite_entries(launches, checks, mains):
             "grouped_matmul": ("moe_gemm", "cuda",
                                "src/repro_torch/kernels/csrc/moe_gemm.cu",
                                "src/repro/kernels/moe_gemm.py:49")}
+    k5 = {d: r for d, (r, _) in k5_fixed.items()}
     out = []
     for name, (entry, route, source, replaces) in meta.items():
-        r = mains[name][0]
-        out.append({"name": entry, "route": route, "source": source,
-                    "replaces": replaces, "launches": launches[name],
-                    "max_abs_err": max(c["max_abs_err"]
-                                       for c in checks[name] + [r]),
-                    "ms": r["ms"], "plain_ms": r["plain_ms"],
-                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                    "library_ms": r["library_ms"]})
+        r = k5["float32"] if name == "grouped_matmul" else mains[name][0]
+        e = {"name": entry, "route": route, "source": source,
+             "replaces": replaces, "launches": launches[name],
+             "max_abs_err": max(c["max_abs_err"]
+                                for c in checks[name] + [r]),
+             "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "library_ms": r["library_ms"]}
+        if name == "reduce_sum":
+            e.update(device_ms=r["kernel_device_ms"],
+                     host_us_per_call=r["host_us_per_call"],
+                     library_host_us_per_call=r["library_host_us_per_call"])
+        if name == "grouped_matmul":
+            win = mains[name][0]
+            e.update(
+                launches_by_path=launches["grouped_matmul_by_path"],
+                main_shape="E 8 M 512 K 256 N 512 float32 128^3",
+                main_shape_path=r["path"], device_ms=r["kernel_device_ms"],
+                host_us_per_call=r["host_us_per_call"],
+                library_host_us_per_call=r["library_host_us_per_call"],
+                simt_ms=r["simt_ms"],
+                tf32_control_tol_ratio=r["tf32_control_tol_ratio"],
+                bfloat16={key: k5["bfloat16"][key] for key in (
+                    "path", "ms", "kernel_device_ms", "simt_ms",
+                    "library_ms", "bound_ms", "host_us_per_call")},
+                winner={"key": win["key"], "path": win["path"],
+                        "ms": win["ms"],
+                        "device_ms": win["kernel_device_ms"],
+                        "simt_ms": win["simt_ms"],
+                        "library_ms": win["library_ms"],
+                        "bound_ms": win["bound_ms"]})
+        out.append(e)
     return out
 
 
@@ -2018,7 +2212,7 @@ def device_time_child(path: str) -> None:
         if name == "elementwise":       # saved without the map: the case's
             args = (_add, *args)
         split = time_split(lambda: kernels[name](*args, **kw),
-                           kernels_per_call=KERNELS_PER_CALL.get(name, 1))
+                           kernels_per_call=1)
         out.append({key: split[key] for key in
                     ("device_ms", "traces", "sentinels_lost")})
     print(json.dumps(out), flush=True)
@@ -2036,12 +2230,8 @@ def k2_main_shape_times(q, k, v, causal):
            "simt_ms": lambda: run_body(q, k, v, causal=causal, path="simt"),
            "library_ms": lambda: F.scaled_dot_product_attention(
                qt, kt, vt, is_causal=causal, enable_gqa=True)}
-    rounds = {n: [] for n in fns}
-    for _ in range(5):
-        for n, fn in fns.items():
-            rounds[n].append(cuda_ms(fn))
-    out = {n: float(np.median(ms)) for n, ms in rounds.items()}
-    out["rounds"] = rounds
+    out = alternated(fns)
+    rounds = out["rounds"]
     out["host_us_per_call"] = host_us_per_call(
         lambda: flash_attention(q, k, v, causal=causal))
     out["p_bf16_control_tol_ratio"] = p_bf16_control(q, k, v, causal)
@@ -2104,26 +2294,30 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     suite_launches, suite_calls, suite_results = phase_suite_kernels(report)
-    suite_checks, suite_mains = phase_suite_kernel_checks(
+    suite_checks, suite_mains, k5_fixed = phase_suite_kernel_checks(
         report, suite_calls, suite_results)
     phase_tables(report)
     wkv_main, wkv_call = main_recurrent_shape("wkv", rwkv_calls["wkv"])
     ssd_main, ssd_call = main_recurrent_shape("ssd", hymba_calls["ssd"])
     report["wkv_main_shape"], report["ssd_main_shape"] = wkv_main, ssd_main
 
-    timed = {"flash_attention": (main_shape, ((q, k, v), {"causal": causal})),
-             "matmul": (k1_main, k1_calls[main_key]),
-             "wkv": (wkv_main, wkv_call), "ssd": (ssd_main, ssd_call),
-             **suite_mains}
-    for (r, _), dev in zip(timed.values(), fresh_device_time(
-            [(n, *device_time_args(n, call))
-             for n, (_, call) in timed.items()])):
+    # (label, wrapper, row, call) of each main shape
+    timed = [("flash_attention", "flash_attention", main_shape,
+              ((q, k, v), {"causal": causal})),
+             ("matmul", "matmul", k1_main, k1_calls[main_key]),
+             ("wkv", "wkv", wkv_main, wkv_call),
+             ("ssd", "ssd", ssd_main, ssd_call),
+             *[(n, n, r, call) for n, (r, call) in suite_mains.items()],
+             *[(f"grouped_matmul main {d}", "grouped_matmul", r, call)
+               for d, (r, call) in k5_fixed.items()]]
+    for (_, _, r, _), dev in zip(timed, fresh_device_time(
+            [(n, *device_time_args(n, call)) for _, n, _, call in timed])):
         r["kernel_device_ms"] = dev["device_ms"]
         r["kernel_trace"] = {key: dev[key]
                              for key in ("traces", "sentinels_lost")}
     print("profiler device ms in a fresh process (CUDA events): "
-          + ", ".join(f"{n} {r['kernel_device_ms']:.4f} ({r['ms']:.4f})"
-                      for n, (r, _) in timed.items()), flush=True)
+          + ", ".join(f"{label} {r['kernel_device_ms']:.4f} ({r['ms']:.4f})"
+                      for label, _, r, _ in timed), flush=True)
     main_shape["host_bound"] = bool(
         main_shape["ms"] > 1.5 * main_shape["kernel_device_ms"])
     if main_shape["host_bound"]:
@@ -2180,7 +2374,7 @@ def main() -> None:
         "library_ms": k1_main["library_ms"],
         "library_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         "tf32_control_tol_ratio": k1_main["tf32_control_tol_ratio"],
-    }, *suite_entries(suite_launches, suite_checks, suite_mains),
+    }, *suite_entries(suite_launches, suite_checks, suite_mains, k5_fixed),
         recurrent_entry(
         "rwkv_wkv", "src/repro_torch/kernels/csrc/rwkv_wkv.cu",
         "src/repro/kernels/rwkv_wkv.py:65", rwkv_launches["wkv"],
@@ -2197,10 +2391,11 @@ def main() -> None:
           f"(B={main_shape['B']}, S={main_shape['S']}, {main_shape['dtype']}); "
           f"matmul at gemm's winner {list(main_key)}; wkv and ssd at their "
           f"serving runs' heaviest prefill ({wkv_main['shape']}, "
-          f"{ssd_main['shape']}, {wkv_main['dtype']}); reduce_sum, "
-          f"elementwise and grouped_matmul at their cases' winners ("
-          + "; ".join(f"{n} {m['key']}" for n, (m, _) in suite_mains.items())
-          + "); "
+          f"{ssd_main['shape']}, {wkv_main['dtype']}); reduce_sum and "
+          f"elementwise at their cases' winners ("
+          + "; ".join(f"{n} {m['key']}" for n, (m, _) in suite_mains.items()
+                      if n != "grouped_matmul")
+          + "); grouped_matmul at E 8 M 512 K 256 N 512 f32 128^3; "
           f"all phases passed in {report['seconds']:.1f} s; details in "
           f"{OUT.relative_to(ROOT)}", flush=True)
     print(smi, flush=True)

@@ -108,17 +108,6 @@ cudaError_t launch_mma(const Params& p, int device, cudaStream_t stream) {
                        mma_tile::THREADS, p, sizeof(T), device, stream);
 }
 
-template <typename T, int SL>
-cudaError_t launch_mma(const Params& p, int device, cudaStream_t stream) {
-  const bool ak = mma_tile::k_major(p.s.sa_m, p.s.sa_k, sizeof(T));
-  const bool bk = mma_tile::k_major(p.s.sb_n, p.s.sb_k, sizeof(T));
-  if (ak)
-    return bk ? launch_mma<T, SL, true, true>(p, device, stream)
-              : launch_mma<T, SL, true, false>(p, device, stream);
-  return bk ? launch_mma<T, SL, false, true>(p, device, stream)
-            : launch_mma<T, SL, false, false>(p, device, stream);
-}
-
 template <typename T>
 cudaError_t launch(const Params& p, int path, int device,
                    cudaStream_t stream) {
@@ -126,9 +115,10 @@ cudaError_t launch(const Params& p, int path, int device,
   if (path == 0)
     return launch_kernel(mm_kernel<T>, simt_set, THREADS, p, sizeof(T),
                          device, stream);
-  // a slice of 32 k where bk allows it, else 16
-  return p.s.bk % 32 == 0 ? launch_mma<T, 32>(p, device, stream)
-                          : launch_mma<T, 16>(p, device, stream);
+  return mma_tile::dispatch<T>(p.s, [&](auto v) {
+    using V = decltype(v);
+    return launch_mma<T, V::SL, V::AK, V::BK>(p, device, stream);
+  });
 }
 
 }  // namespace

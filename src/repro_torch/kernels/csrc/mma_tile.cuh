@@ -73,6 +73,36 @@ inline int mma_path(const gemm_tile::Shape& s, const void* a, const void* b,
          operand_ok(b, s.sb_n, s.sb_k, item);
 }
 
+// The tensor-core instantiation a launch needs, as template arguments: the
+// slice depth SL (32 k where bk allows it, else 16) and whether A and B are
+// K-major.
+template <int SL_, bool AK_, bool BK_>
+struct Variant {
+  static constexpr int SL = SL_;
+  static constexpr bool AK = AK_, BK = BK_;
+};
+
+template <int SL, typename Launch>
+inline cudaError_t by_layout(bool ak, bool bk, Launch& launch) {
+  if (ak)
+    return bk ? launch(Variant<SL, true, true>{})
+              : launch(Variant<SL, true, false>{});
+  return bk ? launch(Variant<SL, false, true>{})
+            : launch(Variant<SL, false, false>{});
+}
+
+// Calls launch(Variant<SL, AK, BK>{}) for the one of the eight
+// instantiations that a tile and operand layout passing mma_path() takes,
+// and returns its cudaError_t.  K1 (matmul.cu) and K5 (moe_gemm.cu) both
+// choose through here, so the two cannot drift apart.
+template <typename T, typename Launch>
+inline cudaError_t dispatch(const gemm_tile::Shape& s, Launch&& launch) {
+  const bool ak = k_major(s.sa_m, s.sa_k, sizeof(T));
+  const bool bk = k_major(s.sb_n, s.sb_k, sizeof(T));
+  return s.bk % 32 == 0 ? by_layout<32>(ak, bk, launch)
+                        : by_layout<16>(ak, bk, launch);
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

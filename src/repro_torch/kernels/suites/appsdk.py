@@ -351,7 +351,8 @@ def _red_ref(x):
 def _red_build(variant, impl="torch"):
     blk = variant.get("block", 4096)
     if impl == "cuda":
-        return lambda x: reduce_sum(x, block=blk, device=x.device.type)[None]
+        return lambda x: reduce_sum(x, block=blk, keepdim=True,
+                                    device=x.device.type)
     if variant.get("one_pass"):
         return _red_ref
 

@@ -13,7 +13,9 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.kernels.elementwise import elementwise, elementwise_plain
 from repro_torch.kernels.matmul import fit, matmul, matmul_ref, path_for
-from repro_torch.kernels.moe_gemm import grouped_matmul
+from repro_torch.kernels import reduce_sum as k3_mod
+from repro_torch.kernels.moe_gemm import grouped_matmul, run_body
+from repro_torch.kernels.moe_gemm import path_for as k5_path_for
 from repro_torch.kernels.reduce_sum import reduce_sum, reduce_sum_plain
 from repro_torch.kernels.ref import grouped_matmul_ref
 from repro_torch.kernels.rwkv_wkv import wkv, wkv_plain
@@ -330,6 +332,7 @@ def reduce_tolerance(x, want):
 @pytest.mark.parametrize("n,block", [
     (8192, 1024),                 # test_kernels.py
     (4194304, 1024),              # the reduction case's largest scale
+    (4194304, 4096),              # four blocks a CUDA block (16 at 1024)
     (1048576, 16384),
     (6000, 1024),                 # fitted to 1000: not a multiple of 256
     (4099, 4096),                 # prime: 4099 blocks of one
@@ -345,7 +348,7 @@ def test_reduce_kernel_matches_plain_version(cuda, dtype, n, block):
     assert got.dtype == dtype and got.shape == ()
     want = reduce_sum_plain(x, block=block)
     assert abs(float(got) - float(want)) <= reduce_tolerance(x, want)
-    # bit-identical on every call: two passes, no atomics
+    # bit-identical on every call: no atomic adds a value
     again = reduce_sum(x, block=block)
     assert torch.equal(got, again)
     # integers in [-2, 2]: every partial sum is exact in f32, so any order
@@ -353,6 +356,54 @@ def test_reduce_kernel_matches_plain_version(cuda, dtype, n, block):
     xi = torch.randint(-2, 3, (n,), device=cuda, generator=g).to(dtype)
     assert torch.equal(reduce_sum(xi, block=block),
                        reduce_sum_plain(xi, block=block))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,block,offset", [
+    (4194304, 16384, 1),          # the reduction case's main shape
+    (4194304, 4096, 1),
+    (1048576, 1024, 3),
+    (6000, 1024, 1),              # blocks of 1000: 250 f32 chunks a block
+    (4099, 4096, 2),              # blocks of one: element by element
+])
+def test_reduce_kernel_is_bitwise_equal_at_an_address_off_16_bytes(
+        cuda, dtype, n, block, offset):
+    """The same values at an address ``offset`` elements past a 16-byte
+    boundary (a view into a larger buffer) take the element-by-element
+    loads, with the 16-byte path's grouping: the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(n + offset)
+    x = torch.randn(n, device=cuda, generator=g).to(dtype)
+    buf = torch.empty(n + 8, device=cuda, dtype=dtype)
+    view = buf[offset:offset + n]
+    view.copy_(x)
+    assert view.data_ptr() % 16 != 0 and x.data_ptr() % 16 == 0
+    got = reduce_sum(x, block=block)
+    assert torch.equal(reduce_sum(view, block=block), got)
+    assert torch.equal(reduce_sum(x, block=block, keepdim=True)[0], got)
+    want = reduce_sum_plain(x, block=block)
+    assert abs(float(got) - float(want)) <= reduce_tolerance(x, want)
+
+
+def test_reduce_kernel_is_right_on_two_streams_at_once(cuda):
+    """Launches on two streams overlap; each stream has its own ticket, so
+    every result is the single-stream one, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    xs = [torch.randn(4194304, device=cuda, generator=g),
+          torch.randn(2097152, device=cuda, generator=g)]
+    want = [reduce_sum(x, block=4096) for x in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    assert streams[0].cuda_stream != streams[1].cuda_stream
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(50):
+        for i, (x, st) in enumerate(zip(xs, streams)):
+            with torch.cuda.stream(st):
+                got[i].append(reduce_sum(x, block=4096))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(r, want[i]) for r in got[i]), i
+    index = torch.cuda.current_device()
+    assert {(index, st.cuda_stream) for st in streams} <= set(k3_mod._workspaces)
 
 
 # ------------------------------------------------------------------ K4 ----
@@ -414,15 +465,102 @@ def test_grouped_matmul_kernel_matches_plain_version(cuda, dtype, E, M, K,
     g = torch.Generator(device=cuda).manual_seed(M + K)
     x = torch.randn(E, M, K, device=cuda, generator=g).to(dtype)
     w = torch.randn(E, K, N, device=cuda, generator=g).to(dtype)
+    tile = (fit(bm, M), fit(bn, N), fit(bk, K))
+    # contiguous operands: every tile in multiples of 16 runs on the tensor
+    # cores, the others (here 24) on the CUDA cores
+    path = "mma" if all(t % 16 == 0 for t in tile) else "simt"
+    assert k5_path_for(dtype, *tile, x.stride(), w.stride(),
+                       (x.data_ptr(), w.data_ptr())) == path
     before = grouped_matmul.launches
+    by_path = dict(grouped_matmul.launches_by_path)
     got = grouped_matmul(x, w, block_m=bm, block_n=bn, block_k=bk)
     torch.cuda.synchronize()
     assert grouped_matmul.launches == before + 1
+    assert grouped_matmul.launches_by_path[path] == by_path[path] + 1
     assert got.dtype == dtype and got.shape == (E, M, N)
     want = grouped_matmul_ref(x, w).float()
     for e in range(E):
         tol = k1_tolerance(x[e], w[e], None, want[e], "none", 1.0, 0.0)
         assert bool(((got[e].float() - want[e]).abs() <= tol).all()), e
+
+
+def k5_gate_ratio(got, x, w):
+    """The largest |got - want| over K1's gate, expert by expert."""
+    want = grouped_matmul_ref(x, w).float()
+    return max(((got[e].float() - want[e]).abs()
+                / k1_tolerance(x[e], w[e], None, want[e], "none", 1.0,
+                               0.0)).max().item()
+               for e in range(x.shape[0]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [64, 128, 256, 512])
+@pytest.mark.parametrize("tile", [(128, 128, 128), (32, 32, 32),
+                                  (64, 256, 64), (256, 128, 128)])
+def test_grouped_matmul_takes_the_tensor_cores_at_the_case_scales(
+        cuda, dtype, M, tile):
+    """moe_grouped_gemm's x [8, M, 256] @ w [8, 256, 512] at each of its
+    scales, on campaign tiles (fitted to M; the widest that f32 fits):
+    the "mma" body, within K1's gate expert by expert, and the "simt" body
+    on the same inputs within it too."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x = torch.randn(8, M, 256, device=cuda, generator=g).to(dtype)
+    w = torch.randn(8, 256, 512, device=cuda, generator=g).to(dtype)
+    before = grouped_matmul.launches_by_path["mma"]
+    got = grouped_matmul(x, w, block_m=tile[0], block_n=tile[1],
+                         block_k=tile[2])
+    torch.cuda.synchronize()
+    assert grouped_matmul.launches_by_path["mma"] == before + 1
+    assert k5_gate_ratio(got, x, w) <= 1.0
+    fitted = (fit(tile[0], M), fit(tile[1], 512), fit(tile[2], 256))
+    simt = run_body(x, w, fitted, "simt")
+    torch.cuda.synchronize()
+    assert k5_gate_ratio(simt, x, w) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_tile_8_takes_the_cuda_cores(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(8, 64, 256, device=cuda, generator=g).to(dtype)
+    w = torch.randn(8, 256, 512, device=cuda, generator=g).to(dtype)
+    before = dict(grouped_matmul.launches_by_path)
+    got = grouped_matmul(x, w, block_m=8, block_n=8, block_k=8)
+    torch.cuda.synchronize()
+    assert grouped_matmul.launches_by_path == {
+        "mma": before["mma"], "simt": before["simt"] + 1}
+    assert k5_gate_ratio(got, x, w) <= 1.0
+
+
+def test_grouped_matmul_views_off_16_bytes_take_the_cuda_cores(cuda):
+    """An expert stride off 16 bytes, and x at an address off 16 bytes:
+    "simt", right; an "mma" launch of either is refused by the kernel's
+    entry."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    E, M, K, N = 8, 128, 256, 512
+    buf = torch.randn(E * (M * K + 1), device=cuda, generator=g)
+    views = [buf.as_strided((E, M, K), (M * K + 1, K, 1)),
+             buf[1:E * M * K + 1].view(E, M, K)]
+    w = torch.randn(E, K, N, device=cuda, generator=g)
+    for x in views:
+        before = dict(grouped_matmul.launches_by_path)
+        got = grouped_matmul(x, w)
+        torch.cuda.synchronize()
+        assert grouped_matmul.launches_by_path["simt"] == before["simt"] + 1
+        assert k5_gate_ratio(got, x, w) <= 1.0
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            run_body(x, w, (128, 128, 128), "mma")
+
+
+def test_grouped_matmul_gate_sees_one_tf32_pass(cuda):
+    """The control: K5 on operands rounded to TF32 makes the error of one
+    TF32 pass, which the gate, held against the exact operands, must
+    catch."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn(8, 512, 256, device=cuda, generator=g)
+    w = torch.randn(8, 256, 512, device=cuda, generator=g)
+    got = grouped_matmul(tf32(x), tf32(w))
+    torch.cuda.synchronize()
+    assert k5_gate_ratio(got, x, w) > 1.0
 
 
 def test_grouped_matmul_kernel_refuses_an_oversized_tile(cuda):

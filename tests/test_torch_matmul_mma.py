@@ -18,7 +18,7 @@ it against its plain version there.
 import pytest
 import torch
 
-from repro_torch.core import datagen
+from repro_torch.core import datagen, get_case
 from repro_torch.core.fe import as_tensors
 from repro_torch.core.kernelcase import ArraySpec
 from repro_torch.kernels.matmul import fit, matmul, path_for, smem_bytes
@@ -156,29 +156,51 @@ def split(x):
     return hi, tf32(x - hi)
 
 
-@pytest.mark.parametrize("kind", ["normal", "uniform"])
-def test_three_tf32_passes_stay_far_inside_the_gate(kind):
+def tf32_pass_ratios(a, b, c, alpha, beta, epilogue):
+    """(three passes, one pass): the largest error of alpha A B (+ beta C)
+    with the product formed from TF32 parts, summed exactly (float64), as
+    a ratio to K1's gate."""
+    d = torch.float64
+    exact = a.to(d) @ b.to(d)
+    want = alpha * exact
+    if epilogue == "alpha_beta":
+        want = want + beta * c.to(d)
+    tol = k1_tolerance(a, b, c, want.float(), epilogue, alpha, beta).to(d)
+    (ah, al), (bh, bl) = split(a), split(b)
+    three = ah.to(d) @ bh.to(d) + ah.to(d) @ bl.to(d) + al.to(d) @ bh.to(d)
+    one = ah.to(d) @ bh.to(d)
+    return ((alpha * (three - exact)).abs().div(tol).max().item(),
+            (alpha * (one - exact)).abs().div(tol).max().item())
+
+
+@pytest.mark.parametrize("kind,grouped", [("normal", False),
+                                          ("uniform", False),
+                                          ("normal", True)],
+                         ids=["normal", "uniform", "grouped"])
+def test_three_tf32_passes_stay_far_inside_the_gate(kind, grouped):
     """At K = 1024 on the pipeline's inputs (datagen, as gemm's MEP draws
     them), alpha A B + beta C with the product formed from TF32 parts,
     summed exactly (float64): three passes read under a tenth of the gate,
     one pass reads above it.  The exact sum isolates the split's error from
-    the summation order, which the gate's own f32 noise covers."""
-    M, K, N = 128, 1024, 128
-    specs = [ArraySpec((M, K), kind=kind), ArraySpec((K, N), kind=kind),
-             ArraySpec((M, N), kind=kind)]
-    a, b, c = as_tensors(datagen.generate(specs, 5), "cpu")
-    alpha, beta = 1.5, 1.2
-    d = torch.float64
-    want = (alpha * (a.to(d) @ b.to(d)) + beta * c.to(d)).float()
-    tol = k1_tolerance(a, b, c, want, "alpha_beta", alpha, beta).to(d)
-    (ah, al), (bh, bl) = split(a), split(b)
-    three = ah.to(d) @ bh.to(d) + ah.to(d) @ bl.to(d) + al.to(d) @ bh.to(d)
-    one = ah.to(d) @ bh.to(d)
-    exact = a.to(d) @ b.to(d)
-    ratio3 = (alpha * (three - exact)).abs().div(tol).max().item()
-    ratio1 = (alpha * (one - exact)).abs().div(tol).max().item()
-    assert ratio3 < 0.1, ratio3
-    assert ratio1 > 1.0, ratio1
+    the summation order, which the gate's own f32 noise covers.
+    ``grouped``: K5's product, x [8, 64, 256] @ w [8, 256, 512] as
+    moe_grouped_gemm's MEP draws them at its smallest scale, each expert
+    against its own gate (no epilogue)."""
+    if grouped:
+        case = get_case("moe_grouped_gemm")
+        x, w = as_tensors(datagen.generate(case.input_specs(64), 5), "cpu")
+        calls = [(x[e], w[e], None, 1.0, 0.0, "none")
+                 for e in range(x.shape[0])]
+    else:
+        M, K, N = 128, 1024, 128
+        specs = [ArraySpec((M, K), kind=kind), ArraySpec((K, N), kind=kind),
+                 ArraySpec((M, N), kind=kind)]
+        a, b, c = as_tensors(datagen.generate(specs, 5), "cpu")
+        calls = [(a, b, c, 1.5, 1.2, "alpha_beta")]
+    for a, b, c, alpha, beta, epilogue in calls:
+        ratio3, ratio1 = tf32_pass_ratios(a, b, c, alpha, beta, epilogue)
+        assert ratio3 < 0.1, ratio3
+        assert ratio1 > 1.0, ratio1
 
 
 def test_the_tf32_rounding_matches_its_definition():

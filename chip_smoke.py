@@ -11,9 +11,9 @@ Phases, each fatal on failure (exit 1, no result line):
    nvcc per source, started together) and the build times shown; the
    Triton map kernel K4 is compiled (into build/triton/) by one launch,
    checked against a + b.  A failed build or compile is fatal, and so is a
-   spill in K2's tensor-core body at any head_dim or in any of K5's 16
-   tensor-core instantiations (registers printed, K3's and K5's by
-   kernel).
+   spill in K2's tensor-core body at any head_dim, in any of K5's 16
+   tensor-core instantiations or in any of K6's 8 (registers printed, K3's,
+   K5's and K6's by kernel).
 2. Kernel vs plain: the flash-attention kernel against its plain PyTorch
    version at the serving shapes (B 1 and 4; S 8, 64, 96, 256; H 32, KV 2,
    hd 128; bf16 and f32; causal) and at hymba-1.5b's heads (H 25, KV 5, hd
@@ -66,7 +66,10 @@ Phases, each fatal on failure (exit 1, no result line):
    H 50, P 64, N 16), every chunk of the ``rwkv_wkv``/``mamba_ssd``
    variant spaces, bf16 (f32 lw/dt) and f32, with CUDA-event times of the
    kernel and the plain version beside the bound (no PyTorch call computes
-   either function: no library yardstick).
+   either function: no library yardstick).  Then K6's ring of one stage
+   against two (``rwkv_wkv.run_body``) at B=1 S=256, bf16 and f32, every
+   chunk, in 5 alternated rounds, the plain version in the rounds at the
+   served chunk 128 (the wrapper takes one stage).
 9. Serve rwkv6-7b at full width and depth (32 layers, bf16, 14.0 GiB,
    random weights from a seeded generator) with K6 at ``rwkv_wkv``: a
    BatchedServer (4 slots, exact-length packing) answers 8 requests of 16
@@ -95,7 +98,9 @@ Phases, each fatal on failure (exit 1, no result line):
    four cases whose ``cuda`` build launches a hand-written kernel,
    ``matrixmultiplication`` (K1), ``reduction`` (K3), ``vectoradd`` (K4)
    and ``moe_grouped_gemm`` (K5), as phase 5; each must launch its kernel
-   and reach an ``ok`` candidate (K1's and K5's launches counted by body).
+   and reach an ``ok`` candidate (K1's and K5's launches counted by body;
+   K4's as compiles and cache hits, read when its case ends, which must sum
+   to its launches).
 13. K1, K3, K4 and K5 against their plain versions at every call phase 12
    gave them, on its inputs (K3 also repeated, on integer-valued inputs and
    one element off a 16-byte boundary, all bitwise equal); each K1 and K5
@@ -106,7 +111,10 @@ Phases, each fatal on failure (exit 1, no result line):
    rounds with the wrapper's host µs a call (K5 also its ``simt`` body on
    the same inputs); K5 the same at its fixed main shape (E 8 M 512 K 256
    N 512, f32 and bf16, 128^3), where it must take ``mma`` and a TF32
-   control must read above the gate.
+   control must read above the gate.  Every K4 call of ``vectoradd``'s
+   ``_add`` must equal the plain version bit for bit; at its winner K4 and
+   ``torch.add`` run in 5 alternated rounds with their host µs a call,
+   beside the loads in K4's cached kernel's PTX.
 14. Tables 1-3 on the card: a ``Campaign`` on ``h100-torch`` (the torch
    build timed with CUDA events, the counterpart of the JAX ``CPUPlatform``
    on its default device) over every PolyBench and APP SDK case and
@@ -120,9 +128,10 @@ serving runs' heaviest prefill; K3, K4, K5 as in phase 13) in a fresh
 process (with the wrapper's host µs per call where K2's CUDA-event time
 exceeds 1.5x its device time), the ``kernels`` JSON line (K1-K7; K1, K2 and
 K5 with their launches by body, the main shape's body, the device time and
-the TF32 or P-in-bf16 control; K2, K3 and K5 with the host µs a call and
-K5 at its fixed main shape, its bf16 and winner figures beside) and the
-result line.  An f32 GEMM's
+the TF32 or P-in-bf16 control; K2, K3, K4, K5 and K6 with the host µs a
+call; K4 with phase 12's compiles and cache hits and its vector loads; K5
+at its fixed main shape, its bf16 and winner figures beside; K6 with its
+rings) and the result line.  An f32 GEMM's
 bound (K1, K5) counts three TF32 passes on the tensor cores, 165 TFLOP/s.
 
 Details of every case go to chiprun_out/chip_smoke.json.
@@ -432,6 +441,13 @@ def phase_device(report):
             for n, r in sorted(kern.items())), flush=True)
     if len(k5_mma) != 16 or any(r["spill_bytes"] for r in k5_mma.values()):
         fail(f"K5's mma body: instantiations or spills {k5_mma}")
+    # K6's split body, 8 instantiations (dtype, head size): no spills
+    k6 = ptxas_kernels(str(build.build_info["rwkv_wkv"]["ptxas"]))
+    print("  K6 kernels (registers, spill bytes): " + ", ".join(
+        f"{demangled(n)} {r['registers']} {r['spill_bytes']}"
+        for n, r in sorted(k6.items())), flush=True)
+    if len(k6) != 8 or any(r["spill_bytes"] for r in k6.values()):
+        fail(f"K6's body: instantiations or spills {k6}")
     # K4 is Triton: compiled at its first launch, which is checked here
     from repro_torch.kernels.elementwise import elementwise
     from repro_torch.kernels.suites.appsdk import _add
@@ -455,6 +471,7 @@ def phase_device(report):
                         "k2_mma_ptxas": fa_mma,
                         "k5_ptxas": {demangled(n): r for n, r in k5.items()},
                         "k3_ptxas": {demangled(n): r for n, r in k3.items()},
+                        "k6_ptxas": {demangled(n): r for n, r in k6.items()},
                         "ptxas": {n: [line.strip() for line in str(
                             build.build_info[n]["ptxas"]).splitlines()
                             if "registers" in line or "spill" in line]
@@ -1066,6 +1083,38 @@ def phase_recurrent_kernels(report):
                           f"{t['bound_ms']:.4f} ms ({t['bound_by']})",
                           flush=True)
     report["recurrent_kernel_vs_plain"] = rows
+    report["wkv_rings"] = wkv_ring_times(g)
+
+
+def wkv_ring_times(g):
+    """K6's ring of one stage (the wrapper's) against two
+    (``rwkv_wkv.run_body``) at the main shape (B=1 S=256 H 64 K = V 64),
+    bf16 and f32, at every chunk of the case's variant space, in 5
+    alternated rounds, with the plain version in the rounds at the served
+    chunk."""
+    import torch
+    from repro_torch.kernels import rwkv_wkv as k6
+    print("K6 rings at B=1 S=256 (medians of 5 alternated rounds, ms; the "
+          "wrapper takes one stage):", flush=True)
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        args = recurrent_inputs("wkv", 1, 256, dtype, g)
+        for chunk in RECURRENT_CHUNKS["wkv"]:
+            fns = {f"ring{st}_ms": (lambda st=st: k6.run_body(
+                *args, chunk=chunk, stages=st)) for st in (1, 2)}
+            reps = {}
+            if chunk == MODEL_CHUNK:
+                fns["plain_ms"] = lambda: k6.wkv_plain(*args, chunk=chunk)
+                reps["plain_ms"] = 3
+            r = alternated(fns, reps=reps)
+            r.update(dtype=str(dtype)[6:], chunk=chunk)
+            out.append(r)
+            print(f"  {r['dtype']:8s} chunk {chunk:3d}: one stage "
+                  f"{r['ring1_ms']:.4f}, two stages {r['ring2_ms']:.4f}"
+                  + (f", plain {r['plain_ms']:.4f}" if "plain_ms" in r
+                     else "") + f"; rounds {r['rounds']}",
+                  flush=True)
+    return out
 
 
 # the served models: site → the kernel installed there
@@ -1629,11 +1678,20 @@ def phase_suite_kernels(report):
         for name, (_, wname) in SUITE_KERNEL_CASES.items():
             kernel = wrappers[wname]
             kernel.launches = 0                 # this path's run
+            if hasattr(kernel, "cache_hits"):   # K4
+                kernel.compiles = kernel.cache_hits = 0
             if hasattr(kernel, "launches_by_path"):     # K1, K5
                 kernel.launches_by_path = dict.fromkeys(
                     kernel.launches_by_path, 0)
             res, row = run_case(camp, store, platform, name)
             row["launches"] = kernel.launches
+            if hasattr(kernel, "cache_hits"):
+                row["compiles"] = kernel.compiles
+                row["cache_hits"] = kernel.cache_hits
+                if kernel.compiles + kernel.cache_hits != kernel.launches:
+                    fail(f"{name}: {kernel.compiles} compiles and "
+                         f"{kernel.cache_hits} cache hits of {wname} for "
+                         f"{kernel.launches} launches")
             if hasattr(kernel, "launches_by_path"):
                 by_path[wname] = dict(kernel.launches_by_path)
                 row["launches_by_path"] = by_path[wname]
@@ -1645,8 +1703,10 @@ def phase_suite_kernels(report):
                   f"{row['status']['ok']} ok of {row['candidates']} "
                   f"evaluated, FE fails {row['status']['fe_fail']}, AER "
                   f"repairs {row['aer_repairs']}; {wname} launches "
-                  f"{row['launches']} {row.get('launches_by_path', '')} "
-                  f"({row['seconds']:.1f} s)", flush=True)
+                  f"{row['launches']} {row.get('launches_by_path', '')}"
+                  + (f" ({row['compiles']} compiles, {row['cache_hits']} "
+                     f"cache hits)" if "cache_hits" in row else "")
+                  + f" ({row['seconds']:.1f} s)", flush=True)
             if row["launches"] == 0 or row["status"]["ok"] == 0:
                 fail(f"{name}: {row['launches']} {wname} launches, "
                      f"{row['status']['ok']} ok candidates")
@@ -1658,6 +1718,9 @@ def phase_suite_kernels(report):
     launches = {w: wrappers[w].launches for _, w in SUITE_KERNEL_CASES.values()}
     launches["matmul_by_path"] = by_path["matmul"]
     launches["grouped_matmul_by_path"] = by_path["grouped_matmul"]
+    k4_row = next(row for row in rows if "cache_hits" in row)
+    launches["elementwise_cache"] = {"compiles": k4_row["compiles"],
+                                     "cache_hits": k4_row["cache_hits"]}
     return launches, {w: rec.calls for w, rec in recs.items()}, results
 
 
@@ -1753,10 +1816,14 @@ def compare_suite(name, key, args, kw, timed: bool = False):
         want = plain()
         diff = (got.float() - want.float()).abs()
         # as tests/test_torch_cuda.py: within 2^-22 fn(|args|) (a sum alone
-        # is exact)
+        # is exact: bit for bit)
         terms = fn(*[a.float().abs() for a in arrs])
         r["tol_ratio"] = (diff / (2.0 ** -22 * terms + 1e-30)).max().item()
         diff = diff.max().item()
+        if fn.__name__ == "_add":
+            r["bitwise_equal"] = bool(torch.equal(got, want))
+            if not r["bitwise_equal"]:
+                r["tol_ratio"] = float("inf")
     else:
         x, w = args
         plain = lambda: grouped_matmul_ref(x, w)  # noqa: E731
@@ -1769,6 +1836,32 @@ def compare_suite(name, key, args, kw, timed: bool = False):
         r["plain_ms"] = cuda_ms(plain)
         r["library_ms"] = cuda_ms(library)
         r["bound_ms"], r["bound_by"] = suite_bound(name, args, kw)
+    return r
+
+
+def k4_launch(args, kw):
+    """K4 at its main shape: the kernel (through the wrapper, from its
+    cached compiled kernel) and ``torch.add`` in 5 alternated rounds, the
+    host µs a call of both, and the loads in the cached kernel's PTX (``ld.global.v4``: 16 bytes a
+    thread)."""
+    import torch
+    from repro_torch.kernels import elementwise as k4
+    fn, *arrs = args
+    r = alternated({"ms": lambda: k4.elementwise(*args, **kw),
+                    "library_ms": lambda: torch.add(*arrs)})
+    r["host_us_per_call"] = host_us_per_call(
+        lambda: k4.elementwise(*args, **kw))
+    r["library_host_us_per_call"] = host_us_per_call(
+        lambda: torch.add(*arrs))
+    blk, BLOCK, num_warps = k4._grid(kw.get("block", 8192), arrs[0].numel())
+    tensors = (torch.empty_like(arrs[0]), *arrs,
+               *(arrs[0],) * (k4.MAX_INPUTS - len(arrs)))
+    key = k4.launch_key(fn, len(arrs), tensors, blk, BLOCK, num_warps)
+    if key not in k4._launches:
+        fail(f"K4's main shape has no cached kernel at {key}")
+    ptx = k4._launches[key][-1].asm["ptx"]
+    r["ptx_loads"] = sorted(set(re.findall(r"ld\.global[.a-z0-9]*", ptx)))
+    r["ptx_ld_global_v4"] = any(".v4" in ld for ld in r["ptx_loads"])
     return r
 
 
@@ -1854,6 +1947,8 @@ def phase_suite_kernel_checks(report, calls, results):
                 lambda: reduce_sum(*args, **kw))
             main["library_host_us_per_call"] = host_us_per_call(
                 lambda: torch.sum(x))
+        if name == "elementwise":
+            main.update(k4_launch(args, kw))
         if not agrees(main):
             fail(f"{name} disagrees at its main shape: {main}")
         mains[name] = (main, (args, kw))
@@ -1861,6 +1956,8 @@ def phase_suite_kernel_checks(report, calls, results):
               f"{main['ms']:.4f} ms, plain {main['plain_ms']:.4f}, library "
               f"{main['library_ms']:.4f}, bound {main['bound_ms']:.4f} "
               f"({main['bound_by']})" + (
+                  f"; the cached kernel's PTX loads {main['ptx_loads']}"
+                  if name == "elementwise" else "") + (
                   f"; host {main['host_us_per_call']:.1f} us a call (library "
                   f"{main['library_host_us_per_call']:.1f}), rounds "
                   f"{main['rounds']}" if "rounds" in main else ""),
@@ -1878,14 +1975,17 @@ K5_MAIN_SHAPE = (8, 512, 256, 512)                 # E, M, K, N
 K5_MAIN_TILE = {"block_m": 128, "block_n": 128, "block_k": 128}
 
 
-def alternated(fns, rounds: int = 5):
+def alternated(fns, rounds: int = 5, reps=None):
     """CUDA-event ms of each of ``fns`` in ``rounds`` alternated rounds
     (host-clock rates move between calls): the medians, and the rounds
-    under "rounds"."""
+    under "rounds".  ``reps`` names the calls a round of some of them
+    (default 20, after 3 warm-up calls; 1 warm-up call where given)."""
+    reps = reps or {}
     times = {n: [] for n in fns}
     for _ in range(rounds):
         for n, fn in fns.items():
-            times[n].append(cuda_ms(fn))
+            times[n].append(cuda_ms(fn, reps=reps[n], warmup=1) if n in reps
+                            else cuda_ms(fn))
     out = {n: float(np.median(ms)) for n, ms in times.items()}
     out["rounds"] = times
     return out
@@ -2148,10 +2248,13 @@ def suite_entries(launches, checks, mains, k5_fixed):
              "ms": r["ms"], "plain_ms": r["plain_ms"],
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "library_ms": r["library_ms"]}
-        if name == "reduce_sum":
+        if name in ("reduce_sum", "elementwise"):
             e.update(device_ms=r["kernel_device_ms"],
                      host_us_per_call=r["host_us_per_call"],
                      library_host_us_per_call=r["library_host_us_per_call"])
+        if name == "elementwise":
+            e.update(**launches["elementwise_cache"],
+                     ptx_ld_global_v4=r["ptx_ld_global_v4"])
         if name == "grouped_matmul":
             win = mains[name][0]
             e.update(
@@ -2298,6 +2401,8 @@ def main() -> None:
         report, suite_calls, suite_results)
     phase_tables(report)
     wkv_main, wkv_call = main_recurrent_shape("wkv", rwkv_calls["wkv"])
+    wkv_main["host_us_per_call"] = host_us_per_call(
+        lambda: kernel_pair("wkv")[0](*wkv_call[0], **wkv_call[1]))
     ssd_main, ssd_call = main_recurrent_shape("ssd", hymba_calls["ssd"])
     report["wkv_main_shape"], report["ssd_main_shape"] = wkv_main, ssd_main
 
@@ -2375,10 +2480,15 @@ def main() -> None:
         "library_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         "tf32_control_tol_ratio": k1_main["tf32_control_tol_ratio"],
     }, *suite_entries(suite_launches, suite_checks, suite_mains, k5_fixed),
-        recurrent_entry(
-        "rwkv_wkv", "src/repro_torch/kernels/csrc/rwkv_wkv.cu",
-        "src/repro/kernels/rwkv_wkv.py:65", rwkv_launches["wkv"],
-        rwkv_checks["wkv"] + table4_checks["wkv"], wkv_main),
+        {**recurrent_entry(
+            "rwkv_wkv", "src/repro_torch/kernels/csrc/rwkv_wkv.cu",
+            "src/repro/kernels/rwkv_wkv.py:65", rwkv_launches["wkv"],
+            rwkv_checks["wkv"] + table4_checks["wkv"], wkv_main),
+         "device_ms": wkv_main["kernel_device_ms"],
+         "host_us_per_call": wkv_main["host_us_per_call"],
+         "rings": {f"{r['dtype']} chunk {r['chunk']}": {
+             k: r[k] for k in ("ring1_ms", "ring2_ms")}
+             for r in report["wkv_rings"]}},
         recurrent_entry(
         "ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan.py:73", hymba_launches["ssd"],

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times one tree's K1, K3 and K5 on the card at their PERF.md main shapes,
-so that two trees can be compared in one call on one card.
+"""Times one tree's K1, K3, K4, K5 and K6 on the card at their PERF.md main
+shapes, so that two trees can be compared in one call on one card.
 
     python3 scripts/kernel_ab.py --tree DIR [--label NAME]
 
@@ -23,23 +23,35 @@ to ``chiprun_out/kernel_ab.jsonl``), for each main shape:
   off);
 * ``device_ms``, ``kernels_per_call``: the kernels' device time and count
   a call in a ``torch.profiler`` trace (this is a fresh process);
-* ``host_us_per_call``: 1000 calls without a sync.
+* ``host_us_per_call``: 1000 calls without a sync;
+* K6 also ``state_sha256``, the SHA-256 of its final state's bytes, so
+  that two trees' states can be compared bit for bit (the inputs come from
+  one seeded generator).
 
-and ``components``, the host µs a call of each step of a K3 or K5 launch
-that the thin launch path (``kernels/launch.py``) changes, each 10000
-calls: ``resolve_device``, K5's tile checks (cached or not; the parent's
-are not), the stream handle (``torch.cuda.current_stream``
-against ``torch._C._cuda_getCurrentRawStream``), allocating the output
-(``torch.empty(1)`` and indexing ``[0]``, against ``new_empty(())``), and
-the ctypes call itself, made with arguments that the C entry refuses at
-once (n = 0, E = 0), so nothing launches: the tree's own form, eight or
-nineteen converted arguments, or one packed struct.
+and ``components``, the host µs a call of each step of a K3, K4, K5 or K6
+launch that the thin launch path (``kernels/launch.py``) or K4's cached
+launch changes, each 10000 calls: ``resolve_device``, K5's tile checks
+(cached or not; the parent's are not), the stream handle
+(``torch.cuda.current_stream`` against
+``torch._C._cuda_getCurrentRawStream``), allocating the output
+(``torch.empty(1)`` and indexing ``[0]``, against ``new_empty(())``), the
+ctypes call itself, made with arguments that the C entry refuses at once
+(n = 0, E = 0, B = 0), so nothing launches: the tree's own form, eight,
+nineteen or 28 converted arguments, or one packed struct; and K4's steps:
+its checks, ``fit``, the ``_compile`` lookup, ``torch.empty_like``, the
+``torch.cuda.device`` context, ``JITFunction.run`` (a whole launch through
+Triton's own path, 2000 calls) and, where the tree caches the compiled
+kernel, the launch key and the bare launch through its launcher.
 
 Shapes: K3 n 4,194,304 f32 at each of the ``reduction`` case's blocks
 (16384, 4096, 1024); K5 E 8 M 512 K 256 N 512 f32 and bf16 on 128^3; K1
-1024^3 f32 alpha*AB + beta*C on 128^3.
+1024^3 f32 alpha*AB + beta*C on 128^3; K4 ``vectoradd``'s map at n
+16,777,216 and 262,144 (its largest and smallest scales) f32, block 8192;
+K6 rwkv6-7b's B=1 S=256 H=64 K=V=64 bf16, chunk 128, and the Table 4
+case's B=2 S=1024 H=8 f32, chunk 64.
 """
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -58,6 +70,46 @@ def us_per_call(fn, calls: int = 10000) -> float:
     return (time.perf_counter() - t) * 1e6 / calls
 
 
+def k4_components(k4, fn, resolve_device):
+    """Host µs a call of each step of a K4 launch in the tree's own form,
+    at n 262,144 f32, block 8192 (32 programs: the device outruns the host,
+    so no step waits on a full launch queue)."""
+    import torch
+    n = 262144
+    a, b = (torch.randn(n, device="cuda") for _ in range(2))
+    o = torch.empty_like(a)
+    kernel, fn_jit = k4._compile(fn)
+
+    def context():
+        with torch.cuda.device(a.device):
+            pass
+    comp = {"k4_resolve_device": us_per_call(lambda: resolve_device("cuda")),
+            "k4_checks": us_per_call(lambda: k4._check((a, b))),
+            "k4_fit": us_per_call(lambda: k4.fit(8192, n)),
+            "k4_compile_lookup": us_per_call(lambda: k4._compile(fn)),
+            "k4_empty_like": us_per_call(lambda: torch.empty_like(a)),
+            "k4_device_context": us_per_call(context),
+            "k4_jitfunction_run": us_per_call(lambda: kernel[(n // 8192,)](
+                o, a, b, a, 8192, FN=fn_jit, N_IN=2, BLOCK=8192,
+                num_warps=8)),
+            "k4_wrapper": us_per_call(lambda: k4.elementwise(fn, a, b,
+                                                             block=8192))}
+    if hasattr(k4, "_launches"):            # the cached compiled kernel
+        tensors = (o, a, b, a)
+        entry = k4._launches[k4.launch_key(fn, 2, tensors, 8192, 8192, 8)]
+        args = k4.launch_args(entry, n // 8192, k4.raw_stream(0), tensors,
+                              8192, 2, 8192)
+        run = entry[0]
+        comp["k4_grid_cached"] = us_per_call(lambda: k4._grid(8192, n))
+        comp["k4_launch_key"] = us_per_call(lambda: k4.launch_key(
+            fn, 2, tensors, 8192, 8192, 8))
+        comp["k4_launch_args"] = us_per_call(lambda: k4.launch_args(
+            entry, n // 8192, k4.raw_stream(0), tensors, 8192, 2, 8192))
+        comp["k4_bare_launch"] = us_per_call(lambda: run(*args))
+    torch.cuda.synchronize()
+    return comp
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", required=True)
@@ -71,9 +123,12 @@ def main() -> None:
         sys.exit("kernel_ab: no CUDA device")
     import chip_smoke as cs
     from repro_torch.device import resolve_device
+    from repro_torch.kernels import elementwise as k4
     from repro_torch.kernels import matmul as k1
+    from repro_torch.kernels import rwkv_wkv as k6
     from repro_torch.kernels import moe_gemm as k5
     from repro_torch.kernels import reduce_sum as k3
+    from repro_torch.kernels.suites.appsdk import _add
     if not str(Path(k3.__file__).resolve()).startswith(str(tree)):
         sys.exit(f"kernel_ab: imported {k3.__file__}, not from {tree}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -107,18 +162,42 @@ def main() -> None:
     shapes["grouped_matmul E 8 M 512 K 256 N 512 bf16 128^3"] = (
         lambda: k5.grouped_matmul(x5b, w5b, **tile),
         lambda: torch.bmm(x5b, w5b))
+    a4, b4 = (torch.randn(16777216, device="cuda", generator=g)
+              for _ in range(2))
+    shapes["elementwise add n 16777216 f32 block 8192"] = (
+        lambda: k4.elementwise(_add, a4, b4, block=8192),
+        lambda: torch.add(a4, b4))
+    a4s, b4s = a4[:262144], b4[:262144]        # vectoradd's smallest scale
+    shapes["elementwise add n 262144 f32 block 8192"] = (
+        lambda: k4.elementwise(_add, a4s, b4s, block=8192),
+        lambda: torch.add(a4s, b4s))
+    wkv_args = cs.recurrent_inputs("wkv", 1, 256, torch.bfloat16, g)
+    shapes["wkv B 1 S 256 H 64 K 64 V 64 bf16 chunk 128"] = (
+        lambda: k6.wkv(*wkv_args, chunk=128), None)
+    # the Table 4 case (kernels/suites/hpc.py) at its largest scale
+    r6, k6_, v6 = (0.5 * torch.randn(2, 1024, 8, 64, device="cuda",
+                                     generator=g) for _ in range(3))
+    lw6 = -torch.rand(2, 1024, 8, 64, device="cuda", generator=g) * 3 - 0.01
+    u6 = 0.5 * torch.randn(8, 64, device="cuda", generator=g)
+    shapes["wkv B 2 S 1024 H 8 K 64 V 64 f32 chunk 64"] = (
+        lambda: k6.wkv(r6, k6_, v6, lw6, u6, chunk=64), None)
     out = {}
     for name, (fn, lib) in shapes.items():
-        r = cs.alternated({"ms": fn, "library_ms": lib})
+        r = cs.alternated({"ms": fn, **({"library_ms": lib} if lib else {})})
         split = cs.time_split(fn, reps=10)
         r.update(device_ms=split["device_ms"],
                  kernels_per_call=split["kernels_per_call"],
                  host_us_per_call=cs.host_us_per_call(fn))
+        if name.startswith("wkv"):
+            state = fn()[1].cpu().numpy()
+            r["state_sha256"] = hashlib.sha256(state.tobytes()).hexdigest()
         out[name] = r
         print(f"  {name}: {r['ms']:.4f} ms (device {r['device_ms']:.4f}, "
               f"{r['kernels_per_call']:g} kernels a call; host "
               f"{r['host_us_per_call']:.1f} us a call); library "
-              f"{r['library_ms']:.4f}", flush=True)
+              + (f"{r['library_ms']:.4f}" if lib else "none")
+              + (f"; state sha256 {r['state_sha256']}"
+                 if "state_sha256" in r else ""), flush=True)
 
     dev = torch.device("cuda", 0)
     o = torch.empty(1, device=dev)
@@ -146,6 +225,12 @@ def main() -> None:
             lambda: k3._lib().reduce_sum_forward(0, 0, 0, 0, 0, 0, 1, 0))
         comp["k5_ctypes_refused"] = us_per_call(
             lambda: k5._lib().gmm_forward(*[0] * 19))
+    if hasattr(k6, "_ENTRY"):
+        comp["k6_ctypes_refused"] = us_per_call(lambda: k6._ENTRY(*[0] * 30))
+    else:
+        comp["k6_ctypes_refused"] = us_per_call(
+            lambda: k6._lib().wkv_forward(*[0] * 28))
+    comp.update(k4_components(k4, _add, resolve_device))
     print("  host us a call: " + ", ".join(f"{k} {v:.2f}"
                                            for k, v in comp.items()),
           flush=True)

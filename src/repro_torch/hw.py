@@ -9,3 +9,4 @@ PEAK_FLOPS_BF16 = 989e12        # tensor cores, dense bf16
 PEAK_FLOPS_F32 = 67e12          # CUDA cores, f32 FMA (no TF32)
 HBM_BW = 3.35e12                # bytes/s, 80 GB HBM3
 SMEM_PER_BLOCK = 232_448        # bytes of shared memory one block may use
+SMS = 132                       # streaming multiprocessors

@@ -3,37 +3,67 @@
 // Replaces the Pallas TPU kernel `wkv_pallas` / `_wkv_kernel`
 // (src/repro/kernels/rwkv_wkv.py:65).  Same function, per (batch, head):
 //   o_t = r_t . (S + u (x) k_t v_t^T),   S <- diag(exp lw_t) S + k_t v_t^T
-// with the state S [K, V] on chip for the whole sequence.  Written for this
-// card rather than carried over block by block:
-//   * one block per (batch, head) and one thread per value column j; thread
-//     j keeps the state column S[:, j] (K floats) in registers, so the state
-//     never touches shared or device memory until the final write;
-//   * the Pallas grid's sequential chunk axis is a loop inside the block:
-//     each stage loads `chunk` time steps of r, k, exp(lw) [chunk, K] and v
-//     [chunk, V] into shared memory (coalesced rows, all threads), then
-//     walks them step by step.  r, k and exp(lw) of a step are read by every
-//     thread at one address (a broadcast);
-//   * the bonus term r_t . (u (x) k_t) is the same for every column: it is
-//     computed once per step at staging, not V times;
-//   * any S: the last stage is masked (the Pallas wrapper shrinks chunk
-//     until it divides S);
-//   * the final state is written out ([B, H, K, V], f32), which the Pallas
-//     kernel does not return.
+// with the state S [K, V] on chip for the whole sequence, and the final
+// state written out ([B, H, K, V], f32), which the Pallas kernel does not
+// return.  Any S: the last stage is masked (the Pallas wrapper shrinks
+// chunk until it divides S).
 //
-// Bound on the H100 (SXM, 67 TFLOP/s f32, 3.35 TB/s HBM): a call does
-// 5*K*V + O(K) flops per (token, head) and moves r, k, v, o once in bf16
-// and lw in f32, about 12*K bytes per (token, head): ~27 flops a byte at
-// K = V = 64, above the card's f32 ridge of 20, so the f32 rate bounds it,
-// about 5 us at the rwkv6-7b serving shape B=1, S=256, H=64 (20 us at
-// B=4).  But the recurrence is sequential in S: a block's S steps run one
-// after another, each a dependent chain of K FMAs (split over four
-// accumulators), so at serving sizes (B*H = 64..256 blocks of 64 threads
-// on 132 SMs) the latency of that chain, not bytes or flops, sets the time.  Staging a chunk at a time
-// keeps device-memory latency out of the chain; splitting the K reduction
-// across a warp and keeping the state in a warpgroup layout is the next
-// step (ROADMAP).
+// Bound on the H100 (SXM, 67 TFLOP/s f32, 3.35 TB/s HBM): per (token,
+// head) the function does 5*K*V + 3*K + 2*V f32 operations and moves r, k,
+// v, o once (bf16 or f32) and lw once in f32, plus the final state once.
+// At the rwkv6-7b serving shape B=1 S=256 H=64 K=V=64 in bf16 that is
+// 5.09 us of operations against about 4.1 us of bytes: operations bound it.
+//
+// Where the time goes.  Column j of the state depends only on column j and
+// v_t[j], and within a column each element s[c][j] is its own recurrence:
+// s <- exp(lw_t[c]) * s + k_t[c] * v_t[j] is one FMA a step on the critical
+// path.  The output's sum over c reads the state but feeds nothing back,
+// so it is off that path.  A step is therefore bounded by how fast its
+// 5*K*V operations issue, not by a chain of K dependent FMAs.  A body with
+// one thread a column (a K-long column in registers) issues ~5K
+// instructions a step on one thread, with 2 warps a block and 64 blocks at
+// B=1: half the SMs idle and the busy ones can hide no latency.
+// This body spreads the same work:
+//   * a block takes one (batch, head) and a slice of VB value columns: the
+//     grid is (H, B, ceil(V / VB)), the last slice masked.  The wrapper
+//     chooses VB (`geometry` in kernels/rwkv_wkv.py) for about two blocks
+//     an SM, in whole warps of columns, and this entry refuses what it
+//     cannot run;
+//   * each column's K state rows are split across G = K / 8 adjacent lanes,
+//     8 rows a lane, kept in registers: two runs of 4, K / 2 apart, so that
+//     a 16-byte load of the G lanes of a column reads one contiguous span of
+//     f32 shared memory (runs of 8 read 32 bytes a lane, two lanes to a bank
+//     group).  A step, per lane: its partial sum_c r[c] * (s[c] + u[c] *
+//     k[c] * v_j) (the bonus folded in, as the JAX kernel's
+//     `r_t @ (s + u * kv)`), the 8 state updates, then log2(G)
+//     `__shfl_xor_sync` steps add the G partials and lane 0 stores o.
+//     About 40 arithmetic instructions a lane a step where a thread issued
+//     ~5K.  Steps go in pairs, the stores after both, so that no store
+//     lies between two steps' loads and the two shuffle trees overlap;
+//   * the state update is s = fmaf(expf(lw), s, k * v) element by element
+//     and the split reorders none of it, so the final state is the same
+//     bits at any slice, lane count or ring (and as a thread-a-column
+//     body's);
+//   * a stage is `chunk` time steps of the raw rows, r, k (bf16 or f32), lw
+//     (f32) and the slice's v columns, copied by `cp.async` (16, 8 or 4
+//     bytes a copy, the widest that the addresses and strides allow;
+//     element copies for bf16 views off 4 bytes).  With two stages the next
+//     one is in flight while the block walks the current one; one stage
+//     halves the shared memory, so more blocks fit an SM, and the wrapper
+//     takes one: at rwkv6-7b's chunk 128 two bf16 stages (139 KB with VB
+//     16) leave one block an SM.  After a stage lands the block takes
+//     exp(lw) in place, each element once (a lane taking it at use would
+//     repeat it for every column of the slice), and the lanes convert r, k
+//     and v at use.
+//
+// Runs of 4 rows against 8, pairs of steps against 1, 4 or 8, and the exp
+// pass against exp at use were chosen by timing patched copies side by
+// side on the H100, each the faster at the served shape; chip_smoke.py's
+// phase 8 times the two rings at every chunk (PERF.md).
 
 #include <atomic>
+#include <cstring>
+#include <stdint.h>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -41,6 +71,10 @@
 namespace {
 
 constexpr int MAX_DEVICES = 64;
+constexpr int ROWS = 8;           // state rows a lane keeps
+constexpr int RUN = 4;            // of them consecutive (row_of)
+constexpr int MAX_THREADS = 256;  // a block's lanes, G * VB
+constexpr int STEPS = 2;          // time steps walked between stores
 
 struct Params {
   const void* r;
@@ -50,7 +84,9 @@ struct Params {
   const void* u;
   void* o;
   float* state;
-  int S, H, V, chunk;
+  int S, H, V, chunk, VB, stages;
+  // bytes a cp.async copies, per tensor (16, 8 or 4; 0: element copies)
+  int gran_r, gran_k, gran_v, gran_w;
   long long r_sb, r_ss, r_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -66,101 +102,250 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-size_t smem_bytes(int chunk, int K, int V) {
-  // r, k, exp(lw) [chunk][K], v [chunk][V], bonus [chunk], u [K]
-  return sizeof(float) *
-         (size_t(chunk) * (3 * K + V + 1) + size_t(K));
+// N consecutive elements of shared memory in f32 (16 bytes a load for
+// f32; N * 2 bytes for bf16, aligned to that).
+template <int N>
+__device__ __forceinline__ void load_run(const float* p, float* out) {
+#pragma unroll
+  for (int c = 0; c < N / 4; ++c) {
+    const float4 a = reinterpret_cast<const float4*>(p)[c];
+    out[4 * c] = a.x; out[4 * c + 1] = a.y;
+    out[4 * c + 2] = a.z; out[4 * c + 3] = a.w;
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_run(const __nv_bfloat16* p,
+                                         float* out) {
+  uint32_t w[N / 2];
+  if constexpr (N == 8) {
+    const uint4 a = *reinterpret_cast<const uint4*>(p);
+    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+  } else {
+    static_assert(N == 4, "runs of 4 or 8 bf16");
+    const uint2 a = *reinterpret_cast<const uint2*>(p);
+    w[0] = a.x; w[1] = a.y;
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {  // bf16 is the high half of an f32
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// A lane's state rows: ROWS / RUN runs of RUN consecutive rows, K / (ROWS /
+// RUN) apart, so that the lanes of a column read one contiguous span of a
+// step's row per load.
+template <int K>
+__device__ __forceinline__ int row_of(int lane, int i) {
+  constexpr int RUNS = ROWS / RUN;
+  return (i / RUN) * (K / RUNS) + lane * RUN + i % RUN;
+}
+template <typename T, int K>
+__device__ __forceinline__ void load_rows(const T* row, int lane,
+                                          float* out) {
+  constexpr int RUNS = ROWS / RUN;
+#pragma unroll
+  for (int c = 0; c < RUNS; ++c)
+    load_run<RUN>(row + c * (K / RUNS) + lane * RUN, out + c * RUN);
+}
+
+// The sum of `x` over the G adjacent lanes of a column, in every lane.
+template <int G>
+__device__ __forceinline__ float lane_sum(float x) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// One time step of the lane's rows: its partial of o_t[j] (the bonus folded
+// in) and the update of its state rows.
+template <typename T, int K>
+__device__ __forceinline__ float step(const float* w_s, const T* r_s,
+                                      const T* k_s, const T* v_s, int t,
+                                      int VB, int col, int lane,
+                                      const float* u, float* s) {
+  float rr[ROWS], kk[ROWS], ww[ROWS];
+  load_rows<T, K>(r_s + t * K, lane, rr);
+  load_rows<T, K>(k_s + t * K, lane, kk);
+  load_rows<float, K>(w_s + t * K, lane, ww);
+  const float vj = to_f32(v_s[t * VB + col]);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const float kv = kk[i] * vj;
+    acc = fmaf(rr[i], fmaf(u[i], kv, s[i]), acc);
+    s[i] = fmaf(ww[i], s[i], kv);
+  }
+  return acc;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes) {
+  switch (bytes) {
+    case 16:
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       smem_addr(dst)), "l"(src) : "memory");
+      break;
+    case 8:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                       smem_addr(dst)), "l"(src) : "memory");
+      break;
+    default:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                       smem_addr(dst)), "l"(src) : "memory");
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copies `n` rows of `row_bytes` from `src` (rows `stride` bytes apart) to
+// `dst` (rows `dst_row` bytes apart), `gran` bytes a cp.async; with gran 0,
+// two bytes at a time by plain loads and stores.
+__device__ __forceinline__ void copy_rows(unsigned char* dst, int dst_row,
+                                          const unsigned char* src,
+                                          long long stride, int row_bytes,
+                                          int n, int gran) {
+  const int step = gran ? gran : 2;
+  const int per = row_bytes / step;
+  for (int i = threadIdx.x; i < n * per; i += blockDim.x) {
+    const int row = i / per, c = (i - row * per) * step;
+    unsigned char* d = dst + row * dst_row + c;
+    const unsigned char* s = src + row * stride + c;
+    if (gran)
+      cp_async(d, s, gran);
+    else
+      *reinterpret_cast<uint16_t*>(d) =
+          *reinterpret_cast<const uint16_t*>(s);
+  }
+}
+
+// Shared memory of one stage: exp(lw) [chunk][K] f32, r and k [chunk][K]
+// and v [chunk][VB] in the input type.  kernels/rwkv_wkv.py's
+// `smem_bytes` is the same sum.
+template <typename T>
+__host__ __device__ size_t stage_bytes(int chunk, int K, int VB) {
+  return size_t(chunk) * (K * (sizeof(float) + 2 * sizeof(T)) +
+                          VB * sizeof(T));
 }
 
 template <typename T, int K>
-__global__ void wkv_kernel(const Params p) {
-  extern __shared__ float smem[];
-  const int chunk = p.chunk;
-  const int V = p.V;
-  float* sr = smem;
-  float* sk = sr + chunk * K;
-  float* sw = sk + chunk * K;
-  float* sv = sw + chunk * K;
-  float* sbonus = sv + chunk * V;
-  float* su = sbonus + chunk;
+__global__ void __launch_bounds__(MAX_THREADS) wkv_kernel(const Params p) {
+  constexpr int G = K / ROWS;  // lanes a column
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int chunk = p.chunk, VB = p.VB, V = p.V;
+  const int lane = threadIdx.x % G, col = threadIdx.x / G;
+  const int h = blockIdx.x, b = blockIdx.y, j0 = blockIdx.z * VB;
+  const int j = j0 + col;
+  const int ncols = min(VB, V - j0);  // the slice's columns in V
+  const size_t sbytes = stage_bytes<T>(chunk, K, VB);
 
-  const int j = threadIdx.x;
-  const int nt = blockDim.x;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-
-  const T* r = static_cast<const T*>(p.r) + b * p.r_sb + h * p.r_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const float* lw = p.lw + b * p.w_sb + h * p.w_sh;
-  const T* u = static_cast<const T*>(p.u) + h * K;
-  T* o = static_cast<T*>(p.o) + (size_t(b) * p.S * p.H + h) * V;
+  const unsigned char* r = static_cast<const unsigned char*>(p.r) +
+                           (b * p.r_sb + h * p.r_sh) * sizeof(T);
+  const unsigned char* k = static_cast<const unsigned char*>(p.k) +
+                           (b * p.k_sb + h * p.k_sh) * sizeof(T);
+  const unsigned char* v = static_cast<const unsigned char*>(p.v) +
+                           (b * p.v_sb + h * p.v_sh + j0) * sizeof(T);
+  const unsigned char* lw = reinterpret_cast<const unsigned char*>(p.lw) +
+                            (b * p.w_sb + h * p.w_sh) * sizeof(float);
   const long long o_ss = static_cast<long long>(p.H) * V;
+  T* o = static_cast<T*>(p.o) + size_t(b) * p.S * o_ss + h * V + j;
+  const bool stores = lane == 0 && col < ncols;
 
-  for (int c = j; c < K; c += nt) su[c] = to_f32(u[c]);
+  // Stage `st` (time steps st*chunk ...) into buffer `buf`.
+  auto issue = [&](int st, int buf) {
+    const long long t0 = static_cast<long long>(st) * chunk;
+    const int n = min(chunk, p.S - static_cast<int>(t0));
+    unsigned char* w_s = smem + buf * sbytes;
+    unsigned char* r_s = w_s + chunk * K * sizeof(float);
+    unsigned char* k_s = r_s + chunk * K * sizeof(T);
+    unsigned char* v_s = k_s + chunk * K * sizeof(T);
+    copy_rows(w_s, K * sizeof(float), lw + t0 * p.w_ss * sizeof(float),
+              p.w_ss * sizeof(float), K * sizeof(float), n, p.gran_w);
+    copy_rows(r_s, K * sizeof(T), r + t0 * p.r_ss * sizeof(T),
+              p.r_ss * sizeof(T), K * sizeof(T), n, p.gran_r);
+    copy_rows(k_s, K * sizeof(T), k + t0 * p.k_ss * sizeof(T),
+              p.k_ss * sizeof(T), K * sizeof(T), n, p.gran_k);
+    copy_rows(v_s, VB * sizeof(T), v + t0 * p.v_ss * sizeof(T),
+              p.v_ss * sizeof(T), ncols * sizeof(T), n, p.gran_v);
+    cp_async_commit();
+  };
 
-  float s[K];
+  float u[ROWS], s[ROWS];
 #pragma unroll
-  for (int c = 0; c < K; ++c) s[c] = 0.f;
-
-  for (int t0 = 0; t0 < p.S; t0 += chunk) {
-    const int n = min(chunk, p.S - t0);
-    __syncthreads();  // the previous stage is no longer read
-    for (int idx = j; idx < n * K; idx += nt) {
-      const int t = idx / K, c = idx - t * K;
-      const long long tt = t0 + t;
-      sr[idx] = to_f32(r[tt * p.r_ss + c]);
-      sk[idx] = to_f32(k[tt * p.k_ss + c]);
-      sw[idx] = expf(lw[tt * p.w_ss + c]);
-    }
-    for (int idx = j; idx < n * V; idx += nt) {
-      const int t = idx / V, c = idx - t * V;
-      sv[idx] = to_f32(v[(t0 + t) * p.v_ss + c]);
-    }
-    __syncthreads();
-    for (int t = j; t < n; t += nt) {
-      float acc = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < K; ++c)
-        acc = fmaf(sr[t * K + c], su[c] * sk[t * K + c], acc);
-      sbonus[t] = acc;
-    }
-    __syncthreads();
-
-    for (int t = 0; t < n; ++t) {
-      const float* rt = sr + t * K;
-      const float* kt = sk + t * K;
-      const float* wt = sw + t * K;
-      const float vj = sv[t * V + j];
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll
-      for (int c = 0; c < K; c += 4) {
-        a0 = fmaf(rt[c], s[c], a0);
-        a1 = fmaf(rt[c + 1], s[c + 1], a1);
-        a2 = fmaf(rt[c + 2], s[c + 2], a2);
-        a3 = fmaf(rt[c + 3], s[c + 3], a3);
-      }
-      const float out = fmaf(sbonus[t], vj, (a0 + a1) + (a2 + a3));
-#pragma unroll
-      for (int c = 0; c < K; ++c) s[c] = fmaf(wt[c], s[c], kt[c] * vj);
-      store(o + (t0 + t) * o_ss + j, out);
-    }
+  for (int i = 0; i < ROWS; ++i) {
+    u[i] = to_f32(static_cast<const T*>(p.u)[h * K + row_of<K>(lane, i)]);
+    s[i] = 0.f;
   }
 
-  float* st = p.state + (size_t(b) * p.H + h) * K * V;
+  const int stages = (p.S + chunk - 1) / chunk;
+  issue(0, 0);
+  for (int st = 0; st < stages; ++st) {
+    const int buf = p.stages == 2 ? st & 1 : 0;
+    const int t0 = st * chunk, n = min(chunk, p.S - t0);
+    if (p.stages == 2 && st + 1 < stages) {
+      issue(st + 1, buf ^ 1);  // walked in the last step, freed by its barrier
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // every thread's copies of stage st have landed
+    float* w_s = reinterpret_cast<float*>(smem + buf * sbytes);
+    for (int i = threadIdx.x; i < n * K; i += blockDim.x)
+      w_s[i] = expf(w_s[i]);
+    __syncthreads();
+    const T* r_s = reinterpret_cast<const T*>(w_s + chunk * K);
+    const T* k_s = r_s + chunk * K;
+    const T* v_s = k_s + chunk * K;
+    T* ot = o + t0 * o_ss;
+    // STEPS steps, then their lane sums and stores: no store lies between
+    // two steps' loads, so the loads of a group issue together and the
+    // shuffle trees of its steps overlap.
+    int t = 0;
+    for (; t + STEPS <= n; t += STEPS) {
+      float acc[STEPS];
 #pragma unroll
-  for (int c = 0; c < K; ++c) st[c * V + j] = s[c];
+      for (int q = 0; q < STEPS; ++q)
+        acc[q] = step<T, K>(w_s, r_s, k_s, v_s, t + q, VB, col, lane, u, s);
+#pragma unroll
+      for (int q = 0; q < STEPS; ++q) acc[q] = lane_sum<G>(acc[q]);
+      if (stores) {
+#pragma unroll
+        for (int q = 0; q < STEPS; ++q) store(ot + (t + q) * o_ss, acc[q]);
+      }
+    }
+    for (; t < n; ++t) {
+      const float acc = lane_sum<G>(
+          step<T, K>(w_s, r_s, k_s, v_s, t, VB, col, lane, u, s));
+      if (stores) store(ot + t * o_ss, acc);
+    }
+    __syncthreads();  // buffer buf is free again
+    if (p.stages == 1 && st + 1 < stages) issue(st + 1, 0);
+  }
+
+  if (col < ncols) {
+    float* out = p.state + (size_t(b) * p.H + h) * K * V + j;
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) out[row_of<K>(lane, i) * V] = s[i];
+  }
 }
 
 template <typename T, int K>
 cudaError_t launch(const Params& p, int B, int device, cudaStream_t stream) {
   // Past 48 KB of dynamic shared memory the launch needs this attribute.  It
   // belongs to the function on one device: set it at the first launch on
-  // each device, to the most a block may opt in to.
-  static std::atomic<bool> smem_set[MAX_DEVICES];
-  const size_t need = smem_bytes(p.chunk, K, p.V);
-  if (device >= MAX_DEVICES || !smem_set[device].load()) {
-    int most = 0;
+  // each device, to the most a block may opt in to, which is kept.
+  static std::atomic<int> most_set[MAX_DEVICES];
+  int most = device < MAX_DEVICES ? most_set[device].load() : 0;
+  if (most == 0) {
     cudaError_t err = cudaDeviceGetAttribute(
         &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
     if (err != cudaSuccess) return err;
@@ -168,10 +353,12 @@ cudaError_t launch(const Params& p, int B, int device, cudaStream_t stream) {
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                most);
     if (err != cudaSuccess) return err;
-    if (device < MAX_DEVICES) smem_set[device].store(true);
+    if (device < MAX_DEVICES) most_set[device].store(most);
   }
-  const dim3 grid(p.H, B);
-  wkv_kernel<T, K><<<grid, p.V, need, stream>>>(p);
+  const size_t need = p.stages * stage_bytes<T>(p.chunk, K, p.VB);
+  if (need > size_t(most)) return cudaErrorInvalidValue;
+  const dim3 grid(p.H, B, (p.V + p.VB - 1) / p.VB);
+  wkv_kernel<T, K><<<grid, K / ROWS * p.VB, need, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -187,41 +374,86 @@ cudaError_t dispatch(const Params& p, int B, int K, int device,
   }
 }
 
-}  // namespace
+// The widest cp.async (16, 8 or 4 bytes) that every row of a tensor takes:
+// its address, strides, row length and `extra` (the column slice's start)
+// are all multiples of it; 0 where 4 bytes do not divide them (bf16 views
+// off 4 bytes), for element copies.
+int granule(const void* ptr, long long item, long long sb, long long ss,
+            long long sh, long long row_bytes, long long extra) {
+  const long long parts[] = {static_cast<long long>(
+                                 reinterpret_cast<uintptr_t>(ptr)),
+                             sb * item, ss * item, sh * item, row_bytes,
+                             extra};
+  for (int g = 16; g >= 4; g /= 2) {
+    bool ok = true;
+    for (long long x : parts) ok = ok && x % g == 0;
+    if (ok) return g;
+  }
+  return 0;
+}
 
+// The launch as kernels/rwkv_wkv.py packs it (struct.Struct "=8Q22q").
 // dtype (of r, k, v, u and o): 0 = float32, 1 = bfloat16; lw and the state
 // are float32.  Strides (batch, seq, head) are in elements; the last
 // dimension of r, k, v and lw must be contiguous, u is [H, K] contiguous,
-// o [B, S, H, V] and the state [B, H, K, V] are written contiguous.
-// Returns a cudaError_t.
-extern "C" int wkv_forward(const void* r, const void* k, const void* v,
-                           const void* lw, const void* u, void* o,
-                           void* state, int dtype, int device, int B, int S,
-                           int H, int K, int V, int chunk, long long r_sb,
-                           long long r_ss, long long r_sh, long long k_sb,
-                           long long k_ss, long long k_sh, long long v_sb,
-                           long long v_ss, long long v_sh, long long w_sb,
-                           long long w_ss, long long w_sh, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || V <= 0 || V > 1024 || chunk <= 0)
+// o [B, S, H, V] and the state [B, H, K, V] are written contiguous.  VB is
+// the column slice (a multiple of 32 / G columns, so every warp is whole,
+// with G * VB <= MAX_THREADS, and of 16 bytes of v, so every stage of the
+// ring starts 16-byte aligned) and stages the ring's depth (1 or 2).
+struct Args {
+  const void* r;
+  const void* k;
+  const void* v;
+  const void* lw;
+  const void* u;
+  void* o;
+  void* state;
+  void* stream;
+  long long dtype, device, B, S, H, K, V, chunk, VB, stages;
+  long long r_sb, r_ss, r_sh, k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh, w_sb, w_ss, w_sh;
+};
+static_assert(sizeof(Args) == 30 * 8, "Args is thirty 8-byte fields");
+
+}  // namespace
+
+// Launches one recurrence from the packed `Args` at `packed`.  Returns a
+// cudaError_t; cudaErrorInvalidValue for a geometry the kernel cannot run.
+extern "C" int wkv_launch(const void* packed) {
+  Args a;
+  std::memcpy(&a, packed, sizeof a);
+  const long long G = a.K / ROWS;
+  const long long item = a.dtype == 0 ? 4 : 2;
+  const bool k_ok = a.K == 16 || a.K == 32 || a.K == 64 || a.K == 128;
+  if (!k_ok || a.B <= 0 || a.B > 65535 || a.S <= 0 || a.S > 0x7fffffffLL ||
+      a.H <= 0 || a.H > 0x7fffffffLL || a.V <= 0 || a.V > 1024 ||
+      a.chunk <= 0 || a.chunk > a.S || a.VB <= 0 || (G * a.VB) % 32 ||
+      (a.VB * item) % 16 || G * a.VB > MAX_THREADS ||
+      (a.V + a.VB - 1) / a.VB > 65535 || (a.stages != 1 && a.stages != 2) ||
+      a.dtype < 0 || a.dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Params p{a.r, a.k, a.v, static_cast<const float*>(a.lw), a.u, a.o,
+                 static_cast<float*>(a.state), int(a.S), int(a.H), int(a.V),
+                 int(a.chunk), int(a.VB), int(a.stages),
+                 granule(a.r, item, a.r_sb, a.r_ss, a.r_sh, a.K * item, 0),
+                 granule(a.k, item, a.k_sb, a.k_ss, a.k_sh, a.K * item, 0),
+                 granule(a.v, item, a.v_sb, a.v_ss, a.v_sh, a.V * item,
+                         a.VB * item),
+                 granule(a.lw, 4, a.w_sb, a.w_ss, a.w_sh, a.K * 4, 0),
+                 a.r_sb, a.r_ss, a.r_sh, a.k_sb, a.k_ss, a.k_sh,
+                 a.v_sb, a.v_ss, a.v_sh, a.w_sb, a.w_ss, a.w_sh};
   // The launch goes to `device`, the stream's; the caller's current device
   // is restored before returning.
+  const int device = int(a.device);
   int prev = -1;
   cudaError_t err = cudaGetDevice(&prev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess)
     return static_cast<int>(err);
-  const Params p{r,    k,    v,    static_cast<const float*>(lw),
-                 u,    o,    static_cast<float*>(state),
-                 S,    H,    V,    chunk,
-                 r_sb, r_ss, r_sh, k_sb, k_ss, k_sh,
-                 v_sb, v_ss, v_sh, w_sb, w_ss, w_sh};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: err = dispatch<float>(p, B, K, device, st); break;
-    case 1: err = dispatch<__nv_bfloat16>(p, B, K, device, st); break;
-    default: err = cudaErrorInvalidValue;
-  }
+  const cudaStream_t st = static_cast<cudaStream_t>(a.stream);
+  err = a.dtype == 0 ? dispatch<float>(p, int(a.B), int(a.K), device, st)
+                     : dispatch<__nv_bfloat16>(p, int(a.B), int(a.K), device,
+                                               st);
   if (prev != device) {
     const cudaError_t back = cudaSetDevice(prev);
     if (err == cudaSuccess) err = back;

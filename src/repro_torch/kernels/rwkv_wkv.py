@@ -20,63 +20,105 @@ Where the two differ on purpose:
   load and the last stage is masked, where the Pallas wrapper shrinks
   ``chunk`` until it divides S (``rwkv_wkv.py:56-58``).
 
-On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
-launches the kernel or raises.  A ``chunk`` whose stage exceeds the shared
-memory of a block raises before launch on either device, naming the bytes.
+The kernel's grid is (head, batch, column slice): a block takes VB value
+columns of one (batch, head), G = K / 8 lanes a column (``geometry``), and
+walks the sequence one stage of ``chunk`` steps at a time (``run_body``
+also runs a ring of two stages, the next in flight while the block walks
+the current one).  On a CPU tensor the wrapper computes the plain version;
+on a CUDA tensor it launches the kernel through the thin launch path
+(``kernels/launch.py``) or raises.  A ``chunk`` whose stage exceeds the
+shared memory of a block raises before launch on either device, naming the
+bytes.
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import torch
 
 from repro_torch import hw
 from repro_torch.device import resolve_device
-from repro_torch.kernels import build
+from repro_torch.kernels.launch import Entry, names_cuda, raw_stream
 from repro_torch.kernels.ref import wkv_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_SIZES = (16, 32, 64, 128)      # K: the kernel's state rows per thread
+_ENTRY = Entry("rwkv_wkv", "wkv_launch", "wkv_error_string", "=8Q22q")
+HEAD_SIZES = (16, 32, 64, 128)      # K
+ROWS = 8                            # state rows a lane keeps
+MAX_THREADS = 256                   # a block's lanes, G * VB (csrc)
+TARGET_BLOCKS = 2 * hw.SMS          # about two blocks an SM
 
 
-def smem_bytes(chunk: int, K: int, V: int) -> int:
-    """Shared memory one block allocates: r, k, exp(lw) [chunk, K], v
-    [chunk, V], the per-step bonus r·(u⊙k) [chunk] and u [K], in f32."""
-    return 4 * (chunk * (3 * K + V + 1) + K)
+@functools.lru_cache(maxsize=None)
+def geometry(BH: int, K: int, V: int):
+    """(G, VB, slices) of a launch over B·H = ``BH`` heads: G = K / 8 lanes
+    a column, VB columns a block, ``slices`` = ceil(V / VB) blocks a head.
+
+    VB is a multiple of ``unit`` = max(32 / G, 8) columns, so every warp
+    is whole and a bf16 slice of v is a 16-byte row: the multiple nearest
+    V / ceil(TARGET_BLOCKS / BH), so that the grid holds about two blocks
+    an SM where V has that many units, and at most MAX_THREADS / G."""
+    G = K // ROWS
+    unit = max(32 // G, 8)
+    want = -(-TARGET_BLOCKS // BH)                      # slices a head
+    VB = unit * min(max(1, round(V / (unit * want))),
+                    MAX_THREADS // G // unit, -(-V // unit))
+    return G, VB, -(-V // VB)
 
 
-def _check(r, k, v, lw, u, chunk: int) -> None:
-    """Raises on what the kernel does not take (shared with the plain
-    version, so CPU runs reject what the card would)."""
-    if r.dim() != 4 or k.shape != r.shape or lw.shape != r.shape:
+def smem_bytes(chunk: int, K: int, VB: int, itemsize: int,
+               stages: int) -> int:
+    """Shared memory one block allocates: ``stages`` stages of exp(lw)
+    [chunk, K] in f32, r and k [chunk, K] and v [chunk, VB] in the input
+    type (``stage_bytes`` in ``csrc/rwkv_wkv.cu``)."""
+    return stages * chunk * (K * (4 + 2 * itemsize) + VB * itemsize)
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_shape(r_shape, k_shape, v_shape, lw_shape, u_shape, dtype,
+                  k_dtype, v_dtype, u_dtype, lw_dtype, chunk: int):
+    """(B, S, H, K, V, staged chunk, VB); raises on what the kernel
+    does not take (shared with the plain version, so CPU runs reject what
+    the card would).  Cached: a call repeats its shapes, and the checks
+    cost a short launch's host time."""
+    if len(r_shape) != 4 or k_shape != r_shape or lw_shape != r_shape:
         raise ValueError(f"expected r/k/lw [B,S,H,K] of one shape, got "
-                         f"{tuple(r.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(lw.shape)}")
-    B, S, H, K = r.shape
-    if v.dim() != 4 or tuple(v.shape[:3]) != (B, S, H):
-        raise ValueError(f"v {tuple(v.shape)} does not match r "
-                         f"{tuple(r.shape)}")
-    if tuple(u.shape) != (H, K):
-        raise ValueError(f"u {tuple(u.shape)} is not [H, K] = [{H}, {K}]")
-    if r.dtype not in _DTYPE_CODE or any(t.dtype != r.dtype for t in (k, v, u)):
+                         f"{tuple(r_shape)}, {tuple(k_shape)}, "
+                         f"{tuple(lw_shape)}")
+    B, S, H, K = r_shape
+    if len(v_shape) != 4 or tuple(v_shape[:3]) != (B, S, H):
+        raise ValueError(f"v {tuple(v_shape)} does not match r "
+                         f"{tuple(r_shape)}")
+    if tuple(u_shape) != (H, K):
+        raise ValueError(f"u {tuple(u_shape)} is not [H, K] = [{H}, {K}]")
+    if dtype not in _DTYPE_CODE or any(d != dtype for d in (k_dtype, v_dtype,
+                                                            u_dtype)):
         raise TypeError(f"r/k/v/u must share float32 or bfloat16, got "
-                        f"{r.dtype}, {k.dtype}, {v.dtype}, {u.dtype}")
-    if lw.dtype != torch.float32:
-        raise TypeError(f"lw (the log decay) must be float32, got {lw.dtype}")
+                        f"{dtype}, {k_dtype}, {v_dtype}, {u_dtype}")
+    if lw_dtype != torch.float32:
+        raise TypeError(f"lw (the log decay) must be float32, got {lw_dtype}")
     if K not in HEAD_SIZES:
         raise ValueError(f"head size K={K} not in {HEAD_SIZES}")
-    V = v.shape[3]
+    V = v_shape[3]
     if not 1 <= V <= 1024:
-        raise ValueError(f"value size V={V} must be in [1, 1024] (one "
-                         "thread per value column)")
+        raise ValueError(f"value size V={V} must be in [1, 1024]")
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    need = smem_bytes(min(chunk, S), K, V)
+    c = min(chunk, S)
+    _, VB, _ = geometry(B * H, K, V)
+    item = dtype.itemsize
+    need = smem_bytes(c, K, VB, item, 1)
     if need > hw.SMEM_PER_BLOCK:
         raise RuntimeError(
-            f"wkv chunk {min(chunk, S)} (K {K}, V {V}) needs {need} bytes of "
+            f"wkv chunk {c} (K {K}, V {V}, {dtype}) needs {need} bytes of "
             f"shared memory per block, above the {hw.SMEM_PER_BLOCK} an H100 "
             f"block may use")
+    return B, S, H, K, V, c, VB
+
+
+def _check(r, k, v, lw, u, chunk: int):
+    return _launch_shape(r.shape, k.shape, v.shape, lw.shape, u.shape,
+                         r.dtype, k.dtype, v.dtype, u.dtype, lw.dtype, chunk)
 
 
 def wkv_plain(r, k, v, lw, u, *, chunk: int = 64):
@@ -88,16 +130,33 @@ def wkv_plain(r, k, v, lw, u, *, chunk: int = 64):
     return o.to(r.dtype), state
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.library("rwkv_wkv")
-    if lib.wkv_forward.argtypes is None:
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.wkv_forward.argtypes = ([ptr] * 7 + [i32] * 8 + [i64] * 12
-                                    + [ptr])
-        lib.wkv_forward.restype = ctypes.c_int
-        lib.wkv_error_string.argtypes = [i32]
-        lib.wkv_error_string.restype = ctypes.c_char_p
-    return lib
+def run_body(r, k, v, lw, u, *, chunk: int, stages: int):
+    """Launches the kernel with a ring of ``stages`` (1 or 2) on CUDA
+    tensors that ``wkv`` has checked, and counts nothing.  ``wkv`` takes
+    one stage: on the H100 the two rings were within 2.3% of each other
+    at chunks 16 to 64, and at the served chunk 128 two stages hold one block
+    an SM and were 1.65x slower (PERF.md).  ``chip_smoke.py`` calls this
+    to time the two rings against each other."""
+    return _launch(r, k, v, lw, u, _check(r, k, v, lw, u, chunk), stages)
+
+
+def _launch(r, k, v, lw, u, shape, stages: int):
+    B, S, H, K, V, c, VB = shape
+    index = r.get_device()
+    u = u.contiguous()
+    o = r.new_empty((B, S, H, V))
+    state = r.new_empty((B, H, K, V), dtype=torch.float32)
+    err = _ENTRY(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+                 u.data_ptr(), o.data_ptr(), state.data_ptr(),
+                 raw_stream(index), _DTYPE_CODE[r.dtype], index, B, S, H, K,
+                 V, c, VB, stages, *r.stride()[:3], *k.stride()[:3],
+                 *v.stride()[:3], *lw.stride()[:3])
+    if err:
+        raise RuntimeError(
+            f"wkv kernel launch failed (chunk {c}, {stages} stages, "
+            f"{smem_bytes(c, K, VB, r.element_size(), stages)} bytes of "
+            f"shared memory): {_ENTRY.error_string(err)}")
+    return o, state
 
 
 def wkv(r, k, v, lw, u, *, chunk: int = 64, device="cuda"):
@@ -109,36 +168,22 @@ def wkv(r, k, v, lw, u, *, chunk: int = 64, device="cuda"):
     launch the kernel on the current stream, with no fallback.  r/k/v/lw
     may be strided views whose last dimension is contiguous.
     """
-    dev = resolve_device(device)
-    for name, t in (("r", r), ("k", k), ("v", v), ("lw", lw), ("u", u)):
-        if t.device.type != dev.type:
-            raise ValueError(f"{name} lies on {t.device}, not on {dev}")
-    _check(r, k, v, lw, u, chunk)
-    if dev.type == "cpu":
+    tensors = (r, k, v, lw, u)
+    if not (r.is_cuda and names_cuda(device)):
+        dev = resolve_device(device)
+        for name, t in zip("r k v lw u".split(), tensors):
+            if t.device.type != dev.type:
+                raise ValueError(f"{name} lies on {t.device}, not on {dev}")
         return wkv_plain(r, k, v, lw, u, chunk=chunk)
-    if any(t.device != r.device for t in (k, v, lw, u)):
-        raise ValueError("r, k, v, lw and u must lie on one device")
-    if any(t.stride(-1) != 1 for t in (r, k, v, lw)):
+    index = r.get_device()
+    if any(t.get_device() != index for t in tensors):
+        raise ValueError("r, k, v, lw and u must lie on one device, not "
+                         + ", ".join(str(t.device) for t in tensors))
+    if any(t.stride(-1) != 1 for t in tensors[:4]):
         raise ValueError("the last (head) dimension must be contiguous")
-    lib = _lib()
-    B, S, H, K = r.shape
-    V = v.shape[3]
-    u = u.contiguous()
-    o = torch.empty((B, S, H, V), dtype=r.dtype, device=r.device)
-    state = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
-    err = lib.wkv_forward(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
-        u.data_ptr(), o.data_ptr(), state.data_ptr(),
-        _DTYPE_CODE[r.dtype], r.device.index, B, S, H, K, V, min(chunk, S),
-        *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *lw.stride()[:3],
-        torch.cuda.current_stream(r.device).cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"wkv kernel launch failed (chunk {min(chunk, S)}, "
-            f"{smem_bytes(min(chunk, S), K, V)} bytes of shared memory): "
-            + lib.wkv_error_string(err).decode())
+    out = _launch(r, k, v, lw, u, _check(r, k, v, lw, u, chunk), 1)
     wkv.launches += 1
-    return o, state
+    return out
 
 
 wkv.launches = 0

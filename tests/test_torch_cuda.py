@@ -11,6 +11,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
+from repro_torch.kernels import elementwise as k4_mod
 from repro_torch.kernels.elementwise import elementwise, elementwise_plain
 from repro_torch.kernels.matmul import fit, matmul, matmul_ref, path_for
 from repro_torch.kernels import reduce_sum as k3_mod
@@ -18,6 +19,7 @@ from repro_torch.kernels.moe_gemm import grouped_matmul, run_body
 from repro_torch.kernels.moe_gemm import path_for as k5_path_for
 from repro_torch.kernels.reduce_sum import reduce_sum, reduce_sum_plain
 from repro_torch.kernels.ref import grouped_matmul_ref
+from repro_torch.kernels import rwkv_wkv as k6_mod
 from repro_torch.kernels.rwkv_wkv import wkv, wkv_plain
 from repro_torch.kernels.ssd_scan import ssd, ssd_plain
 from repro_torch.core import get_case
@@ -255,6 +257,8 @@ def recurrence_tolerance(dtype):
     (2, 96, 8, 64, 64),           # ragged last stage
     (2, 33, 4, 16, 16),           # the reduced config's head size
     (1, 40, 2, 128, 32),          # the widest head
+    (2, 1024, 8, 64, 64),         # the Table 4 case: slices of 8 columns
+    (1, 1, 64, 64, 128),          # S = 1: one step, one stage
 ])
 def test_wkv_kernel_matches_plain_version(cuda, dtype, B, S, H, K, chunk):
     g = torch.Generator(device=cuda).manual_seed(S + K)
@@ -273,6 +277,92 @@ def test_wkv_kernel_matches_plain_version(cuda, dtype, B, S, H, K, chunk):
     torch.testing.assert_close(o.float(), want_o.float(), rtol=rtol,
                                atol=atol)
     torch.testing.assert_close(st, want_st, rtol=1e-3, atol=1e-3)
+
+
+def wkv_check(o, st, want_o, want_st, dtype):
+    rtol, atol = recurrence_tolerance(dtype)
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(st, want_st, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_kernel_takes_a_v_the_column_slice_does_not_divide(cuda, dtype):
+    """V 48 at B·H 64: six slices of 8 columns; V 44: the last slice holds
+    4 of its 8 columns (the rest masked), and bf16 rows of 88 bytes take
+    8-byte copies."""
+    g = torch.Generator(device=cuda).manual_seed(48)
+    for V in (48, 44):
+        r, k = (0.5 * torch.randn(1, 70, 64, 64, device=cuda, generator=g)
+                for _ in range(2))
+        v = 0.5 * torch.randn(1, 70, 64, V, device=cuda, generator=g)
+        lw = -torch.rand(1, 70, 64, 64, device=cuda, generator=g) * 3 - 0.01
+        u = 0.5 * torch.randn(64, 64, device=cuda, generator=g)
+        r, k, v, u = (t.to(dtype) for t in (r, k, v, u))
+        assert k6_mod.geometry(64, 64, V)[1:] == (8, 6)
+        o, st = wkv(r, k, v, lw, u, chunk=32)
+        torch.cuda.synchronize()
+        assert o.shape == (1, 70, 64, V) and st.shape == (1, 64, 64, V)
+        wkv_check(o, st, *wkv_plain(r, k, v, lw, u, chunk=32), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_kernel_takes_strided_views_of_one_projection(cuda, dtype):
+    """r, k, v and lw cut from one [B, S, H, 4K] projection, as a model
+    may pass them; and r one element off 4 bytes (bf16: element copies)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    B, S, H, K = 2, 70, 4, 64
+    proj = (0.5 * torch.randn(B, S, H, 4 * K, device=cuda,
+                              generator=g)).to(dtype)
+    r, k, v = (proj[..., i * K:(i + 1) * K] for i in range(3))
+    lw = -proj[..., 3 * K:].float().abs() - 0.01
+    u = (0.5 * torch.randn(H, K, device=cuda, generator=g)).to(dtype)
+    assert not r.is_contiguous() and r.stride(-1) == 1
+    o, st = wkv(r, k, v, lw, u, chunk=32)
+    torch.cuda.synchronize()
+    wkv_check(o, st, *wkv_plain(r, k, v, lw, u, chunk=32), dtype)
+    buf = torch.empty(r.numel() + 1, dtype=dtype, device=cuda)
+    off = buf[1:].view(B, S, H, K)
+    off.copy_(r)
+    o2, st2 = wkv(off, k, v, lw, u, chunk=32)
+    torch.cuda.synchronize()
+    assert torch.equal(o2, o) and torch.equal(st2, st)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_rings_of_one_and_two_stages_agree_bitwise(cuda, dtype):
+    """The ring changes when rows land, not the arithmetic."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    r, k, v = (0.5 * torch.randn(1, 200, 64, 64, device=cuda, generator=g)
+               for _ in range(3))
+    lw = -torch.rand(1, 200, 64, 64, device=cuda, generator=g) * 3 - 0.01
+    u = 0.5 * torch.randn(64, 64, device=cuda, generator=g)
+    args = tuple(t.to(dtype) for t in (r, k, v)) + (lw, u.to(dtype))
+    for chunk in (16, 64, 128):
+        one = k6_mod.run_body(*args, chunk=chunk, stages=1)
+        two = k6_mod.run_body(*args, chunk=chunk, stages=2)
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_entry_refuses_a_slice_off_16_bytes(cuda, dtype):
+    """The C entry refuses a column slice whose v rows are not a multiple
+    of 16 bytes (the second stage of a ring would start off 16 bytes) and
+    runs the narrowest slice that is one: K 128 (16 lanes a column), VB 2
+    in either type is refused, VB 4 (f32) or 8 (bf16) runs."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, S, H, K, V, chunk = 1, 3, 2, 128, 16, 3
+    r, k, v = (0.5 * torch.randn(B, S, H, n, device=cuda, generator=g)
+               .to(dtype) for n in (K, K, V))
+    lw = -torch.rand(B, S, H, K, device=cuda, generator=g) * 3 - 0.01
+    u = (0.5 * torch.randn(H, K, device=cuda, generator=g)).to(dtype)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        k6_mod._launch(r, k, v, lw, u, (B, S, H, K, V, chunk, 2), 2)
+    VB = 16 // r.element_size()
+    o, st = k6_mod._launch(r, k, v, lw, u, (B, S, H, K, V, chunk, VB), 2)
+    torch.cuda.synchronize()
+    wkv_check(o, st, *wkv_plain(r, k, v, lw, u, chunk=chunk), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -448,6 +538,42 @@ def test_elementwise_kernel_matches_plain_version(cuda, fn, n_in, n, block,
         terms = fn(*[a.float().abs() for a in arrs])
         assert bool(((got.float() - want.float()).abs()
                      <= 2.0 ** -22 * terms).all())
+
+
+def test_elementwise_hits_its_cached_kernel_after_the_first_call(
+        cuda, monkeypatch):
+    monkeypatch.setattr(k4_mod, "_launches", {})
+    g = torch.Generator(device=cuda).manual_seed(100)
+    a, b = (torch.randn(65536, device=cuda, generator=g) for _ in range(2))
+    compiles, hits = elementwise.compiles, elementwise.cache_hits
+    for _ in range(100):
+        got = elementwise(add, a, b, block=8192)
+    torch.cuda.synchronize()
+    assert elementwise.compiles == compiles + 1
+    assert elementwise.cache_hits == hits + 99
+    assert torch.equal(got, elementwise_plain(add, a, b))
+
+
+def test_elementwise_view_one_element_off_compiles_a_second_kernel(
+        cuda, monkeypatch):
+    """A view off 16 bytes has its own launch key, so it never runs the
+    kernel compiled for aligned pointers; both agree with the plain
+    version bit for bit (a sum alone is exact)."""
+    monkeypatch.setattr(k4_mod, "_launches", {})
+    g = torch.Generator(device=cuda).manual_seed(101)
+    n = 1 << 20
+    a, b = (torch.randn(n, device=cuda, generator=g) for _ in range(2))
+    buf = torch.empty(n + 1, device=cuda)
+    off = buf[1:]
+    off.copy_(a)
+    compiles = elementwise.compiles
+    aligned = [elementwise(add, a, b) for _ in range(2)]
+    shifted = [elementwise(add, off, b) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert elementwise.compiles == compiles + 2 and len(k4_mod._launches) == 2
+    want = elementwise_plain(add, a, b)
+    for got in aligned + shifted:
+        assert torch.equal(got, want)
 
 
 # ------------------------------------------------------------------ K5 ----

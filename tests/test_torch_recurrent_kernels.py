@@ -17,6 +17,7 @@ from repro.kernels import ref as jref
 from repro.kernels.rwkv_wkv import wkv_pallas
 from repro.kernels.ssd_scan import ssd_pallas
 from repro_torch.kernels import ref
+from repro_torch.kernels.rwkv_wkv import geometry
 from repro_torch.kernels.rwkv_wkv import smem_bytes as wkv_smem
 from repro_torch.kernels.rwkv_wkv import wkv, wkv_plain
 from repro_torch.kernels.ssd_scan import smem_bytes as ssd_smem
@@ -99,7 +100,8 @@ def test_wkv_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match=r"u \(2, 8\)"):
         wkv(r, k, v, lw, u[:, :8], device="cpu")
     big = torch_of(wkv_inputs(1, 300, 1, 128, seed=0))
-    need = wkv_smem(300, 128, 128)
+    # one stage of the smallest ring, at the column slice B·H = 1 takes
+    need = wkv_smem(300, 128, geometry(1, 128, 128)[1], 4, 1)
     with pytest.raises(RuntimeError, match=f"{need} bytes of shared memory"):
         wkv(*big, chunk=300, device="cpu")
     before = wkv.launches

@@ -12,8 +12,9 @@ Phases, each fatal on failure (exit 1, no result line):
    Triton map kernel K4 is compiled (into build/triton/) by one launch,
    checked against a + b.  A failed build or compile is fatal, and so is a
    spill in K2's tensor-core body at any head_dim, in any of K5's 16
-   tensor-core instantiations or in any of K6's 8 (registers printed, K3's,
-   K5's and K6's by kernel).
+   tensor-core instantiations, in any of K6's 8 or in any of K7's 4
+   tensor-core instantiations (registers printed, K3's, K5's, K6's and
+   K7's by kernel).
 2. Kernel vs plain: the flash-attention kernel against its plain PyTorch
    version at the serving shapes (B 1 and 4; S 8, 64, 96, 256; H 32, KV 2,
    hd 128; bf16 and f32; causal) and at hymba-1.5b's heads (H 25, KV 5, hd
@@ -66,10 +67,12 @@ Phases, each fatal on failure (exit 1, no result line):
    H 50, P 64, N 16), every chunk of the ``rwkv_wkv``/``mamba_ssd``
    variant spaces, bf16 (f32 lw/dt) and f32, with CUDA-event times of the
    kernel and the plain version beside the bound (no PyTorch call computes
-   either function: no library yardstick).  Then K6's ring of one stage
-   against two (``rwkv_wkv.run_body``) at B=1 S=256, bf16 and f32, every
-   chunk, in 5 alternated rounds, the plain version in the rounds at the
-   served chunk 128 (the wrapper takes one stage).
+   either function: no library yardstick); each K7 row with the body it
+   took (every one must take ``mma``, the tensor cores).  Then K7 at B=1
+   S=256 chunk 128, bf16 and f32, in 5 alternated rounds: the wrapper, its
+   ``mma`` body at both column slices (16 and 32 columns), the ``simt``
+   body and the plain version by CUDA events, and the bodies by CUDA-graph
+   replay (their device time without the wrapper's host time).
 9. Serve rwkv6-7b at full width and depth (32 layers, bf16, 14.0 GiB,
    random weights from a seeded generator) with K6 at ``rwkv_wkv``: a
    BatchedServer (4 slots, exact-length packing) answers 8 requests of 16
@@ -85,15 +88,17 @@ Phases, each fatal on failure (exit 1, no result line):
    (B, S) of the run.
 10. The same for hymba-1.5b (32 layers, bf16, 3.0 GiB, max_len 272) with
    K7 at ``ssm_chunk`` and K2 at ``attention`` (H 25, KV 5, hd 64): both
-   launch counts (K2 all on ``mma``), the final ``ssm`` state, and both
-   kernels held against their plain versions at every (B, S) of the run.
+   launch counts (K2 and K7 all on ``mma``), the final ``ssm`` state, and
+   both kernels held against their plain versions at every (B, S) of the
+   run.
 11. The paper's Table 4 hotspots: a ``Campaign`` on ``h100`` over
    ``rwkv_wkv`` and ``mamba_ssd`` (every candidate FE-checked and timed
    through K6 or K7), then each winner's ``integrated_speedup`` into
    rwkv6-7b / hymba-1.5b at full width in float32 (28.1 / 5.9 GiB) over
    2x256 tokens against the naive sequential recurrence; ``fe_ok`` must be
-   true.  K6 and K7 are held against their plain versions at every shape
-   the phase gave them.
+   true, and every K7 call of the case and the integration must take
+   ``mma`` (launches by body).  K6 and K7 are held against their plain
+   versions at every shape the phase gave them.
 12. The rest of the suites' kernels: a ``Campaign`` on ``h100`` over the
    four cases whose ``cuda`` build launches a hand-written kernel,
    ``matrixmultiplication`` (K1), ``reduction`` (K3), ``vectoradd`` (K4)
@@ -126,12 +131,13 @@ Phases, each fatal on failure (exit 1, no result line):
 Then the device times at the main shapes (K2, K1 as above; K6, K7 at their
 serving runs' heaviest prefill; K3, K4, K5 as in phase 13) in a fresh
 process (with the wrapper's host µs per call where K2's CUDA-event time
-exceeds 1.5x its device time), the ``kernels`` JSON line (K1-K7; K1, K2 and
-K5 with their launches by body, the main shape's body, the device time and
-the TF32 or P-in-bf16 control; K2, K3, K4, K5 and K6 with the host µs a
-call; K4 with phase 12's compiles and cache hits and its vector loads; K5
-at its fixed main shape, its bf16 and winner figures beside; K6 with its
-rings) and the result line.  An f32 GEMM's
+exceeds 1.5x its device time), K7's ``simt`` body, host µs a call and
+one-pass control at its main shape, the ``kernels`` JSON line (K1-K7; K1,
+K2, K5 and K7 with their launches by body, the main shape's body, the
+device time and the TF32, P-in-bf16 or one-pass control; K2, K3, K4, K5,
+K6 and K7 with the host µs a call; K4 with phase 12's compiles and cache hits and its vector loads; K5
+at its fixed main shape, its bf16 and winner figures beside) and the
+result line.  An f32 GEMM's
 bound (K1, K5) counts three TF32 passes on the tensor cores, 165 TFLOP/s.
 
 Details of every case go to chiprun_out/chip_smoke.json.
@@ -448,6 +454,15 @@ def phase_device(report):
         for n, r in sorted(k6.items())), flush=True)
     if len(k6) != 8 or any(r["spill_bytes"] for r in k6.values()):
         fail(f"K6's body: instantiations or spills {k6}")
+    # K7's tensor-core body, 4 instantiations (dtype, column slice): no
+    # spills; its simt body's registers beside
+    k7 = ptxas_kernels(str(build.build_info["ssd_scan"]["ptxas"]))
+    k7_mma = {n: r for n, r in k7.items() if "ssd_mma_kernel" in n}
+    print("  K7 kernels (registers, spill bytes): " + ", ".join(
+        f"{demangled(n)} {r['registers']} {r['spill_bytes']}"
+        for n, r in sorted(k7.items())), flush=True)
+    if len(k7_mma) != 4 or any(r["spill_bytes"] for r in k7_mma.values()):
+        fail(f"K7's mma body: instantiations or spills {k7_mma}")
     # K4 is Triton: compiled at its first launch, which is checked here
     from repro_torch.kernels.elementwise import elementwise
     from repro_torch.kernels.suites.appsdk import _add
@@ -472,6 +487,7 @@ def phase_device(report):
                         "k5_ptxas": {demangled(n): r for n, r in k5.items()},
                         "k3_ptxas": {demangled(n): r for n, r in k3.items()},
                         "k6_ptxas": {demangled(n): r for n, r in k6.items()},
+                        "k7_ptxas": {demangled(n): r for n, r in k7.items()},
                         "ptxas": {n: [line.strip() for line in str(
                             build.build_info[n]["ptxas"]).splitlines()
                             if "registers" in line or "spill" in line]
@@ -979,8 +995,9 @@ def recurrent_bound(kind, args):
     """(bound_ms, bound_by): the larger of the bytes over the HBM rate
     (inputs read once, output and final state written once) and the least
     f32 operations the function needs, those of its sequential form, over
-    67 TFLOP/s (both kernels compute in f32 on the CUDA cores in either
-    dtype).  Per (token, head): K6 r·S (2KV), the bonus (3K + 2V) and the
+    67 TFLOP/s (K6 computes in f32 on the CUDA cores in either dtype; K7's
+    tensor-core body keeps f32 accuracy, and at the served and case shapes
+    its bytes bound it at either rate).  Per (token, head): K6 r·S (2KV), the bonus (3K + 2V) and the
     state update (3KV); K7 u = dt·x (P), the state update exp(la)·S + u⊗B
     (3PN) and C·S (2PN).  The chunked form K7 runs does more (the causal
     C·Bᵀ and intra product grow with the chunk): that is the kernel's
@@ -1017,7 +1034,8 @@ def compare_recurrent(kind, args, chunk, timed: bool = False):
     err, ratio = recurrent_gate(out, want, dtype)
     s_err, s_ratio = recurrent_gate(state, want_state, "float32")
     r = {"kernel": kind, "shape": list(args[0].shape), "dtype": dtype,
-         "chunk": chunk,
+         "chunk": chunk, **({"path": k7_path(args, chunk)} if kind == "ssd"
+                            else {}),
          "finite": bool(torch.isfinite(out).all()
                         and torch.isfinite(state).all()),
          "max_abs_err": err, "state_max_abs_err": s_err,
@@ -1029,6 +1047,21 @@ def compare_recurrent(kind, args, chunk, timed: bool = False):
         r["bound_ms"], r["bound_by"] = recurrent_bound(kind, args)
         r["library_ms"] = None     # no single PyTorch call computes it
     return r
+
+
+def k7_path(args, chunk) -> str:
+    """The body K7 takes on these inputs (``ssd_scan.path_for``)."""
+    from repro_torch.kernels.ssd_scan import path_for
+    xh, B_t = args[0], args[3]
+    return path_for(xh.dtype, min(chunk, xh.shape[1]), B_t.shape[2],
+                    xh.stride()[:3], xh.data_ptr())
+
+
+def require_k7_mma(rows, where: str) -> None:
+    """Every served and case call of K7 takes the tensor cores."""
+    bad = [r for r in rows if r.get("path") != "mma"]
+    if bad:
+        fail(f"K7 ran the simt body at {where}: {bad}")
 
 
 def recurrent_inputs(kind, B, S, dtype, g):
@@ -1074,7 +1107,9 @@ def phase_recurrent_kernels(report):
                         fail(f"{kind} disagrees with its plain version: "
                              f"{bad}")
                     t = next(r for r in group if "ms" in r)
-                    print(f"  {kind} {t['dtype']:8s} B={B} S={S:3d}  "
+                    body = (" " + "/".join(r["path"] for r in group)
+                            if kind == "ssd" else "")
+                    print(f"  {kind} {t['dtype']:8s} B={B} S={S:3d}{body}  "
                           f"max_abs_err {max(r['max_abs_err'] for r in group):.3g}"
                           f" state {max(r['state_max_abs_err'] for r in group):.3g}"
                           f" (of tol {max(r['tol_ratio'] for r in group):.2f})"
@@ -1082,38 +1117,72 @@ def phase_recurrent_kernels(report):
                           f"{t['plain_ms']:.4f} ms  library none  bound "
                           f"{t['bound_ms']:.4f} ms ({t['bound_by']})",
                           flush=True)
+                    if kind == "ssd":
+                        require_k7_mma(group, "phase 8")
     report["recurrent_kernel_vs_plain"] = rows
-    report["wkv_rings"] = wkv_ring_times(g)
+    report["ssd_bodies"] = ssd_body_times(g)
 
 
-def wkv_ring_times(g):
-    """K6's ring of one stage (the wrapper's) against two
-    (``rwkv_wkv.run_body``) at the main shape (B=1 S=256 H 64 K = V 64),
-    bf16 and f32, at every chunk of the case's variant space, in 5
-    alternated rounds, with the plain version in the rounds at the served
-    chunk."""
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device ms a call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, its replay timed by CUDA events, so a short kernel is not hidden
+    behind its wrapper's host time."""
     import torch
-    from repro_torch.kernels import rwkv_wkv as k6
-    print("K6 rings at B=1 S=256 (medians of 5 alternated rounds, ms; the "
-          "wrapper takes one stage):", flush=True)
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ssd_body_times(g):
+    """K7 at hymba-1.5b's served shape (B=1 S=256, H 50, P 64, N 16),
+    bf16 and f32, chunk 128, in 5 alternated rounds: the wrapper, its
+    ``mma`` body at each column slice (16 and 32 columns, ``geometry``
+    takes one), the ``simt`` body and the plain version, by CUDA events;
+    then the bodies' device ms by CUDA-graph replay, also alternated."""
+    import torch
+    from repro_torch.kernels import ssd_scan as k7
+    print("K7 at B=1 S=256 chunk 128 (medians of 5 alternated rounds, ms; "
+          "CUDA events, then CUDA-graph replay):", flush=True)
     out = []
     for dtype in (torch.bfloat16, torch.float32):
-        args = recurrent_inputs("wkv", 1, 256, dtype, g)
-        for chunk in RECURRENT_CHUNKS["wkv"]:
-            fns = {f"ring{st}_ms": (lambda st=st: k6.run_body(
-                *args, chunk=chunk, stages=st)) for st in (1, 2)}
-            reps = {}
-            if chunk == MODEL_CHUNK:
-                fns["plain_ms"] = lambda: k6.wkv_plain(*args, chunk=chunk)
-                reps["plain_ms"] = 3
-            r = alternated(fns, reps=reps)
-            r.update(dtype=str(dtype)[6:], chunk=chunk)
-            out.append(r)
-            print(f"  {r['dtype']:8s} chunk {chunk:3d}: one stage "
-                  f"{r['ring1_ms']:.4f}, two stages {r['ring2_ms']:.4f}"
-                  + (f", plain {r['plain_ms']:.4f}" if "plain_ms" in r
-                     else "") + f"; rounds {r['rounds']}",
-                  flush=True)
+        args = recurrent_inputs("ssd", 1, 256, dtype, g)
+        bodies = {f"mma{w}_ms": (lambda w=w: k7.run_body(
+            *args, chunk=MODEL_CHUNK, path="mma", width=w)) for w in (16, 32)}
+        bodies["simt_ms"] = lambda: k7.run_body(*args, chunk=MODEL_CHUNK,
+                                                path="simt")
+        r = alternated({"ms": lambda: k7.ssd(*args, chunk=MODEL_CHUNK),
+                        **bodies,
+                        "plain_ms": lambda: k7.ssd_plain(
+                            *args, chunk=MODEL_CHUNK)},
+                       reps={"plain_ms": 3})
+        graphs = {n: [] for n in bodies}
+        for _ in range(5):
+            for n, fn in bodies.items():
+                graphs[n].append(graph_ms(fn))
+        r.update({f"graph_{n}": float(np.median(v))
+                  for n, v in graphs.items()},
+                 graph_rounds=graphs, dtype=str(dtype)[6:],
+                 width=k7.geometry(1, 50, 64)[0],
+                 path=k7_path(args, MODEL_CHUNK))
+        out.append(r)
+        print(f"  {r['dtype']:8s} ({r['path']}, slices of {r['width']}): "
+              f"wrapper {r['ms']:.4f}, mma 16 {r['mma16_ms']:.4f}, mma 32 "
+              f"{r['mma32_ms']:.4f}, simt {r['simt_ms']:.4f}, plain "
+              f"{r['plain_ms']:.4f}; graph replay: mma 16 "
+              f"{r['graph_mma16_ms']:.4f}, mma 32 {r['graph_mma32_ms']:.4f},"
+              f" simt {r['graph_simt_ms']:.4f}", flush=True)
     return out
 
 
@@ -1364,6 +1433,8 @@ def phase_serve(report, arch):
     if (cfg.param_dtype == "bfloat16" and cfg.resolved_head_dim <= 128
             and by_path.get("flash_attention", {}).get("simt")):
         fail(f"{arch}: K2 serving calls on the CUDA cores: {by_path}")
+    if by_path.get("ssd", {}).get("simt"):
+        fail(f"{arch}: K7 serving calls on the CUDA cores: {by_path}")
 
     prefill_tokens = int(lengths.sum())
     decode_tokens = sum(len(r.tokens) - 1 for r in reqs)
@@ -1450,10 +1521,10 @@ def phase_serve(report, arch):
     rows = torch.as_tensor(rows, device="cuda").long()
     with torch.no_grad():
         split = {"decode_step": time_split(
-                     lambda: model.decode_step(cache, toks, pos)),
+                     lambda: model.decode_step(cache, toks, pos), top=12),
                  "prefill_2x256": time_split(
                      lambda: model.prefill(rows, max_len=max_len,
-                                           lengths=lens))}
+                                           lengths=lens), top=12)}
     for what, r in split.items():
         print(f"{arch} {what}: wall {r['wall_ms']:.2f} ms, device "
               f"{r['device_ms']:.2f} ms (busy {r['device_busy_share']:.1%}) "
@@ -1474,6 +1545,9 @@ def phase_serve(report, arch):
                 require_mma(r, f"{arch}'s serving shape B={B} S={S}")
             else:
                 r = compare_recurrent(name, args, kw["chunk"])
+                if name == "ssd":
+                    require_k7_mma([r], f"{arch}'s serving shape B={B} "
+                                        f"S={S}")
             checks[name].append(r)
             print(f"  {name} {r['dtype']} B={B} S={S:3d} at the serving "
                   f"run's inputs{' (' + r['path'] + ')' if 'path' in r else ''}"
@@ -1499,6 +1573,77 @@ def main_recurrent_shape(kind, calls):
     if not agrees(r):
         fail(f"{kind} disagrees at its main shape: {r}")
     return r, (args, {"chunk": kw["chunk"]})
+
+
+def ssd_one_pass(xh, dt, a_log, B_t, C_t, chunk):
+    """The control of K7's gate: the chunked SSD as K7's ``mma`` body forms
+    it, but with each f32 operand of its products taken in one pass: in
+    bf16 G', the state and the scaled B rounded once to bf16 (the kernel
+    adds their lo halves); in f32 every operand rounded once to TF32 (the
+    kernel takes three passes).  y in xh's dtype, the state in f32."""
+    import torch
+
+    def tf32(x):
+        return ((x.contiguous().view(torch.int32) + 0x1000)
+                & ~0x1FFF).view(torch.float32)
+    one = (lambda x: x.bfloat16().float()) if xh.dtype == torch.bfloat16 \
+        else tf32
+
+    def product(a, b, split):
+        if xh.dtype == torch.float32:
+            return one(a) @ one(b)
+        return (one(a) @ b if split == "a" else a @ one(b)) if split \
+            else a @ b
+    Bb, S, H, P = xh.shape
+    c = min(chunk, S)
+    neg_a = -torch.exp(a_log.float())
+    X, D = xh.float().permute(0, 2, 1, 3), dt.float().permute(0, 2, 1)
+    Bm, Cm = B_t.float()[:, None], C_t.float()[:, None]
+    y = torch.empty(Bb, H, S, P, device=xh.device)
+    state = torch.zeros(Bb, H, P, B_t.shape[2], device=xh.device)
+    for t0 in range(0, S, c):
+        n = min(c, S - t0)
+        x, d = X[:, :, t0:t0 + n], D[:, :, t0:t0 + n]
+        b, cc = Bm[:, :, t0:t0 + n], Cm[:, :, t0:t0 + n]
+        la = torch.cumsum(neg_a[None, :, None] * d, dim=-1)
+        keep = torch.ones(n, n, dtype=torch.bool, device=xh.device).tril()
+        G = torch.where(keep, product(cc, b.transpose(-1, -2), None)
+                        * torch.exp(la[..., :, None] - la[..., None, :])
+                        * d[..., None, :], torch.zeros((), device=xh.device))
+        y[:, :, t0:t0 + n] = product(G, x, "a") + product(
+            cc, state.transpose(-1, -2), "b") * torch.exp(la)[..., None]
+        state = torch.exp(la[..., -1])[..., None, None] * state + product(
+            x.transpose(-1, -2),
+            (d * torch.exp(la[..., -1:] - la))[..., None] * b, "b")
+    return y.permute(0, 2, 1, 3).to(xh.dtype), state
+
+
+def ssd_main_shape_extras(args, kw):
+    """At K7's main shape: the body it takes, the ``simt`` body's CUDA-event
+    ms on the same inputs, the wrapper's host µs a call, and the one-pass
+    control's largest error against the plain version as a ratio to the
+    gate (RECURRENT_TOL; output or state, whichever reads higher), beside
+    the kernel's."""
+    import torch
+    from repro_torch.kernels import ssd_scan as k7
+    chunk = kw["chunk"]
+    want_y, want_s = k7.ssd_plain(*args, chunk=chunk)
+    y1, s1 = ssd_one_pass(*args, chunk)
+    dtype = str(args[0].dtype).replace("torch.", "")
+    control = max(recurrent_gate(y1, want_y, dtype)[1],
+                  recurrent_gate(s1, want_s, "float32")[1])
+    out = {"path": k7_path(args, chunk),
+           "simt_ms": cuda_ms(lambda: k7.run_body(*args, chunk=chunk,
+                                                  path="simt")),
+           "host_us_per_call": host_us_per_call(
+               lambda: k7.ssd(*args, chunk=chunk)),
+           "one_pass_control_tol_ratio": control}
+    torch.cuda.synchronize()
+    print(f"K7 at the main shape ({list(args[0].shape)}, {dtype}, chunk "
+          f"{chunk}, {out['path']}): simt body {out['simt_ms']:.4f} ms, "
+          f"wrapper host {out['host_us_per_call']:.1f} us a call; one-pass "
+          f"control {control:.3g} of the gate", flush=True)
+    return out
 
 
 def phase_table4(report):
@@ -1533,6 +1678,9 @@ def phase_table4(report):
         for name, (kind, arch) in TABLE4_CASES.items():
             kernel, _ = kernel_pair(kind)
             kernel.launches = 0                 # this path's run
+            by_path = getattr(kernel, "launches_by_path", {})
+            for body in by_path:
+                by_path[body] = 0
             res, row = run_case(camp, store, platform, name)
             row["campaign_launches"] = kernel.launches
             status = row["status"]
@@ -1579,6 +1727,13 @@ def phase_table4(report):
             if not ir.fe_ok or int_launches < need:
                 fail(f"{name} integration: fe_ok {ir.fe_ok}, "
                      f"{int_launches} launches ({need} expected)")
+            if by_path:
+                print(f"  {kind} launches by body (campaign and "
+                      f"integration): {by_path}", flush=True)
+                row["launches_by_path"] = dict(by_path)
+                if by_path.get("simt"):
+                    fail(f"{name}: K7 case or integration calls on the CUDA"
+                         f" cores: {by_path}")
             row.update(app=f"{arch} float32, {cfg.n_layers} layers, 2x256 "
                            "tokens",
                        app_baseline_ms=ir.baseline_time_s * 1e3,
@@ -1599,11 +1754,14 @@ def phase_table4(report):
         for key, (args, kw) in sorted(rec.calls.items(), key=str):
             r = compare_recurrent(kind, args, kw["chunk"])
             checks[kind].append(r)
-            print(f"  {kind} {r['dtype']} {r['shape']} chunk {r['chunk']}: "
-                  f"max_abs_err {r['max_abs_err']:.3g} (of tol "
+            print(f"  {kind} {r['dtype']} {r['shape']} chunk {r['chunk']}"
+                  + (f" ({r['path']})" if "path" in r else "")
+                  + f": max_abs_err {r['max_abs_err']:.3g} (of tol "
                   f"{r['tol_ratio']:.2f})", flush=True)
             if not agrees(r):
                 fail(f"{kind} disagrees at the pipeline's shape: {r}")
+            if kind == "ssd":
+                require_k7_mma([r], "phase 11")
     report["table4"] = {"platform": platform.name, "cases": rows,
                         "checks": checks,
                         "journal": str(db_path.relative_to(ROOT))}
@@ -2404,6 +2562,7 @@ def main() -> None:
     wkv_main["host_us_per_call"] = host_us_per_call(
         lambda: kernel_pair("wkv")[0](*wkv_call[0], **wkv_call[1]))
     ssd_main, ssd_call = main_recurrent_shape("ssd", hymba_calls["ssd"])
+    ssd_main.update(ssd_main_shape_extras(*ssd_call))
     report["wkv_main_shape"], report["ssd_main_shape"] = wkv_main, ssd_main
 
     # (label, wrapper, row, call) of each main shape
@@ -2434,6 +2593,8 @@ def main() -> None:
     k2_by_path = {body: sum(report[f"serve_{a}"]["launches_by_path"][
         "flash_attention"][body] for a in ("glm4-9b", "hymba-1.5b"))
         for body in ("mma", "simt")}
+
+    k7_by_path = report["serve_hymba-1.5b"]["launches_by_path"]["ssd"]
 
     def recurrent_entry(name, source, replaces, launches, checks, r):
         return {"name": name, "route": "cuda", "source": source,
@@ -2485,14 +2646,18 @@ def main() -> None:
             "src/repro/kernels/rwkv_wkv.py:65", rwkv_launches["wkv"],
             rwkv_checks["wkv"] + table4_checks["wkv"], wkv_main),
          "device_ms": wkv_main["kernel_device_ms"],
-         "host_us_per_call": wkv_main["host_us_per_call"],
-         "rings": {f"{r['dtype']} chunk {r['chunk']}": {
-             k: r[k] for k in ("ring1_ms", "ring2_ms")}
-             for r in report["wkv_rings"]}},
-        recurrent_entry(
-        "ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
-        "src/repro/kernels/ssd_scan.py:73", hymba_launches["ssd"],
-        hymba_checks["ssd"] + table4_checks["ssd"], ssd_main)]
+         "host_us_per_call": wkv_main["host_us_per_call"]},
+        {**recurrent_entry(
+            "ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "src/repro/kernels/ssd_scan.py:73", hymba_launches["ssd"],
+            hymba_checks["ssd"] + table4_checks["ssd"], ssd_main),
+         "launches_by_path": k7_by_path,
+         "main_shape_path": ssd_main["path"],
+         "device_ms": ssd_main["kernel_device_ms"],
+         "simt_ms": ssd_main["simt_ms"],
+         "host_us_per_call": ssd_main["host_us_per_call"],
+         "one_pass_control_tol_ratio": ssd_main[
+             "one_pass_control_tol_ratio"]}]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     OUT.parent.mkdir(exist_ok=True)

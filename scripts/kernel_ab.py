@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times one tree's K1, K3, K4, K5 and K6 on the card at their PERF.md main
-shapes, so that two trees can be compared in one call on one card.
+"""Times one tree's K1, K3, K4, K5, K6 and K7 on the card at their PERF.md
+main shapes, so that two trees can be compared in one call on one card.
 
     python3 scripts/kernel_ab.py --tree DIR [--label NAME]
 
@@ -26,10 +26,13 @@ to ``chiprun_out/kernel_ab.jsonl``), for each main shape:
 * ``host_us_per_call``: 1000 calls without a sync;
 * K6 also ``state_sha256``, the SHA-256 of its final state's bytes, so
   that two trees' states can be compared bit for bit (the inputs come from
-  one seeded generator).
+  one seeded generator);
+* K7 also ``max_abs_err`` and ``state_max_abs_err``, its largest errors
+  against its plain version on the same seeded input, so that two trees'
+  arithmetic can be read side by side.
 
-and ``components``, the host µs a call of each step of a K3, K4, K5 or K6
-launch that the thin launch path (``kernels/launch.py``) or K4's cached
+and ``components``, the host µs a call of each step of a K3, K4, K5, K6 or
+K7 launch that the thin launch path (``kernels/launch.py``) or K4's cached
 launch changes, each 10000 calls: ``resolve_device``, K5's tile checks
 (cached or not; the parent's are not), the stream handle
 (``torch.cuda.current_stream`` against
@@ -37,7 +40,8 @@ launch changes, each 10000 calls: ``resolve_device``, K5's tile checks
 (``torch.empty(1)`` and indexing ``[0]``, against ``new_empty(())``), the
 ctypes call itself, made with arguments that the C entry refuses at once
 (n = 0, E = 0, B = 0), so nothing launches: the tree's own form, eight,
-nineteen or 28 converted arguments, or one packed struct; and K4's steps:
+nineteen, 25 or 28 converted arguments, or one packed struct; K7's shape
+checks and its ``a_log`` conversion; and K4's steps:
 its checks, ``fit``, the ``_compile`` lookup, ``torch.empty_like``, the
 ``torch.cuda.device`` context, ``JITFunction.run`` (a whole launch through
 Triton's own path, 2000 calls) and, where the tree caches the compiled
@@ -48,7 +52,9 @@ Shapes: K3 n 4,194,304 f32 at each of the ``reduction`` case's blocks
 1024^3 f32 alpha*AB + beta*C on 128^3; K4 ``vectoradd``'s map at n
 16,777,216 and 262,144 (its largest and smallest scales) f32, block 8192;
 K6 rwkv6-7b's B=1 S=256 H=64 K=V=64 bf16, chunk 128, and the Table 4
-case's B=2 S=1024 H=8 f32, chunk 64.
+case's B=2 S=1024 H=8 f32, chunk 64; K7 hymba-1.5b's B=1 S=256 H=50 P=64
+N=16 bf16, chunk 128 (a_log in f32, as the wrapper hands it over), and the
+``mamba_ssd`` case's B=2 S=1024 H=8 f32, chunk 128.
 """
 import argparse
 import hashlib
@@ -68,6 +74,11 @@ def us_per_call(fn, calls: int = 10000) -> float:
     for _ in range(calls):
         fn()
     return (time.perf_counter() - t) * 1e6 / calls
+
+
+def fields(entry) -> int:
+    """The 8-byte fields of a packed launch entry (``launch.Entry``)."""
+    return entry.pack.__self__.size // 8
 
 
 def k4_components(k4, fn, resolve_device):
@@ -128,6 +139,7 @@ def main() -> None:
     from repro_torch.kernels import rwkv_wkv as k6
     from repro_torch.kernels import moe_gemm as k5
     from repro_torch.kernels import reduce_sum as k3
+    from repro_torch.kernels import ssd_scan as k7
     from repro_torch.kernels.suites.appsdk import _add
     if not str(Path(k3.__file__).resolve()).startswith(str(tree)):
         sys.exit(f"kernel_ab: imported {k3.__file__}, not from {tree}")
@@ -181,6 +193,20 @@ def main() -> None:
     u6 = 0.5 * torch.randn(8, 64, device="cuda", generator=g)
     shapes["wkv B 2 S 1024 H 8 K 64 V 64 f32 chunk 64"] = (
         lambda: k6.wkv(r6, k6_, v6, lw6, u6, chunk=64), None)
+    ssd_args = cs.recurrent_inputs("ssd", 1, 256, torch.bfloat16, g)
+    shapes["ssd B 1 S 256 H 50 P 64 N 16 bf16 chunk 128"] = (
+        lambda: k7.ssd(*ssd_args, chunk=128), None)
+    # the mamba_ssd case (kernels/suites/hpc.py) at its largest scale
+    bc7 = torch.randn(2, 1024, 32, device="cuda", generator=g)
+    case_args = (torch.randn(2, 1024, 8, 64, device="cuda", generator=g),
+                 torch.rand(2, 1024, 8, device="cuda", generator=g) * 0.1
+                 + 0.001,
+                 torch.rand(8, device="cuda", generator=g) * 2 - 1,
+                 bc7[..., :16].contiguous(), bc7[..., 16:].contiguous())
+    shapes["ssd B 2 S 1024 H 8 P 64 N 16 f32 chunk 128"] = (
+        lambda: k7.ssd(*case_args, chunk=128), None)
+    ssd_inputs = {"ssd B 1 S 256 H 50 P 64 N 16 bf16 chunk 128": ssd_args,
+                  "ssd B 2 S 1024 H 8 P 64 N 16 f32 chunk 128": case_args}
     out = {}
     for name, (fn, lib) in shapes.items():
         r = cs.alternated({"ms": fn, **({"library_ms": lib} if lib else {})})
@@ -191,13 +217,21 @@ def main() -> None:
         if name.startswith("wkv"):
             state = fn()[1].cpu().numpy()
             r["state_sha256"] = hashlib.sha256(state.tobytes()).hexdigest()
+        if name.startswith("ssd"):
+            y, state = fn()
+            want_y, want_s = k7.ssd_plain(*ssd_inputs[name], chunk=128)
+            r["max_abs_err"] = (y.float() - want_y.float()).abs().max().item()
+            r["state_max_abs_err"] = (state - want_s).abs().max().item()
         out[name] = r
         print(f"  {name}: {r['ms']:.4f} ms (device {r['device_ms']:.4f}, "
               f"{r['kernels_per_call']:g} kernels a call; host "
               f"{r['host_us_per_call']:.1f} us a call); library "
               + (f"{r['library_ms']:.4f}" if lib else "none")
               + (f"; state sha256 {r['state_sha256']}"
-                 if "state_sha256" in r else ""), flush=True)
+                 if "state_sha256" in r else "")
+              + (f"; max_abs_err {r['max_abs_err']:.3g}, state "
+                 f"{r['state_max_abs_err']:.3g}" if "max_abs_err" in r
+                 else ""), flush=True)
 
     dev = torch.device("cuda", 0)
     o = torch.empty(1, device=dev)
@@ -226,10 +260,24 @@ def main() -> None:
         comp["k5_ctypes_refused"] = us_per_call(
             lambda: k5._lib().gmm_forward(*[0] * 19))
     if hasattr(k6, "_ENTRY"):
-        comp["k6_ctypes_refused"] = us_per_call(lambda: k6._ENTRY(*[0] * 30))
+        comp["k6_ctypes_refused"] = us_per_call(lambda: k6._ENTRY(
+            *[0] * fields(k6._ENTRY)))
     else:
         comp["k6_ctypes_refused"] = us_per_call(
             lambda: k6._lib().wkv_forward(*[0] * 28))
+    xh7 = ssd_args[0]
+    a_log7 = ssd_args[2]
+    comp["k7_checks"] = us_per_call(lambda: k7._check(*ssd_args, 128))
+    comp["k7_a_log_float"] = us_per_call(lambda: a_log7.float().contiguous())
+    comp["k7_outputs"] = us_per_call(lambda: (
+        xh7.new_empty(xh7.shape), xh7.new_empty((1, 50, 64, 16),
+                                                dtype=torch.float32)))
+    if hasattr(k7, "_ENTRY"):
+        comp["k7_ctypes_refused"] = us_per_call(lambda: k7._ENTRY(
+            *[0] * fields(k7._ENTRY)))
+    else:
+        comp["k7_ctypes_refused"] = us_per_call(
+            lambda: k7._lib().ssd_forward(*[0] * 25))
     comp.update(k4_components(k4, _add, resolve_device))
     print("  host us a call: " + ", ".join(f"{k} {v:.2f}"
                                            for k, v in comp.items()),

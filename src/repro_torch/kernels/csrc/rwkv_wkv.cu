@@ -42,24 +42,25 @@
 //     lies between two steps' loads and the two shuffle trees overlap;
 //   * the state update is s = fmaf(expf(lw), s, k * v) element by element
 //     and the split reorders none of it, so the final state is the same
-//     bits at any slice, lane count or ring (and as a thread-a-column
+//     bits at any slice, lane count or chunk (and as a thread-a-column
 //     body's);
 //   * a stage is `chunk` time steps of the raw rows, r, k (bf16 or f32), lw
 //     (f32) and the slice's v columns, copied by `cp.async` (16, 8 or 4
 //     bytes a copy, the widest that the addresses and strides allow;
-//     element copies for bf16 views off 4 bytes).  With two stages the next
-//     one is in flight while the block walks the current one; one stage
-//     halves the shared memory, so more blocks fit an SM, and the wrapper
-//     takes one: at rwkv6-7b's chunk 128 two bf16 stages (139 KB with VB
-//     16) leave one block an SM.  After a stage lands the block takes
+//     element copies for bf16 views off 4 bytes).  One stage at a time:
+//     the next is copied after the block has walked the current one, so a
+//     stage's shared memory is all a block takes (a ring of two was timed
+//     within 2.3% at chunks 16-64 and 1.65x slower at rwkv6-7b's chunk
+//     128, where two bf16 stages leave one block an SM).  After a stage
+//     lands the block takes
 //     exp(lw) in place, each element once (a lane taking it at use would
 //     repeat it for every column of the slice), and the lanes convert r, k
 //     and v at use.
 //
-// Runs of 4 rows against 8, pairs of steps against 1, 4 or 8, and the exp
-// pass against exp at use were chosen by timing patched copies side by
-// side on the H100, each the faster at the served shape; chip_smoke.py's
-// phase 8 times the two rings at every chunk (PERF.md).
+// Runs of 4 rows against 8, pairs of steps against 1, 4 or 8, the exp
+// pass against exp at use, and the pair loop's moving pointers and unroll
+// were chosen by timing patched copies side by side on the H100, each the
+// faster at the served shape (PERF.md).
 
 #include <atomic>
 #include <cstring>
@@ -84,7 +85,7 @@ struct Params {
   const void* u;
   void* o;
   float* state;
-  int S, H, V, chunk, VB, stages;
+  int S, H, V, chunk, VB;
   // bytes a cp.async copies, per tensor (16, 8 or 4; 0: element copies)
   int gran_r, gran_k, gran_v, gran_w;
   long long r_sb, r_ss, r_sh;
@@ -246,7 +247,6 @@ __global__ void __launch_bounds__(MAX_THREADS) wkv_kernel(const Params p) {
   const int h = blockIdx.x, b = blockIdx.y, j0 = blockIdx.z * VB;
   const int j = j0 + col;
   const int ncols = min(VB, V - j0);  // the slice's columns in V
-  const size_t sbytes = stage_bytes<T>(chunk, K, VB);
 
   const unsigned char* r = static_cast<const unsigned char*>(p.r) +
                            (b * p.r_sb + h * p.r_sh) * sizeof(T);
@@ -260,11 +260,11 @@ __global__ void __launch_bounds__(MAX_THREADS) wkv_kernel(const Params p) {
   T* o = static_cast<T*>(p.o) + size_t(b) * p.S * o_ss + h * V + j;
   const bool stores = lane == 0 && col < ncols;
 
-  // Stage `st` (time steps st*chunk ...) into buffer `buf`.
-  auto issue = [&](int st, int buf) {
+  // Stage `st` (time steps st*chunk ...) into shared memory.
+  auto issue = [&](int st) {
     const long long t0 = static_cast<long long>(st) * chunk;
     const int n = min(chunk, p.S - static_cast<int>(t0));
-    unsigned char* w_s = smem + buf * sbytes;
+    unsigned char* w_s = smem;
     unsigned char* r_s = w_s + chunk * K * sizeof(float);
     unsigned char* k_s = r_s + chunk * K * sizeof(T);
     unsigned char* v_s = k_s + chunk * K * sizeof(T);
@@ -287,18 +287,12 @@ __global__ void __launch_bounds__(MAX_THREADS) wkv_kernel(const Params p) {
   }
 
   const int stages = (p.S + chunk - 1) / chunk;
-  issue(0, 0);
+  issue(0);
   for (int st = 0; st < stages; ++st) {
-    const int buf = p.stages == 2 ? st & 1 : 0;
     const int t0 = st * chunk, n = min(chunk, p.S - t0);
-    if (p.stages == 2 && st + 1 < stages) {
-      issue(st + 1, buf ^ 1);  // walked in the last step, freed by its barrier
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    cp_async_wait<0>();
     __syncthreads();  // every thread's copies of stage st have landed
-    float* w_s = reinterpret_cast<float*>(smem + buf * sbytes);
+    float* w_s = reinterpret_cast<float*>(smem);
     for (int i = threadIdx.x; i < n * K; i += blockDim.x)
       w_s[i] = expf(w_s[i]);
     __syncthreads();
@@ -308,27 +302,44 @@ __global__ void __launch_bounds__(MAX_THREADS) wkv_kernel(const Params p) {
     T* ot = o + t0 * o_ss;
     // STEPS steps, then their lane sums and stores: no store lies between
     // two steps' loads, so the loads of a group issue together and the
-    // shuffle trees of its steps overlap.
+    // shuffle trees of its steps overlap.  The rows' pointers move by a
+    // group of steps at a time and the loop is unrolled twice: indexed by
+    // t and not unrolled, the same loop ran 8% slower on the H100 once
+    // the stage loop around it lost the two-stage ring (the compiler
+    // scheduled it otherwise; PERF.md).
+    const float* wt = w_s;
+    const T *rt = r_s, *kt = k_s, *vt = v_s;
     int t = 0;
+#pragma unroll 2
     for (; t + STEPS <= n; t += STEPS) {
       float acc[STEPS];
 #pragma unroll
       for (int q = 0; q < STEPS; ++q)
-        acc[q] = step<T, K>(w_s, r_s, k_s, v_s, t + q, VB, col, lane, u, s);
+        acc[q] = step<T, K>(wt, rt, kt, vt, q, VB, col, lane, u, s);
 #pragma unroll
       for (int q = 0; q < STEPS; ++q) acc[q] = lane_sum<G>(acc[q]);
       if (stores) {
 #pragma unroll
-        for (int q = 0; q < STEPS; ++q) store(ot + (t + q) * o_ss, acc[q]);
+        for (int q = 0; q < STEPS; ++q) store(ot + q * o_ss, acc[q]);
       }
+      wt += STEPS * K;
+      rt += STEPS * K;
+      kt += STEPS * K;
+      vt += STEPS * VB;
+      ot += STEPS * o_ss;
     }
     for (; t < n; ++t) {
       const float acc = lane_sum<G>(
-          step<T, K>(w_s, r_s, k_s, v_s, t, VB, col, lane, u, s));
-      if (stores) store(ot + t * o_ss, acc);
+          step<T, K>(wt, rt, kt, vt, 0, VB, col, lane, u, s));
+      if (stores) store(ot, acc);
+      wt += K;
+      rt += K;
+      kt += K;
+      vt += VB;
+      ot += o_ss;
     }
-    __syncthreads();  // buffer buf is free again
-    if (p.stages == 1 && st + 1 < stages) issue(st + 1, 0);
+    __syncthreads();  // the stage is free again
+    if (st + 1 < stages) issue(st + 1);
   }
 
   if (col < ncols) {
@@ -355,7 +366,7 @@ cudaError_t launch(const Params& p, int B, int device, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     if (device < MAX_DEVICES) most_set[device].store(most);
   }
-  const size_t need = p.stages * stage_bytes<T>(p.chunk, K, p.VB);
+  const size_t need = stage_bytes<T>(p.chunk, K, p.VB);
   if (need > size_t(most)) return cudaErrorInvalidValue;
   const dim3 grid(p.H, B, (p.V + p.VB - 1) / p.VB);
   wkv_kernel<T, K><<<grid, K / ROWS * p.VB, need, stream>>>(p);
@@ -392,14 +403,13 @@ int granule(const void* ptr, long long item, long long sb, long long ss,
   return 0;
 }
 
-// The launch as kernels/rwkv_wkv.py packs it (struct.Struct "=8Q22q").
+// The launch as kernels/rwkv_wkv.py packs it (struct.Struct "=8Q21q").
 // dtype (of r, k, v, u and o): 0 = float32, 1 = bfloat16; lw and the state
 // are float32.  Strides (batch, seq, head) are in elements; the last
 // dimension of r, k, v and lw must be contiguous, u is [H, K] contiguous,
 // o [B, S, H, V] and the state [B, H, K, V] are written contiguous.  VB is
 // the column slice (a multiple of 32 / G columns, so every warp is whole,
-// with G * VB <= MAX_THREADS, and of 16 bytes of v, so every stage of the
-// ring starts 16-byte aligned) and stages the ring's depth (1 or 2).
+// with G * VB <= MAX_THREADS).
 struct Args {
   const void* r;
   const void* k;
@@ -409,11 +419,11 @@ struct Args {
   void* o;
   void* state;
   void* stream;
-  long long dtype, device, B, S, H, K, V, chunk, VB, stages;
+  long long dtype, device, B, S, H, K, V, chunk, VB;
   long long r_sb, r_ss, r_sh, k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh, w_sb, w_ss, w_sh;
 };
-static_assert(sizeof(Args) == 30 * 8, "Args is thirty 8-byte fields");
+static_assert(sizeof(Args) == 29 * 8, "Args is 29 8-byte fields");
 
 }  // namespace
 
@@ -428,13 +438,12 @@ extern "C" int wkv_launch(const void* packed) {
   if (!k_ok || a.B <= 0 || a.B > 65535 || a.S <= 0 || a.S > 0x7fffffffLL ||
       a.H <= 0 || a.H > 0x7fffffffLL || a.V <= 0 || a.V > 1024 ||
       a.chunk <= 0 || a.chunk > a.S || a.VB <= 0 || (G * a.VB) % 32 ||
-      (a.VB * item) % 16 || G * a.VB > MAX_THREADS ||
-      (a.V + a.VB - 1) / a.VB > 65535 || (a.stages != 1 && a.stages != 2) ||
+      G * a.VB > MAX_THREADS || (a.V + a.VB - 1) / a.VB > 65535 ||
       a.dtype < 0 || a.dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{a.r, a.k, a.v, static_cast<const float*>(a.lw), a.u, a.o,
                  static_cast<float*>(a.state), int(a.S), int(a.H), int(a.V),
-                 int(a.chunk), int(a.VB), int(a.stages),
+                 int(a.chunk), int(a.VB),
                  granule(a.r, item, a.r_sb, a.r_ss, a.r_sh, a.K * item, 0),
                  granule(a.k, item, a.k_sb, a.k_ss, a.k_sh, a.K * item, 0),
                  granule(a.v, item, a.v_sb, a.v_ss, a.v_sh, a.V * item,

@@ -22,9 +22,7 @@ Where the two differ on purpose:
 
 The kernel's grid is (head, batch, column slice): a block takes VB value
 columns of one (batch, head), G = K / 8 lanes a column (``geometry``), and
-walks the sequence one stage of ``chunk`` steps at a time (``run_body``
-also runs a ring of two stages, the next in flight while the block walks
-the current one).  On a CPU tensor the wrapper computes the plain version;
+walks the sequence one stage of ``chunk`` steps at a time.  On a CPU tensor the wrapper computes the plain version;
 on a CUDA tensor it launches the kernel through the thin launch path
 (``kernels/launch.py``) or raises.  A ``chunk`` whose stage exceeds the
 shared memory of a block raises before launch on either device, naming the
@@ -42,7 +40,7 @@ from repro_torch.kernels.launch import Entry, names_cuda, raw_stream
 from repro_torch.kernels.ref import wkv_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ENTRY = Entry("rwkv_wkv", "wkv_launch", "wkv_error_string", "=8Q22q")
+_ENTRY = Entry("rwkv_wkv", "wkv_launch", "wkv_error_string", "=8Q21q")
 HEAD_SIZES = (16, 32, 64, 128)      # K
 ROWS = 8                            # state rows a lane keeps
 MAX_THREADS = 256                   # a block's lanes, G * VB (csrc)
@@ -66,12 +64,11 @@ def geometry(BH: int, K: int, V: int):
     return G, VB, -(-V // VB)
 
 
-def smem_bytes(chunk: int, K: int, VB: int, itemsize: int,
-               stages: int) -> int:
-    """Shared memory one block allocates: ``stages`` stages of exp(lw)
-    [chunk, K] in f32, r and k [chunk, K] and v [chunk, VB] in the input
-    type (``stage_bytes`` in ``csrc/rwkv_wkv.cu``)."""
-    return stages * chunk * (K * (4 + 2 * itemsize) + VB * itemsize)
+def smem_bytes(chunk: int, K: int, VB: int, itemsize: int) -> int:
+    """Shared memory one block allocates, one stage: exp(lw) [chunk, K] in
+    f32, r and k [chunk, K] and v [chunk, VB] in the input type
+    (``stage_bytes`` in ``csrc/rwkv_wkv.cu``)."""
+    return chunk * (K * (4 + 2 * itemsize) + VB * itemsize)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -107,7 +104,7 @@ def _launch_shape(r_shape, k_shape, v_shape, lw_shape, u_shape, dtype,
     c = min(chunk, S)
     _, VB, _ = geometry(B * H, K, V)
     item = dtype.itemsize
-    need = smem_bytes(c, K, VB, item, 1)
+    need = smem_bytes(c, K, VB, item)
     if need > hw.SMEM_PER_BLOCK:
         raise RuntimeError(
             f"wkv chunk {c} (K {K}, V {V}, {dtype}) needs {need} bytes of "
@@ -130,17 +127,7 @@ def wkv_plain(r, k, v, lw, u, *, chunk: int = 64):
     return o.to(r.dtype), state
 
 
-def run_body(r, k, v, lw, u, *, chunk: int, stages: int):
-    """Launches the kernel with a ring of ``stages`` (1 or 2) on CUDA
-    tensors that ``wkv`` has checked, and counts nothing.  ``wkv`` takes
-    one stage: on the H100 the two rings were within 2.3% of each other
-    at chunks 16 to 64, and at the served chunk 128 two stages hold one block
-    an SM and were 1.65x slower (PERF.md).  ``chip_smoke.py`` calls this
-    to time the two rings against each other."""
-    return _launch(r, k, v, lw, u, _check(r, k, v, lw, u, chunk), stages)
-
-
-def _launch(r, k, v, lw, u, shape, stages: int):
+def _launch(r, k, v, lw, u, shape):
     B, S, H, K, V, c, VB = shape
     index = r.get_device()
     u = u.contiguous()
@@ -149,13 +136,13 @@ def _launch(r, k, v, lw, u, shape, stages: int):
     err = _ENTRY(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
                  u.data_ptr(), o.data_ptr(), state.data_ptr(),
                  raw_stream(index), _DTYPE_CODE[r.dtype], index, B, S, H, K,
-                 V, c, VB, stages, *r.stride()[:3], *k.stride()[:3],
+                 V, c, VB, *r.stride()[:3], *k.stride()[:3],
                  *v.stride()[:3], *lw.stride()[:3])
     if err:
         raise RuntimeError(
-            f"wkv kernel launch failed (chunk {c}, {stages} stages, "
-            f"{smem_bytes(c, K, VB, r.element_size(), stages)} bytes of "
-            f"shared memory): {_ENTRY.error_string(err)}")
+            f"wkv kernel launch failed (chunk {c}, "
+            f"{smem_bytes(c, K, VB, r.element_size())} bytes of shared "
+            f"memory): {_ENTRY.error_string(err)}")
     return o, state
 
 
@@ -181,7 +168,7 @@ def wkv(r, k, v, lw, u, *, chunk: int = 64, device="cuda"):
                          + ", ".join(str(t.device) for t in tensors))
     if any(t.stride(-1) != 1 for t in tensors[:4]):
         raise ValueError("the last (head) dimension must be contiguous")
-    out = _launch(r, k, v, lw, u, _check(r, k, v, lw, u, chunk), 1)
+    out = _launch(r, k, v, lw, u, _check(r, k, v, lw, u, chunk))
     wkv.launches += 1
     return out
 

@@ -21,6 +21,7 @@ from repro_torch.kernels.reduce_sum import reduce_sum, reduce_sum_plain
 from repro_torch.kernels.ref import grouped_matmul_ref
 from repro_torch.kernels import rwkv_wkv as k6_mod
 from repro_torch.kernels.rwkv_wkv import wkv, wkv_plain
+from repro_torch.kernels import ssd_scan as k7_mod
 from repro_torch.kernels.ssd_scan import ssd, ssd_plain
 from repro_torch.core import get_case
 from repro_torch.core.fe import outputs_match
@@ -253,7 +254,7 @@ def recurrence_tolerance(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,K,chunk", [
     (1, 8, 64, 64, 128),          # rwkv6-7b decode-sized prefill
-    (4, 256, 64, 64, 128),        # rwkv6-7b, two stages
+    (4, 256, 64, 64, 128),        # rwkv6-7b, two stages of 128 steps
     (2, 96, 8, 64, 64),           # ragged last stage
     (2, 33, 4, 16, 16),           # the reduced config's head size
     (1, 40, 2, 128, 32),          # the widest head
@@ -330,39 +331,23 @@ def test_wkv_kernel_takes_strided_views_of_one_projection(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wkv_rings_of_one_and_two_stages_agree_bitwise(cuda, dtype):
-    """The ring changes when rows land, not the arithmetic."""
-    g = torch.Generator(device=cuda).manual_seed(12)
-    r, k, v = (0.5 * torch.randn(1, 200, 64, 64, device=cuda, generator=g)
-               for _ in range(3))
-    lw = -torch.rand(1, 200, 64, 64, device=cuda, generator=g) * 3 - 0.01
-    u = 0.5 * torch.randn(64, 64, device=cuda, generator=g)
-    args = tuple(t.to(dtype) for t in (r, k, v)) + (lw, u.to(dtype))
-    for chunk in (16, 64, 128):
-        one = k6_mod.run_body(*args, chunk=chunk, stages=1)
-        two = k6_mod.run_body(*args, chunk=chunk, stages=2)
-        torch.cuda.synchronize()
-        assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wkv_entry_refuses_a_slice_off_16_bytes(cuda, dtype):
-    """The C entry refuses a column slice whose v rows are not a multiple
-    of 16 bytes (the second stage of a ring would start off 16 bytes) and
-    runs the narrowest slice that is one: K 128 (16 lanes a column), VB 2
-    in either type is refused, VB 4 (f32) or 8 (bf16) runs."""
+def test_wkv_entry_runs_a_slice_off_16_bytes(cuda, dtype):
+    """One stage starts at the base of shared memory, so a column slice
+    whose v rows are not a multiple of 16 bytes runs (its copies take the
+    widest width the row allows): K 128 (16 lanes a column), VB 2 (8 bytes
+    in f32, 4 in bf16) and the 16-byte slice agree with the plain
+    version."""
     g = torch.Generator(device=cuda).manual_seed(3)
     B, S, H, K, V, chunk = 1, 3, 2, 128, 16, 3
     r, k, v = (0.5 * torch.randn(B, S, H, n, device=cuda, generator=g)
                .to(dtype) for n in (K, K, V))
     lw = -torch.rand(B, S, H, K, device=cuda, generator=g) * 3 - 0.01
     u = (0.5 * torch.randn(H, K, device=cuda, generator=g)).to(dtype)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        k6_mod._launch(r, k, v, lw, u, (B, S, H, K, V, chunk, 2), 2)
-    VB = 16 // r.element_size()
-    o, st = k6_mod._launch(r, k, v, lw, u, (B, S, H, K, V, chunk, VB), 2)
-    torch.cuda.synchronize()
-    wkv_check(o, st, *wkv_plain(r, k, v, lw, u, chunk=chunk), dtype)
+    want = wkv_plain(r, k, v, lw, u, chunk=chunk)
+    for VB in (2, 16 // r.element_size()):
+        o, st = k6_mod._launch(r, k, v, lw, u, (B, S, H, K, V, chunk, VB))
+        torch.cuda.synchronize()
+        wkv_check(o, st, *want, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -375,23 +360,79 @@ def test_wkv_entry_refuses_a_slice_off_16_bytes(cuda, dtype):
 ])
 def test_ssd_kernel_matches_plain_version(cuda, dtype, B, S, H, P, N,
                                           chunk):
+    """Every row takes the tensor cores (``mma``): xh is contiguous, and
+    B_t and C_t are two halves of one projection, as the model passes
+    them."""
+    xh, dt, a_log, B_t, C_t = ssd_inputs(cuda, dtype, B, S, H, P, N)
+    before = ssd.launches
+    mma = ssd.launches_by_path["mma"]
+    y, st = ssd(xh, dt, a_log, B_t, C_t, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    assert ssd.launches_by_path["mma"] == mma + 1
+    assert y.dtype == dtype and st.dtype == torch.float32
+    ssd_check(y, st, *ssd_plain(xh, dt, a_log, B_t, C_t, chunk=chunk), dtype)
+
+
+def ssd_inputs(cuda, dtype, B, S, H, P, N):
     g = torch.Generator(device=cuda).manual_seed(S + P)
     xh = torch.randn(B, S, H, P, device=cuda, generator=g)
     dt = torch.rand(B, S, H, device=cuda, generator=g) * 0.1 + 0.001
     a_log = torch.rand(H, device=cuda, generator=g) * 2 - 1
     bc = torch.randn(B, S, 2 * N, device=cuda, generator=g)
     B_t, C_t = (t.to(dtype) for t in torch.chunk(bc, 2, dim=-1))
-    xh = xh.to(dtype)
-    before = ssd.launches
-    y, st = ssd(xh, dt, a_log, B_t, C_t, chunk=chunk)
-    torch.cuda.synchronize()
-    assert ssd.launches == before + 1
-    assert y.dtype == dtype and st.dtype == torch.float32
-    want_y, want_st = ssd_plain(xh, dt, a_log, B_t, C_t, chunk=chunk)
+    return xh.to(dtype), dt, a_log, B_t, C_t
+
+
+def ssd_check(y, st, want_y, want_st, dtype):
     rtol, atol = recurrence_tolerance(dtype)
     torch.testing.assert_close(y.float(), want_y.float(), rtol=rtol,
                                atol=atol)
     torch.testing.assert_close(st, want_st, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 256, 50, 64, 16, 128),    # hymba at its served B = 1
+    (2, 200, 8, 64, 16, 256),     # the case's largest chunk, ragged
+    (2, 70, 8, 16, 4, 32),        # the reduced config's P and N
+])
+def test_ssd_bodies_and_slices_agree(cuda, dtype, B, S, H, P, N, chunk):
+    """The ``mma`` body at each column slice that divides P against the
+    ``simt`` body on the same inputs, each within the gate of the plain
+    version, with nothing counted."""
+    args = ssd_inputs(cuda, dtype, B, S, H, P, N)
+    want = ssd_plain(*args, chunk=chunk)
+    before = (ssd.launches, dict(ssd.launches_by_path))
+    simt = k7_mod.run_body(*args, chunk=chunk, path="simt")
+    torch.cuda.synchronize()
+    ssd_check(*simt, *want, dtype)
+    for width in [w for w in (16, 32) if P % w == 0]:
+        y, st = k7_mod.run_body(*args, chunk=chunk, path="mma", width=width)
+        torch.cuda.synchronize()
+        ssd_check(y, st, *want, dtype)
+        ssd_check(y, st, *simt, dtype)
+    assert (ssd.launches, ssd.launches_by_path) == before
+
+
+def test_ssd_view_off_16_bytes_takes_the_cuda_cores(cuda):
+    """xh one element past a 16-byte boundary: the wrapper takes ``simt``
+    and agrees with the plain version; the kernel's entry refuses an
+    ``mma`` launch there."""
+    xh, dt, a_log, B_t, C_t = ssd_inputs(cuda, torch.bfloat16, 1, 96, 4, 64,
+                                         16)
+    buf = torch.empty(xh.numel() + 1, dtype=xh.dtype, device=cuda)
+    off = buf[1:].view(xh.shape)
+    off.copy_(xh)
+    assert off.data_ptr() % 16
+    simt = ssd.launches_by_path["simt"]
+    y, st = ssd(off, dt, a_log, B_t, C_t, chunk=64)
+    torch.cuda.synchronize()
+    assert ssd.launches_by_path["simt"] == simt + 1
+    ssd_check(y, st, *ssd_plain(xh, dt, a_log, B_t, C_t, chunk=64),
+              torch.bfloat16)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        k7_mod.run_body(off, dt, a_log, B_t, C_t, chunk=64, path="mma")
 
 
 def test_recurrent_kernels_refuse_an_oversized_stage(cuda):

@@ -100,8 +100,8 @@ def test_wkv_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match=r"u \(2, 8\)"):
         wkv(r, k, v, lw, u[:, :8], device="cpu")
     big = torch_of(wkv_inputs(1, 300, 1, 128, seed=0))
-    # one stage of the smallest ring, at the column slice B·H = 1 takes
-    need = wkv_smem(300, 128, geometry(1, 128, 128)[1], 4, 1)
+    # the one stage the kernel stages, at the column slice B·H = 1 takes
+    need = wkv_smem(300, 128, geometry(1, 128, 128)[1], 4)
     with pytest.raises(RuntimeError, match=f"{need} bytes of shared memory"):
         wkv(*big, chunk=300, device="cpu")
     before = wkv.launches

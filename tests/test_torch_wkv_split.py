@@ -71,35 +71,37 @@ def test_the_grid_reaches_the_target_blocks_where_v_allows(BH, blocks):
 @pytest.mark.parametrize("B", [1, 4])
 def test_the_stage_fits_a_block_wherever_the_wrapper_accepts(B, K, chunk,
                                                              dtype):
-    """The wrapper launches one stage; the refusal is by its bytes."""
+    """The kernel stages one chunk at a time; the refusal is by its
+    bytes."""
     r = torch.zeros(B, 256, 64, K, dtype=dtype)
     v = torch.zeros(B, 256, 64, 64, dtype=dtype)
     lw = torch.zeros(B, 256, 64, K)
     u = torch.zeros(64, K, dtype=dtype)
     _, S, H, K_, V, c, VB = k6._check(r, r, v, lw, u, chunk)
     assert (S, H, K_, V, c) == (256, 64, K, 64, chunk)
-    assert smem_bytes(c, K, VB, dtype.itemsize, 1) <= hw.SMEM_PER_BLOCK \
+    assert smem_bytes(c, K, VB, dtype.itemsize) <= hw.SMEM_PER_BLOCK \
         == 232_448
 
 
 def test_the_served_chunks_stage_sizes():
-    """rwkv6-7b's chunk 128 at K = V = 64, bf16, VB 16: one stage takes
-    69,632 bytes, three blocks an SM; two stages take 139,264, one block
-    an SM, which is why the wrapper takes one."""
+    """rwkv6-7b's chunk 128 at K = V = 64, bf16, VB 16: the stage takes
+    69,632 bytes, so three blocks share an SM's 228 KB; the stage grows
+    linearly in the chunk (half at chunk 64)."""
     _, VB, _ = geometry(64, 64, 64)
     assert VB == 16
-    assert smem_bytes(128, 64, VB, 2, 1) == 69_632
-    assert smem_bytes(128, 64, VB, 2, 2) == 139_264
+    assert smem_bytes(128, 64, VB, 2) == 69_632
+    assert 3 * smem_bytes(128, 64, VB, 2) <= 228 * 1024
+    assert 2 * smem_bytes(64, 64, VB, 2) == smem_bytes(128, 64, VB, 2)
 
 
 def test_the_refusal_names_the_bytes():
     """A stage past a block's shared memory raises before launch, on the
-    CPU too, naming the bytes of the smallest ring (one stage)."""
+    CPU too, naming its bytes."""
     r = torch.zeros(1, 300, 1, 128)
     v = torch.zeros(1, 300, 1, 128)
     u = torch.zeros(1, 128)
     _, VB, _ = geometry(1, 128, 128)
-    need = smem_bytes(300, 128, VB, 4, 1)
+    need = smem_bytes(300, 128, VB, 4)
     assert need > hw.SMEM_PER_BLOCK
     with pytest.raises(RuntimeError, match=f"{need} bytes of shared memory"):
         wkv(r, r, v, r, u, chunk=300, device="cpu")
@@ -107,12 +109,15 @@ def test_the_refusal_names_the_bytes():
 
 
 def test_the_packed_arguments_match_the_c_struct():
-    """``static_assert(sizeof(Args) == 30 * 8)`` in csrc/rwkv_wkv.cu:
-    eight pointers (the stream last) and 22 signed fields."""
-    assert len(k6._ENTRY.pack(*[0] * 30)) == 30 * 8
-    k6._ENTRY.pack(*[2 ** 64 - 1] * 8, *[-1] * 22)
+    """``static_assert(sizeof(Args) == 29 * 8)`` in csrc/rwkv_wkv.cu:
+    eight pointers (the stream last) and 21 signed fields, no ring depth
+    among them."""
+    assert len(k6._ENTRY.pack(*[0] * 29)) == 29 * 8
+    k6._ENTRY.pack(*[2 ** 64 - 1] * 8, *[-1] * 21)
     with pytest.raises(Exception):
-        k6._ENTRY.pack(-1, *[0] * 29)
+        k6._ENTRY.pack(-1, *[0] * 28)
+    with pytest.raises(Exception):
+        k6._ENTRY.pack(*[0] * 30)
 
 
 def test_cpu_calls_launch_nothing():

@@ -128,13 +128,37 @@ Phases, each fatal on failure (exit 1, no result line):
    whose build is the baseline's is marked: it can win only timing
    spread); each case's speedup and the suites' means, campaign and
    re-timed, beside the paper's (labelled as the paper's).
+15. The paper's search engine on ``h100``: (a) a ``Campaign`` with
+   population search (the reference's default ``PopulationConfig``: size 4,
+   6 generations, 2 candidates a persona, four expert personae, migration
+   on; heuristic proposer, one shared pattern store) over gemm and 2mm
+   (K1), rwkv_wkv (K6) and mamba_ssd (K7), at the JAX package's scales:
+   each case's generations, evaluations, timing reps paid against fixed R,
+   raced kills, migrations, persona stats, seconds and best, beside the
+   greedy loop's figures for the case from phases 5 and 11; each case must
+   launch its kernel and reach an ``ok`` winner; (b) mamba_ssd's population
+   winner reintegrated into hymba-1.5b at full width in f32 over 2 x 256
+   tokens (phase 11's inputs, the naive leg re-measured), ``fe_ok`` and
+   every K7 launch on ``mma`` required; (c) a ``Campaign`` over gemm with
+   ``LLMProposer`` personae (2 generations) behind a scripted transport
+   defined here (no model): one endpoint call a wave carrying four
+   sections, every parsed candidate FE-checked and timed through K1, and
+   one garbage persona reply isolated as a ``ProposalError``.  Every
+   kernel launch of the phase must come from the main thread (LLM persona
+   threads only wait on the batcher).  Then the greedy and the population
+   winner of each case are re-timed in 5 alternated rounds of 30 calls;
+   K1, K6 and K7 are held against their plain versions at every shape the
+   phase gave them, every K1 call on a tile in multiples of 16 and every
+   K7 call on ``mma``.  The phase's wall time is printed on its own line.
 Then the device times at the main shapes (K2, K1 as above; K6, K7 at their
 serving runs' heaviest prefill; K3, K4, K5 as in phase 13) in a fresh
 process (with the wrapper's host µs per call where K2's CUDA-event time
 exceeds 1.5x its device time), K7's ``simt`` body, host µs a call and
-one-pass control at its main shape, the ``kernels`` JSON line (K1-K7; K1,
+one-pass controls at its main shape (bf16; and f32: K7 on xh, B and C
+rounded to TF32, which must read above the gate), the ``kernels`` JSON
+line (K1-K7; K1, K6 and K7's launches include phase 15's; K1,
 K2, K5 and K7 with their launches by body, the main shape's body, the
-device time and the TF32, P-in-bf16 or one-pass control; K2, K3, K4, K5,
+device time and the TF32, P-in-bf16 or one-pass controls; K2, K3, K4, K5,
 K6 and K7 with the host µs a call; K4 with phase 12's compiles and cache hits and its vector loads; K5
 at its fixed main shape, its bf16 and winner figures beside) and the
 result line.  An f32 GEMM's
@@ -664,13 +688,14 @@ def mep_scale(log):
     fail(f"no MEP scale in {log}")
 
 
-def run_case(camp, store, platform, name):
-    """One case through ``camp`` with the heuristic proposer: the result
-    and its row (MEP scale, baseline -> best, candidates by status, AER
-    repairs, seconds)."""
+def run_case(camp, store, platform, name, proposer=None):
+    """One case through ``camp`` with ``proposer`` (the heuristic one by
+    default): the result and its row (MEP scale, baseline -> best,
+    candidates by status, AER repairs, rounds, timing reps paid and what
+    fixed R would have paid, seconds)."""
     from repro_torch.core import CaseJob, HeuristicProposer, get_case
     t = time.perf_counter()
-    res = camp.run([CaseJob(get_case(name), HeuristicProposer(
+    res = camp.run([CaseJob(get_case(name), proposer or HeuristicProposer(
         0, store, platform.name))])[0]
     cands = [c for rl in res.rounds for c in rl.candidates]
     status = {st: sum(c.status == st for c in cands)
@@ -682,6 +707,10 @@ def run_case(camp, store, platform, name):
                  "best_variant": res.best_variant,
                  "candidates": len(cands), "status": status,
                  "aer_repairs": res.aer_records,
+                 "rounds": len(res.rounds),
+                 "timing_reps": res.timing_reps,
+                 "timing_reps_fixed": res.timing_reps_fixed,
+                 "raced_out": res.raced_out,
                  "seconds": time.perf_counter() - t}
 
 
@@ -713,7 +742,7 @@ def phase_campaign(report):
             before = matmul.launches
             res, row = run_case(camp, store, platform, name)
             row.update(launches=matmul.launches - before,
-                       rounds=len(res.rounds), stop_reason=res.stop_reason)
+                       stop_reason=res.stop_reason)
             rows.append(row)
             results[name] = res
             print(f"  {name:5s} MEP scale {row['scale']}: baseline "
@@ -1618,31 +1647,73 @@ def ssd_one_pass(xh, dt, a_log, B_t, C_t, chunk):
     return y.permute(0, 2, 1, 3).to(xh.dtype), state
 
 
+def ssd_gate_ratio(got, want, dtype):
+    """The larger of the output's and the final state's ratio to the gate
+    (RECURRENT_TOL; the state always f32)."""
+    (y, s), (want_y, want_s) = got, want
+    return max(recurrent_gate(y, want_y, dtype)[1],
+               recurrent_gate(s, want_s, "float32")[1])
+
+
+def ssd_f32_one_pass_control(args, chunk):
+    """The control of K7's f32 gate, as K5's: K7 on f32 xh, B and C
+    rounded to TF32 (the error of one TF32 pass on its operands) against
+    the plain version on the exact operands, as a ratio to the gate.  It
+    must read above 1, or the gate could not tell one TF32 pass from K7's
+    three.  The inputs must carry f32 mantissas: bf16 values are exact in
+    TF32, so rounding them changes nothing.  Returns (the control's ratio,
+    the exact operands' ratio, both calls' body)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd, ssd_plain
+    xh, dt, a_log, B_t, C_t = (t.contiguous() for t in args)
+    exact = (xh, dt, a_log, B_t, C_t)
+    rounded = (tf32(xh), dt, a_log, tf32(B_t), tf32(C_t))
+    want = ssd_plain(*exact, chunk=chunk)
+    control = ssd_gate_ratio(ssd(*rounded, chunk=chunk), want, "float32")
+    three = ssd_gate_ratio(ssd(*exact, chunk=chunk), want, "float32")
+    torch.cuda.synchronize()
+    return control, three, {k7_path(rounded, chunk), k7_path(exact, chunk)}
+
+
 def ssd_main_shape_extras(args, kw):
     """At K7's main shape: the body it takes, the ``simt`` body's CUDA-event
     ms on the same inputs, the wrapper's host µs a call, and the one-pass
     control's largest error against the plain version as a ratio to the
     gate (RECURRENT_TOL; output or state, whichever reads higher), beside
-    the kernel's."""
+    the kernel's; then the f32 control (``ssd_f32_one_pass_control``) at
+    the same shape on f32 inputs of phase 8's distributions, which must
+    read above 1."""
     import torch
     from repro_torch.kernels import ssd_scan as k7
     chunk = kw["chunk"]
-    want_y, want_s = k7.ssd_plain(*args, chunk=chunk)
-    y1, s1 = ssd_one_pass(*args, chunk)
+    want = k7.ssd_plain(*args, chunk=chunk)
     dtype = str(args[0].dtype).replace("torch.", "")
-    control = max(recurrent_gate(y1, want_y, dtype)[1],
-                  recurrent_gate(s1, want_s, "float32")[1])
+    control = ssd_gate_ratio(ssd_one_pass(*args, chunk), want, dtype)
+    f32_args = recurrent_inputs("ssd", *args[0].shape[:2], torch.float32,
+                                torch.Generator(device="cuda").manual_seed(21))
+    f32_control, f32_exact, f32_paths = ssd_f32_one_pass_control(f32_args,
+                                                                 chunk)
     out = {"path": k7_path(args, chunk),
            "simt_ms": cuda_ms(lambda: k7.run_body(*args, chunk=chunk,
                                                   path="simt")),
            "host_us_per_call": host_us_per_call(
                lambda: k7.ssd(*args, chunk=chunk)),
-           "one_pass_control_tol_ratio": control}
+           "one_pass_control_tol_ratio": control,
+           "f32_one_pass_control_tol_ratio": f32_control,
+           "f32_tol_ratio": f32_exact}
     torch.cuda.synchronize()
     print(f"K7 at the main shape ({list(args[0].shape)}, {dtype}, chunk "
           f"{chunk}, {out['path']}): simt body {out['simt_ms']:.4f} ms, "
           f"wrapper host {out['host_us_per_call']:.1f} us a call; one-pass "
-          f"control {control:.3g} of the gate", flush=True)
+          f"control {control:.3g} of the gate; f32 one-pass control (K7 on "
+          f"xh, B, C rounded to TF32, {'/'.join(sorted(f32_paths))}) "
+          f"{f32_control:.3g} of the gate, the exact f32 operands "
+          f"{f32_exact:.3g} (the control must read above 1)", flush=True)
+    if f32_paths != {"mma"}:
+        fail(f"K7's f32 control ran the {f32_paths} body")
+    if f32_exact > 1.0 or f32_control <= 1.0:
+        fail(f"K7's f32 gate does not separate one TF32 pass ("
+             f"{f32_control:.3g}) from three ({f32_exact:.3g})")
     return out
 
 
@@ -2268,33 +2339,41 @@ def call_times_ms(fn, inputs, reps):
     return out
 
 
-def retime(case, row):
-    """The case's winner against its baseline in one process, alternating
-    RETIME_ROUNDS rounds of each on the MEP's scale and seed-0 inputs:
-    the median of each side's round medians and their ratio.  Host-clock
-    rates move up to 5x between calls, so a speedup read across calls
-    needs this."""
+def alternate_builds(case, scale, builds):
+    """``builds`` (side -> built function) on the case's seed-0 inputs at
+    ``scale``, alternating RETIME_ROUNDS rounds of RETIME_REPS calls (5 a
+    round when a call exceeds 10 ms): (calls a round, side -> the round
+    medians in ms).  Host-clock rates move up to 5x between calls, so a
+    speedup read across calls needs this."""
     import torch
     from repro_torch.core import datagen
     from repro_torch.core.fe import as_tensors
+    inputs = as_tensors(datagen.generate(case.input_specs(scale), 0), "cuda")
+    with torch.no_grad():
+        for f in builds.values():       # warm-up, graph captures included
+            f(*inputs)
+        reps = RETIME_REPS if max(call_times_ms(f, inputs, 1)[0]
+                                  for f in builds.values()) <= 10 else 5
+        rounds = {side: [] for side in builds}
+        for _ in range(RETIME_ROUNDS):
+            for side, f in builds.items():
+                rounds[side].append(float(np.median(call_times_ms(
+                    f, inputs, reps))))
+    return reps, rounds
+
+
+def retime(case, row):
+    """The case's winner against its baseline in one process, alternating
+    RETIME_ROUNDS rounds of each on the MEP's scale and seed-0 inputs:
+    the median of each side's round medians and their ratio."""
     base_v, win_v = dict(case.baseline_variant), row["best_variant"]
     out = {"winner_is_baseline": win_v == base_v}
     if out["winner_is_baseline"]:
         return out
     fb, fw = (case.build(v, impl="torch") for v in (base_v, win_v))
     out["same_build"] = same_build(fb, fw)
-    inputs = as_tensors(datagen.generate(case.input_specs(row["scale"]), 0),
-                        "cuda")
-    with torch.no_grad():
-        for f in (fb, fw):              # warm-up, graph captures included
-            f(*inputs)
-        reps = RETIME_REPS if max(call_times_ms(f, inputs, 1)[0]
-                                  for f in (fb, fw)) <= 10 else 5
-        rounds = {"baseline": [], "winner": []}
-        for _ in range(RETIME_ROUNDS):
-            for side, f in (("baseline", fb), ("winner", fw)):
-                rounds[side].append(float(np.median(call_times_ms(
-                    f, inputs, reps))))
+    reps, rounds = alternate_builds(case, row["scale"],
+                                    {"baseline": fb, "winner": fw})
     out.update(reps=reps, rounds=rounds,
                baseline_ms=float(np.median(rounds["baseline"])),
                winner_ms=float(np.median(rounds["winner"])))
@@ -2373,6 +2452,391 @@ def phase_tables(report):
     report["tables"] = {"platform": platform.name, "cases": rows,
                         "means": means,
                         "journal": str(db_path.relative_to(ROOT))}
+
+
+# --------------------------------------------------------------------------
+# the paper's search engine on the card (phase 15): population search with
+# expert personae, and the LLM proposer behind a scripted transport
+# --------------------------------------------------------------------------
+# case → (its kernel, the phase whose greedy run gives its figures): two
+# cases of one family each, so island migration has a partner
+POPULATION_CASES = {"gemm": ("matmul", 5), "2mm": ("matmul", 5),
+                    "rwkv_wkv": ("wkv", 11), "mamba_ssd": ("ssd", 11)}
+# the persona preambles' markers (the reference's) in a wave's sections
+PERSONA_MARKERS = {"TILING": "tiling", "MEMORY-LAYOUT": "memory",
+                   "FUSION/RESTRUCTURE": "fusion",
+                   "SYNCHRONIZATION/LATENCY": "sync"}
+# (persona, wave, reply): the one reply of the scripted transport that
+# cannot become candidates
+GARBAGE_REPLY = ("fusion", 0, "I'd rather not answer in JSON today.")
+
+
+class ThreadedCalls(FirstCalls):
+    """``FirstCalls`` that also keeps the threads its calls came from."""
+
+    def __init__(self, fn, key):
+        super().__init__(fn, key)
+        self.threads = set()
+
+    def __call__(self, *args, **kw):
+        import threading
+        self.threads.add(threading.get_ident())
+        return super().__call__(*args, **kw)
+
+
+def search_kernel(kind):
+    """The wrapper of K1 (``matmul``), K6 (``wkv``) or K7 (``ssd``)."""
+    from repro_torch.kernels.matmul import matmul
+    return matmul if kind == "matmul" else kernel_pair(kind)[0]
+
+
+def zero_launches(kernel) -> None:
+    kernel.launches = 0
+    for body in getattr(kernel, "launches_by_path", {}):
+        kernel.launches_by_path[body] = 0
+
+
+def read_launches(kernel):
+    return {"total": kernel.launches,
+            **getattr(kernel, "launches_by_path", {})}
+
+
+def add_launches(total, kind, launches) -> None:
+    acc = total.setdefault(kind, dict.fromkeys(launches, 0))
+    for body, n in launches.items():
+        acc[body] += n
+
+
+def scripted_transport(case, prompts):
+    """The LLM personae's endpoint in phase 15: a scripted transport, no
+    model.  A wave's request (the batcher's tagged sections) gets one
+    answer a section: two variant dicts drawn from the case's variant
+    space by a seeded rule (``random.Random`` of case, persona and wave;
+    two knobs each), except GARBAGE_REPLY's section, which gets a refusal.
+    A repair prompt gets a refusal, so AER repairs the variant."""
+    import random
+    space = case.variant_space
+
+    def transport(prompt):
+        if prompt.startswith("Kernel "):            # LLMProposer.repair
+            return "No corrected variant."
+        wave = len(prompts)
+        prompts.append(prompt)
+        sections, cur = {}, None
+        for ln in prompt.splitlines():
+            if ln.startswith("### "):
+                cur = ln.split()[-1]
+                sections[cur] = []
+            elif cur is not None:
+                sections[cur].append(ln)
+        answers = {}
+        for sid, lines in sections.items():
+            text = "\n".join(lines)
+            persona = next((p for m, p in PERSONA_MARKERS.items()
+                            if m in text), "")
+            if (persona, wave) == GARBAGE_REPLY[:2]:
+                answers[sid] = GARBAGE_REPLY[2]
+                continue
+            rng = random.Random(f"{case.name}/{persona}/{wave}")
+            answers[sid] = [{k: rng.choice(space[k])
+                             for k in rng.sample(sorted(space), 2)}
+                            for _ in range(2)]
+        return json.dumps(answers)
+    return transport
+
+
+def scripted_llm_proposer(transport, log):
+    """An ``LLMProposer`` whose repairs also go to ``transport`` and whose
+    personae log what each parsed (a count) or raised (the error's type),
+    by (persona, generation)."""
+    from repro_torch.core import LLMBatcher, LLMProposer
+
+    class Scripted(LLMProposer):
+        def with_persona(self, persona, idx=0):
+            return Scripted(None, self.platform, batcher=self.batcher,
+                            persona=persona)
+
+        def _chat(self, prompt):
+            return transport(prompt)
+
+        def propose(self, case, state, n):
+            try:
+                out = super().propose(case, state, n)
+            except Exception as e:
+                log.append((self.persona, state.round, type(e).__name__))
+                raise
+            log.append((self.persona, state.round, len(out)))
+            return out
+    # four personae registered: the wave dispatches when all four wait
+    return Scripted(None, "h100", batcher=LLMBatcher(
+        transport, max_batch=4, linger_s=30.0))
+
+
+def population_row(res, row):
+    """The population search's figures of one case."""
+    cands = [c for rl in res.rounds for c in rl.candidates]
+    row.update(generations=len(res.rounds), evaluations=len(cands),
+               raced_kills=res.raced_kills,
+               migrations={"in": res.migrations_in,
+                           "joined": res.migrations_joined,
+                           "out": res.migrations_out},
+               persona_stats=res.persona_stats,
+               repaired=sum(c.repairs > 0 for c in cands),
+               stop_reason=res.stop_reason)
+    return row
+
+
+def retime_winners(case, scale, greedy_v, pop_v):
+    """The greedy and the population winner's ``cuda`` builds in
+    RETIME_ROUNDS alternated rounds (``alternate_builds``): medians, the
+    rounds' spread and which is faster."""
+    builds = {"greedy": case.build(greedy_v, impl="cuda"),
+              "population": case.build(pop_v, impl="cuda")}
+    reps, rounds = alternate_builds(case, scale, builds)
+    med = {side: float(np.median(ms)) for side, ms in rounds.items()}
+    spread = {side: [min(ms), max(ms)] for side, ms in rounds.items()}
+    return {"same_variant": greedy_v == pop_v,
+            "same_build": same_build(builds["greedy"], builds["population"]),
+            "reps": reps,
+            "rounds": rounds, "greedy_ms": med["greedy"],
+            "population_ms": med["population"], "spread": spread,
+            "population_over_greedy": med["greedy"] / med["population"],
+            "faster": min(med, key=med.get),
+            # within the greedy rounds' spread, or faster
+            "within_spread": med["population"] <= spread["greedy"][1]}
+
+
+def phase_population(report):
+    """Phase 15: the paper's search engine on the card.  (a) A Campaign on
+    h100 with population search (the reference's default PopulationConfig,
+    heuristic proposer, one shared PatternStore) over gemm and 2mm (K1),
+    rwkv_wkv (K6) and mamba_ssd (K7), each case's figures beside the
+    greedy loop's from phases 5 and 11, the two winners re-timed in
+    alternated rounds, and K1, K6 and K7 held against their plain versions
+    at every shape the phase gave them; (b) mamba_ssd's population winner
+    reintegrated into f32 hymba-1.5b; (c) a Campaign over gemm with
+    LLMProposer personae behind a scripted transport (no model)."""
+    import dataclasses
+    import gc
+    import threading
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import (Campaign, EvalCache, H100Platform,
+                                  PatternStore, PopulationConfig, ResultsDB,
+                                  get_case, integrate)
+    from repro_torch.core.proposer import PERSONAE
+    from repro_torch.kernels.suites import hpc, polybench
+    from repro_torch.models import get_model
+
+    t0 = time.perf_counter()
+    platform = H100Platform()
+    pcfg = PopulationConfig()
+    db_path = OUT.parent / "campaign_population.jsonl"
+    db_path.unlink(missing_ok=True)
+    store = PatternStore()
+    camp = Campaign(platform, patterns=store, cache=EvalCache(),
+                    db=ResultsDB(str(db_path)), population=pcfg)
+    print(f"population search on {platform.name}: {pcfg} (heuristic "
+          f"proposer, one shared pattern store, R=30 k=3); greedy figures "
+          f"from phases 5 and 11 of this run:", flush=True)
+    greedy = {r["case"]: r for r in report["campaign"]["cases"]
+              + report["table4"]["cases"]}
+    recs = {"matmul": ThreadedCalls.at(polybench, "matmul", k1_key),
+            **{kind: ThreadedCalls.at(hpc, kind, lambda *a, **kw: (
+                tuple(a[0].shape), str(a[0].dtype), kw.get("chunk")))
+               for kind in ("wkv", "ssd")}}
+    launches, rows, results = {}, [], {}
+    try:
+        for name, (kind, phase) in POPULATION_CASES.items():
+            kernel = search_kernel(kind)
+            zero_launches(kernel)                    # this path's run
+            res, row = run_case(camp, store, platform, name)
+            row = population_row(res, row)
+            row["launches"] = read_launches(kernel)
+            add_launches(launches, kind, row["launches"])
+            results[name] = res
+            rows.append(row)
+            g = greedy[name]
+            print(f"  {name:9s} MEP scale {row['scale']}: {row['generations']}"
+                  f" generations, {row['evaluations']} evaluations "
+                  f"({row['status']}, {row['repaired']} AER-repaired), "
+                  f"timing reps {row['timing_reps']} paid against fixed R "
+                  f"{row['timing_reps_fixed']}, raced kills "
+                  f"{row['raced_kills']}, migrations {row['migrations']}; "
+                  f"{row['seconds']:.1f} s; best {row['best_ms']:.4f} ms "
+                  f"({row['speedup']:.3f}x, {row['best_variant']}); "
+                  f"{kind} launches {row['launches']}", flush=True)
+            print(f"  {'':9s} personae {row['persona_stats']}", flush=True)
+            print(f"  {'':9s} greedy (phase {phase}): {g['rounds']} rounds, "
+                  f"{g['candidates']} evaluations, timing reps "
+                  f"{g['timing_reps']} of {g['timing_reps_fixed']}, raced out"
+                  f" {g['raced_out']}; {g['seconds']:.1f} s; best "
+                  f"{g['best_ms']:.4f} ms ({g['speedup']:.3f}x, "
+                  f"{g['best_variant']})", flush=True)
+            if row["launches"]["total"] == 0 or row["status"]["ok"] == 0:
+                fail(f"phase 15 {name}: {row['launches']} {kind} launches, "
+                     f"{row['status']['ok']} ok candidates")
+            if row["launches"].get("simt") and kind == "ssd":
+                fail(f"phase 15 {name}: K7 calls on the CUDA cores: "
+                     f"{row['launches']}")
+
+        # (b) the mamba_ssd population winner in f32 hymba-1.5b
+        gc.collect()
+        torch.cuda.empty_cache()
+        k7 = search_kernel("ssd")
+        cfg = dataclasses.replace(get_config("hymba-1.5b"),
+                                  param_dtype="float32")
+        model = get_model(cfg, device="cuda")
+        model.init_params(torch.Generator(device="cuda").manual_seed(0))
+        toks = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 256)), device="cuda")
+        zero_launches(k7)
+        t = time.perf_counter()
+        ir = integrate.integrated_speedup(
+            get_case("mamba_ssd"), results["mamba_ssd"].best_variant,
+            lambda: (lambda tokens: model.forward(tokens)[0]), (toks,),
+            platform=platform, r=5, k=1)
+        int_launches = read_launches(k7)
+        add_launches(launches, "ssd", int_launches)
+        need = cfg.n_layers * (1 + 5 + 1)       # warmup, 5 reps, the output
+        print(f"  integrated speedup of mamba_ssd's population winner "
+              f"{results['mamba_ssd'].best_variant} in hymba-1.5b (2x256 "
+              f"tokens, f32, phase 11's inputs; its naive leg re-measured "
+              f"here, not reused): naive {ir.baseline_time_s * 1e3:.2f} ms "
+              f"-> ssd {ir.optimized_time_s * 1e3:.2f} ms per forward = "
+              f"{ir.integrated_speedup:.3f}x, fe_ok {ir.fe_ok} (max abs err "
+              f"{ir.max_abs_err:.3g}); ssd launches {int_launches} "
+              f"({time.perf_counter() - t:.1f} s)", flush=True)
+        if not ir.fe_ok or int_launches["total"] < need \
+                or int_launches["simt"]:
+            fail(f"phase 15 integration: fe_ok {ir.fe_ok}, ssd launches "
+                 f"{int_launches} ({need} expected, all on mma)")
+        integration = {"case": "mamba_ssd", "app": "hymba-1.5b float32, "
+                       f"{cfg.n_layers} layers, 2x256 tokens",
+                       "variant": results["mamba_ssd"].best_variant,
+                       "naive_leg": "re-measured",
+                       "app_baseline_ms": ir.baseline_time_s * 1e3,
+                       "app_optimized_ms": ir.optimized_time_s * 1e3,
+                       "integrated_speedup": ir.integrated_speedup,
+                       "fe_ok": ir.fe_ok, "max_abs_err": ir.max_abs_err,
+                       "launches": int_launches}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the LLM path: four personae behind a scripted transport
+        prompts, log = [], []
+        case = get_case("gemm")
+        transport = scripted_transport(case, prompts)
+        llm = scripted_llm_proposer(transport, log)
+        k1 = search_kernel("matmul")
+        llm_camp = Campaign(platform, patterns=PatternStore(),
+                            cache=EvalCache(),
+                            population=PopulationConfig(generations=2))
+        zero_launches(k1)
+        llm_res, llm_row = run_case(llm_camp, None, platform, "gemm",
+                                    proposer=llm)
+        llm_row = population_row(llm_res, llm_row)
+        llm_row["launches"] = read_launches(k1)
+        add_launches(launches, "matmul", llm_row["launches"])
+    finally:
+        for rec in recs.values():
+            rec.restore()
+    batcher = llm.batcher
+    gens = len(llm_res.rounds)
+    sections = [p.count("\n### k") for p in prompts]
+    g0 = llm_res.rounds[0].personae
+    parsed = sum(n for _, _, n in log if isinstance(n, int))
+    proposed = sum(st["proposed"] for rl in llm_res.rounds
+                   for p, st in rl.personae.items() if p in PERSONAE)
+    cands = [c for rl in llm_res.rounds for c in rl.candidates]
+    paid = sum(1 + (c.reps if c.status == "ok" else 0) for c in cands
+               if not c.cached)
+    print(f"  LLM path (scripted transport, no model) on gemm: {gens} "
+          f"generations, {batcher.calls} endpoint calls carrying "
+          f"{sections} sections ({batcher.coalesced} prompts); persona "
+          f"replies {sorted(log, key=str)}; {parsed} parsed candidates, "
+          f"{proposed} entered the waves, {len(cands)} evaluated "
+          f"({llm_row['status']}, {llm_row['repaired']} AER-repaired); K1 "
+          f"launches {llm_row['launches']} (at least {paid}: one FE check "
+          f"and the timing reps of each); best {llm_row['best_ms']:.4f} ms "
+          f"({llm_row['speedup']:.3f}x, {llm_row['best_variant']})",
+          flush=True)
+    if not (batcher.calls == len(prompts) == gens
+            and batcher.coalesced == 4 * gens and set(sections) == {4}):
+        fail(f"the LLM waves were not one call of four sections each: "
+             f"{batcher.calls} calls, {sections} sections, {gens} waves")
+    if (GARBAGE_REPLY[0], 0, "ProposalError") not in log \
+            or g0[GARBAGE_REPLY[0]].get("errors") != 1 \
+            or not any(g0[p]["evaluated"] for p in PERSONAE
+                       if p != GARBAGE_REPLY[0]):
+        fail(f"the garbage reply was not isolated as a ProposalError: "
+             f"{log}, {g0}")
+    if parsed != proposed or not cands \
+            or llm_row["launches"]["total"] < paid:
+        fail(f"the LLM path's parsed candidates were not all FE-checked "
+             f"and timed through K1: {parsed} parsed, {proposed} in the "
+             f"waves, {len(cands)} evaluated, {llm_row['launches']} K1 "
+             f"launches for {paid}")
+    main = threading.main_thread().ident
+    if any(rec.threads - {main} for rec in recs.values()):
+        fail(f"a kernel was launched off the main thread: "
+             f"{[rec.threads for rec in recs.values()]}")
+
+    print("  greedy and population winners re-timed (cuda builds, "
+          f"{RETIME_ROUNDS} alternated rounds, CUDA events):", flush=True)
+    for row in rows:
+        case = get_case(row["case"])
+        g = greedy[row["case"]]
+        rt = row["retimed"] = retime_winners(case, row["scale"],
+                                             g["best_variant"],
+                                             row["best_variant"])
+        print(f"  {row['case']:9s} greedy {rt['greedy_ms']:.4f} ms "
+              f"(rounds {rt['spread']['greedy'][0]:.4f}-"
+              f"{rt['spread']['greedy'][1]:.4f}), population "
+              f"{rt['population_ms']:.4f} ms (rounds "
+              f"{rt['spread']['population'][0]:.4f}-"
+              f"{rt['spread']['population'][1]:.4f}): {rt['faster']} "
+              f"faster, population {rt['population_over_greedy']:.3f}x the "
+              f"greedy winner's speed"
+              + ("; the same variant" if rt["same_variant"] else
+                 "; the same build" if rt["same_build"] else "")
+              + f" ({rt['reps']} calls a round)", flush=True)
+
+    checks = {}
+    for kind, rec in recs.items():
+        checks[kind] = []
+        for key, (args, kw) in sorted(rec.calls.items(), key=str):
+            if kind == "matmul":
+                r = compare_k1(key, args, kw, timed=False)
+                r["key"] = list(key)
+                if all(t % 16 == 0 for t in key[5:8]) and r["path"] != "mma":
+                    fail(f"phase 15 ran K1 on the {r['path']} body at {key}")
+            else:
+                r = compare_recurrent(kind, args, kw["chunk"])
+                if kind == "ssd":
+                    require_k7_mma([r], "phase 15")
+            checks[kind].append(r)
+            if not agrees(r):
+                fail(f"{kind} disagrees at phase 15's shape: {r}")
+        print(f"  {kind} vs plain at phase 15's {len(checks[kind])} "
+              f"shapes: max_abs_err "
+              f"{max(r['max_abs_err'] for r in checks[kind]):.3g} (of tol "
+              f"{max(r['tol_ratio'] for r in checks[kind]):.2f}), bodies "
+              f"{sorted({r.get('path', '-') for r in checks[kind]})}",
+              flush=True)
+    wall = time.perf_counter() - t0
+    print(f"phase 15 wall time: {wall:.1f} s", flush=True)
+    report["population"] = {"platform": platform.name,
+                            "config": pcfg.to_dict(), "cases": rows,
+                            "integration": integration,
+                            "llm": {**llm_row, "calls": batcher.calls,
+                                    "sections": sections,
+                                    "transport": "scripted, no model",
+                                    "persona_replies": log},
+                            "launches": launches, "wall_s": wall,
+                            "journal": str(db_path.relative_to(ROOT))}
+    return launches, checks
 
 
 def device_time_args(name, call):
@@ -2558,6 +3022,9 @@ def main() -> None:
     suite_checks, suite_mains, k5_fixed = phase_suite_kernel_checks(
         report, suite_calls, suite_results)
     phase_tables(report)
+    pop_launches, pop_checks = phase_population(report)
+    gc.collect()
+    torch.cuda.empty_cache()
     wkv_main, wkv_call = main_recurrent_shape("wkv", rwkv_calls["wkv"])
     wkv_main["host_us_per_call"] = host_us_per_call(
         lambda: kernel_pair("wkv")[0](*wkv_call[0], **wkv_call[1]))
@@ -2594,7 +3061,8 @@ def main() -> None:
         "flash_attention"][body] for a in ("glm4-9b", "hymba-1.5b"))
         for body in ("mma", "simt")}
 
-    k7_by_path = report["serve_hymba-1.5b"]["launches_by_path"]["ssd"]
+    k7_by_path = {body: report["serve_hymba-1.5b"]["launches_by_path"][
+        "ssd"][body] + pop_launches["ssd"][body] for body in ("mma", "simt")}
 
     def recurrent_entry(name, source, replaces, launches, checks, r):
         return {"name": name, "route": "cuda", "source": source,
@@ -2627,13 +3095,15 @@ def main() -> None:
         "name": "matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/matmul.cu",
         "replaces": "src/repro/kernels/suites/pallas_lib.py:70",
-        "launches": k1_launches["total"] + suite_launches["matmul"],
+        "launches": k1_launches["total"] + suite_launches["matmul"]
+        + pop_launches["matmul"]["total"],
         "launches_by_path": {
             path: k1_launches[path] + suite_launches["matmul_by_path"][path]
-            for path in ("mma", "simt")},
+            + pop_launches["matmul"][path] for path in ("mma", "simt")},
         "main_shape_path": k1_main["path"],
         "max_abs_err": max(r["max_abs_err"] for r in
-                           k1_rows + suite_checks["matmul"]),
+                           k1_rows + suite_checks["matmul"]
+                           + pop_checks["matmul"]),
         "ms": k1_main["ms"], "device_ms": k1_main["kernel_device_ms"],
         "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
@@ -2643,21 +3113,27 @@ def main() -> None:
     }, *suite_entries(suite_launches, suite_checks, suite_mains, k5_fixed),
         {**recurrent_entry(
             "rwkv_wkv", "src/repro_torch/kernels/csrc/rwkv_wkv.cu",
-            "src/repro/kernels/rwkv_wkv.py:65", rwkv_launches["wkv"],
-            rwkv_checks["wkv"] + table4_checks["wkv"], wkv_main),
+            "src/repro/kernels/rwkv_wkv.py:65",
+            rwkv_launches["wkv"] + pop_launches["wkv"]["total"],
+            rwkv_checks["wkv"] + table4_checks["wkv"] + pop_checks["wkv"],
+            wkv_main),
          "device_ms": wkv_main["kernel_device_ms"],
          "host_us_per_call": wkv_main["host_us_per_call"]},
         {**recurrent_entry(
             "ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
-            "src/repro/kernels/ssd_scan.py:73", hymba_launches["ssd"],
-            hymba_checks["ssd"] + table4_checks["ssd"], ssd_main),
+            "src/repro/kernels/ssd_scan.py:73",
+            hymba_launches["ssd"] + pop_launches["ssd"]["total"],
+            hymba_checks["ssd"] + table4_checks["ssd"] + pop_checks["ssd"],
+            ssd_main),
          "launches_by_path": k7_by_path,
          "main_shape_path": ssd_main["path"],
          "device_ms": ssd_main["kernel_device_ms"],
          "simt_ms": ssd_main["simt_ms"],
          "host_us_per_call": ssd_main["host_us_per_call"],
          "one_pass_control_tol_ratio": ssd_main[
-             "one_pass_control_tol_ratio"]}]
+             "one_pass_control_tol_ratio"],
+         "f32_one_pass_control_tol_ratio": ssd_main[
+             "f32_one_pass_control_tol_ratio"]}]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     OUT.parent.mkdir(exist_ok=True)

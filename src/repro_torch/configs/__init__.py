@@ -2,7 +2,8 @@
 
 Holds the configs whose families the port runs so far (dense: glm4-9b;
 ssm: rwkv6-7b; hybrid: hymba-1.5b); the others arrive with their families
-(ROADMAP queue 1 item 7).
+(ROADMAP queue 1: "The other dense-path configs", "The MoE family",
+"Encoder–decoder").
 """
 from __future__ import annotations
 

@@ -20,8 +20,13 @@ from repro_torch.core.fe import FEResult, check as fe_check, outputs_match
 from repro_torch.core.aer import AER, RepairRecord
 from repro_torch.core.patterns import Pattern, PatternStore
 from repro_torch.core.proposer import (DirectProposer, HeuristicProposer,
-                                       Proposer, RoundState, make_proposer,
+                                       LLMBatcher, LLMProposer, OfflineError,
+                                       PERSONAE, ProposalError, Proposer,
+                                       RoundState, chat_completion,
+                                       make_proposer, persona_proposers,
                                        proposer_from_spec)
+from repro_torch.core.population import (Individual, Population,
+                                         PopulationConfig)
 from repro_torch.core.evalcache import (EvalCache, EvalRecord, ResultsDB,
                                         canonical_spec, default_namespace,
                                         spec_key, this_host)

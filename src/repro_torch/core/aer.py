@@ -14,7 +14,7 @@ and K5's wrappers refuse a tile whose shared memory exceeds what an H100
 block may use, with a message naming "shared memory" and the bytes, and the
 ``_smem_overflow`` rule halves the largest block, as ``_vmem_overflow`` did.
 Process-level faults (``WorkerFault``) arrive with the worker fabric
-(ROADMAP queue 1 item 9).
+(ROADMAP queue 1, "The campaign fabric").
 """
 from __future__ import annotations
 

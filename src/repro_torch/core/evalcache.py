@@ -2,7 +2,8 @@
 
 Port of ``repro.core.evalcache`` (pure Python), with byte-compatible JSONL:
 a journal written by either package replays through the other's reader.
-The port has no journal replicator yet (ROADMAP queue 1 item 9), so
+The port has no journal replicator yet (ROADMAP queue 1, "The campaign
+fabric"), so
 compaction has no replica to drain first.
 
 The paper's framework amortizes optimization cost by never paying the
@@ -128,7 +129,8 @@ def append_jsonl(path: str, rec: Dict[str, Any]) -> int:
 # Journals written by the JAX package's replicating writers end each
 # compaction with a marker line of this event kind; replay skips it.  The
 # port writes no markers: it has no offset-tracking replica to tell a
-# compacted journal from a truncated one (ROADMAP queue 1 item 9).
+# compacted journal from a truncated one (ROADMAP queue 1, "The campaign
+# fabric").
 COMPACT_EV = "compact"
 
 

@@ -16,7 +16,7 @@ Two differences from the JAX package:
 * the application step runs eagerly: ``make_step()`` is called, not jitted.
 
 ``guarded_install`` (the serving path's FE-gated hot swap) arrives with the
-serve autotuner (ROADMAP queue 1 item 8).
+serve autotuner (ROADMAP queue 1, "Serving, the rest").
 """
 from __future__ import annotations
 

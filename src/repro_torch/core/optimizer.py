@@ -20,12 +20,12 @@ Port of ``repro.core.optimizer``.  The JAX ``Evaluator`` FE-checks the
 ``jnp`` build and checks the Pallas build only under ``check_pallas``.  Here
 the flag is ``check_kernel``: FE of the ``cuda`` build, on the platform's
 device.  A platform that times the kernel (``h100``) forces it, so no
-candidate is timed through the kernel without passing FE through it.  The
-population-search fields wait for ROADMAP queue 1 item 9.
+candidate is timed through the kernel without passing FE through it.
+``OptConfig.ppi`` waits for ROADMAP queue 1, "The campaign fabric".
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, List, Optional
 
 from repro_torch.core.aer import AER
@@ -53,8 +53,24 @@ class OptConfig:
     # reps under the R cap, incumbent racing on); the campaign fills in
     # the cross-process timing lease path
     measure: Optional[MeasureConfig] = None
-    # population search (ROADMAP queue 1 item 9); a value raises
+    # population-search knobs (core.population.PopulationConfig); None →
+    # the greedy one-variant-per-round loop.  The campaign-level default
+    # (WorkerContext.population) applies when this is None.
     population: Optional[Any] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        return asdict(self)            # nested dataclasses → plain dicts
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "OptConfig":
+        d = dict(d)
+        if isinstance(d.get("measure"), dict):
+            d["measure"] = MeasureConfig.from_dict(d["measure"])
+        if isinstance(d.get("population"), dict):
+            from repro_torch.core.population import PopulationConfig
+            d["population"] = PopulationConfig.from_dict(d["population"])
+        return OptConfig(**d)
+
 
 @dataclass
 class CandidateLog:
@@ -73,6 +89,10 @@ class CandidateLog:
     ci_half_width_s: float = 0.0
     raced_out: bool = False
     lower_bound_s: float = 0.0
+    # population search: which expert persona (or "seed" / "migrant")
+    # proposed this candidate; "" → greedy loop
+    persona: str = ""
+
 
 @dataclass
 class RoundLog:
@@ -89,6 +109,15 @@ class RoundLog:
     # round, whether its delta ended up in the round winner
     # ({delta, source, gain, bottleneck, accepted, pid, ns})
     hints: List[Dict[str, Any]] = field(default_factory=list)
+    # population search (a RoundLog is one generation there): per-persona
+    # provenance {persona: {proposed, evaluated, raced, joined}}, how
+    # many challengers tournament racing retired at r_min, and the
+    # cross-case migration events this generation
+    # ({source, delta, gain, joined})
+    personae: Dict[str, Dict[str, int]] = field(default_factory=dict)
+    raced_kills: int = 0
+    migrations: List[Dict[str, Any]] = field(default_factory=list)
+
 
 @dataclass
 class OptResult:
@@ -116,6 +145,15 @@ class OptResult:
     # were accepted (their delta appeared in the round winner)
     hints_suggested: int = 0
     hints_accepted: int = 0
+    # population-search evidence (zero/empty under the greedy loop):
+    # aggregated per-persona stats, tournament-racing kills, and island
+    # migration counters (candidates tried / joined the population /
+    # deltas exported to other cases via the PatternStore)
+    persona_stats: Dict[str, Dict[str, int]] = field(default_factory=dict)
+    raced_kills: int = 0
+    migrations_in: int = 0
+    migrations_joined: int = 0
+    migrations_out: int = 0
 
     @property
     def speedup(self) -> float:
@@ -143,6 +181,11 @@ class OptResult:
             "raced_out": self.raced_out,
             "hints_suggested": self.hints_suggested,
             "hints_accepted": self.hints_accepted,
+            "persona_stats": self.persona_stats,
+            "raced_kills": self.raced_kills,
+            "migrations_in": self.migrations_in,
+            "migrations_joined": self.migrations_joined,
+            "migrations_out": self.migrations_out,
         }
 
 

@@ -2,8 +2,7 @@
 
 Port of ``repro.core.patterns`` (pure Python), with the same journal format:
 a store written by either package replays through the other's reader.  The
-population search's migration reader and the subprocess wire form wait for
-ROADMAP queue 1 item 9.
+subprocess wire form waits for ROADMAP queue 1, "The campaign fabric".
 
 Effective optimization patterns (tiling choices, memory strategies,
 algorithmic restructurings) discovered while optimizing one kernel are
@@ -284,6 +283,22 @@ class PatternStore:
             if len(out) >= max_hints:
                 break
         return out
+
+    def suggest_migrants(self, case: KernelCase, platform: str,
+                         max_hints: int = 2, *,
+                         bottleneck: str = "") -> List[Pattern]:
+        """Island-model migration read path (population search): the
+        top-ranked patterns won by *other* kernels, never the case's own
+        history — its own winning deltas already live in its population,
+        so re-importing them would burn paid evals on known variants.
+        Same acceptance/bottleneck ranking as ``suggest_patterns``; the
+        journal tail re-read there is what makes deltas recorded by
+        concurrent cases visible mid-campaign."""
+        pool = self.suggest_patterns(case, platform,
+                                     max_hints=max_hints * 2 + 2,
+                                     bottleneck=bottleneck)
+        return [p for p in pool
+                if p.source_kernel != case.name][:max_hints]
 
     # ------------------------------------------------------------------
     def _acc_stats_locked(self, delta_key: str, family: str,

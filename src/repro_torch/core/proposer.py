@@ -1,11 +1,12 @@
 """Candidate generation behind a Proposer interface.
 
-Port of ``repro.core.proposer`` for the heuristic and direct proposers: the
-move sets are the JAX package's, including the snapping of tiles to
-multiples of 128, so the same feedback gives the same proposals; only
-``_valid`` differs, checking K1's shared memory per block instead of the
-TPU's VMEM.  ``LLMProposer``/``LLMBatcher`` and the population personae
-wait (ROADMAP queue 1 item 9): no machine here has an LLM endpoint.
+Port of ``repro.core.proposer``: the move sets are the JAX package's,
+including the snapping of tiles to multiples of 128, so the same feedback
+gives the same proposals; ``_valid`` checks K1's shared memory per block
+instead of the TPU's VMEM.  The LLM prompts name the H100 (tensor-core
+tile fill, shared memory a block) where the reference names the TPU (MXU
+alignment, VMEM fit); the persona markers and the JSON contract are the
+reference's.
 
 The paper drives candidate generation with OpenAI o3 plus prompt feedback.
 This container is offline, so the default ``HeuristicProposer`` emulates the
@@ -19,20 +20,55 @@ candidate variants per round, mixing
   * algorithmic recipes from the case's variant space,
   * seeded stochastic exploration (the LLM's sampling temperature).
 
-``DirectProposer`` reproduces the paper's
+``LLMProposer`` is the real client: point REPRO_LLM_ENDPOINT at an
+OpenAI-compatible server and it sends the kernel source + feedback and
+parses returned variants.  ``DirectProposer`` reproduces the paper's
 "Direct LLM Optimization" baseline: one best-practice shot, no feedback
 loop.
 """
 from __future__ import annotations
 
+import json
+import os
 import random
+import threading
+import time
+import urllib.request
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.core.diagnosis import Diagnosis
 from repro_torch.core.kernelcase import KernelCase, Variant
 from repro_torch.core.patterns import PatternStore
 from repro_torch.core.profiler import SMEM_BYTES, variant_smem_bytes
+
+
+class ProposalError(RuntimeError):
+    """An LLM reply that cannot become candidates: refusal-shaped text
+    with no JSON span, unparseable JSON, or values outside the case's
+    variant space.  Raised instead of silently evaluating garbage; the
+    ``ProposalError: ...`` string is stable for AER classification."""
+
+
+# expert personae for population search (core.population): each clones
+# the base proposer into a specialist whose move set / prompt is
+# restricted to one optimization dimension
+PERSONAE = ("tiling", "memory", "fusion", "sync")
+
+# variant-space keys each persona's stochastic tail may perturb; keys
+# absent from a case's space are ignored
+_PERSONA_KEYS = {
+    "tiling": ("block_m", "block_n", "block_k", "block_q", "block",
+               "block_cols", "chunk", "unroll"),
+    "memory": ("compute_dtype", "fuse_epilogue", "one_pass", "chunked",
+               "rank1_trick", "moment_trick", "block_m", "block_n",
+               "block_k", "block"),
+    "fusion": ("fuse_epilogue", "one_pass", "rank1_trick", "moment_trick",
+               "reshape_butterfly", "precompute_coeffs"),
+    "sync": ("chunked", "one_pass", "precompute_coeffs",
+             "vectorized_exchange", "use_native_sort", "unroll", "chunk",
+             "block_cols"),
+}
 
 
 @dataclass
@@ -79,6 +115,26 @@ class Proposer:
             f"out-of-process executors need heuristic/direct/llm (or a "
             f"proposer that overrides to_spec)")
 
+    def with_persona(self, persona: str, idx: int = 0) -> Optional["Proposer"]:
+        """Clone this proposer as the given expert persona (population
+        search).  ``idx`` is the persona's position in the wave, used for
+        deterministic seed derivation.  None → this proposer kind has no
+        persona support and the caller falls back to the greedy loop."""
+        return None
+
+
+def persona_proposers(base: "Proposer", personae) -> Optional[List["Proposer"]]:
+    """One persona-parameterized clone of ``base`` per expert, or None
+    when the proposer kind supports no personae (e.g. DirectProposer) —
+    population search then degrades to the greedy loop."""
+    out: List[Proposer] = []
+    for i, p in enumerate(personae):
+        clone = base.with_persona(p, i)
+        if clone is None:
+            return None
+        out.append(clone)
+    return out or None
+
 
 def proposer_from_spec(spec: Dict[str, Any], *,
                        patterns: Optional[PatternStore] = None
@@ -88,17 +144,52 @@ def proposer_from_spec(spec: Dict[str, Any], *,
     if kind == "heuristic":
         return HeuristicProposer(int(spec.get("seed", 0)), patterns,
                                  spec.get("platform", "cpu"),
-                                 diagnose=bool(spec.get("diagnose", True)))
+                                 diagnose=bool(spec.get("diagnose", True)),
+                                 persona=spec.get("persona", ""))
     if kind == "direct":
         return DirectProposer()
     if kind == "llm":
-        raise NotImplementedError("the LLM proposer is not ported yet "
-                                  "(ROADMAP queue 1 item 9)")
+        return LLMProposer(patterns, spec.get("platform", "cpu"),
+                           persona=spec.get("persona", ""))
     raise ValueError(f"unknown proposer kind {kind!r}")
 
 
 def _valid(case: KernelCase, v: Variant) -> bool:
     return variant_smem_bytes(v) <= SMEM_BYTES
+
+
+def _json_span(text: str, open_ch: str, close_ch: str, *, what: str):
+    """Parse the outermost ``open_ch…close_ch`` span of an LLM reply.
+    A refusal-shaped reply (no span at all) or malformed JSON raises
+    ``ProposalError`` instead of slicing with find() == -1 — which used
+    to silently parse garbage like ``text[-1:end]``."""
+    start, end = text.find(open_ch), text.rfind(close_ch)
+    if start < 0 or end <= start:
+        raise ProposalError(
+            f"no JSON {what} in LLM reply (refusal-shaped?): "
+            f"{text[:160]!r}")
+    try:
+        return json.loads(text[start:end + 1])
+    except ValueError as e:
+        raise ProposalError(
+            f"malformed JSON {what} in LLM reply: {e}") from None
+
+
+def _validated(case: KernelCase, cand: Dict[str, Any]) -> Dict[str, Any]:
+    """Keep the candidate's in-space keys; a known key with a value
+    outside its choices raises (the model hallucinated a knob setting —
+    evaluating it would fail far from the cause)."""
+    out: Dict[str, Any] = {}
+    for k, val in cand.items():
+        if k not in case.variant_space:
+            continue        # unknown keys are dropped, as before
+        choices = case.variant_space[k]
+        if val not in choices:
+            raise ProposalError(
+                f"value {val!r} for {k!r} is outside "
+                f"{case.name}'s variant space choices {list(choices)}")
+        out[k] = val
+    return out
 
 
 class HeuristicProposer(Proposer):
@@ -109,7 +200,8 @@ class HeuristicProposer(Proposer):
                       "vectorized_exchange", "use_native_sort")
 
     def __init__(self, seed: int = 0, patterns: Optional[PatternStore] = None,
-                 platform: str = "cpu", *, diagnose: bool = True):
+                 platform: str = "cpu", *, diagnose: bool = True,
+                 persona: str = ""):
         self.seed = seed
         self.rng = random.Random(seed)
         self.patterns = patterns
@@ -117,10 +209,21 @@ class HeuristicProposer(Proposer):
         # False → ignore RoundState.diagnosis and use the legacy raw
         # thresholds (the undiagnosed baseline benchmarks compare against)
         self.diagnose = diagnose
+        # non-empty → expert mode: propose() emits only this persona's
+        # move set (population search fans a wave across K personae)
+        self.persona = persona
 
     def to_spec(self):
         return {"kind": self.name, "seed": self.seed,
-                "platform": self.platform, "diagnose": self.diagnose}
+                "platform": self.platform, "diagnose": self.diagnose,
+                "persona": self.persona}
+
+    def with_persona(self, persona, idx=0):
+        # arithmetic seed offset, NOT hash(): PYTHONHASHSEED varies across
+        # worker processes and would break executor conformance
+        return HeuristicProposer(self.seed + 7919 * (idx + 1), self.patterns,
+                                 self.platform, diagnose=self.diagnose,
+                                 persona=persona)
 
     # -- the "LLM" ---------------------------------------------------------
     def propose(self, case, state, n):
@@ -137,6 +240,29 @@ class HeuristicProposer(Proposer):
 
         base = dict(state.baseline_variant)
         diag = state.diagnosis if self.diagnose else None
+
+        # expert mode (population search): only this persona's move set
+        # plus a persona-restricted stochastic tail — the engine handles
+        # seeds/migrants and cross-persona dedup
+        if self.persona:
+            for delta in state.hints or []:
+                v = dict(base)
+                v.update({k: val for k, val in delta.items()
+                          if k in case.variant_space})
+                push(v)
+            self._persona_moves(case, base, diag, push)
+            keys = [k for k in _PERSONA_KEYS.get(self.persona, ())
+                    if k in case.variant_space] \
+                or list(case.variant_space)
+            tries = 0
+            while len(out) < n and tries < 50:
+                tries += 1
+                v = dict(base)
+                for key in keys:
+                    if self.rng.random() < 0.5:
+                        v[key] = self.rng.choice(case.variant_space[key])
+                push(v)
+            return out[:n]
 
         # 0. the canonical recipe leads round 0 (the LLM's first shot —
         # guarantees the iterative loop dominates the Direct baseline,
@@ -227,7 +353,8 @@ class HeuristicProposer(Proposer):
         """Diagnosis-routed move sets: each bottleneck class gets the
         levers that move its dominant term, combined into one decisive
         recipe first, then single-lever probes, then neighbor steps as
-        the tail explorer."""
+        the tail explorer.  The per-route bodies double as the persona
+        move sets for population search (``_persona_moves``)."""
         route = diag.bottleneck
         if route == "latency":
             self._moves_latency(case, base, push)
@@ -344,6 +471,23 @@ class HeuristicProposer(Proposer):
             if key in space and not base.get(key):
                 push(dict(base, **{key: True}))
 
+    def _moves_fusion(self, case, base, push):
+        # restructure levers only: all-on recipe, leave-one-out probes
+        # (interacting flags — one_pass vs rank1_trick), then singles
+        space = case.variant_space
+        flags = [k for k in ("fuse_epilogue", "one_pass", "rank1_trick",
+                             "moment_trick", "reshape_butterfly",
+                             "precompute_coeffs")
+                 if k in space and not base.get(k)]
+        if not flags:
+            return
+        push(dict(base, **{k: True for k in flags}))
+        if len(flags) > 1:
+            for drop in flags:
+                push(dict(base, **{k: True for k in flags if k != drop}))
+        for k in flags:
+            push(dict(base, **{k: True}))
+
     def _neighbor_probes(self, case, base, push, keys=None):
         for key, choices in case.variant_space.items():
             if keys is not None and key not in keys:
@@ -355,6 +499,34 @@ class HeuristicProposer(Proposer):
             for j in (idx + 1, idx - 1):
                 if 0 <= j < len(choices):
                     push(dict(base, **{key: choices[j]}))
+
+    def _persona_moves(self, case, base, diag, push):
+        """One expert's move set (population search).  Reuses the routed
+        bodies: the persona decides WHICH levers, the diagnosis only
+        refines HOW (e.g. occupancy shrinks tiles instead of growing)."""
+        p = self.persona
+        if p == "tiling":
+            self._moves_mxu(case, base, push,
+                            shrink=diag is not None
+                            and diag.bottleneck == "occupancy"
+                            and diag.vmem_fraction > 0.9)
+            # exhaustive largest-first tile sweeps beyond the 128 snap
+            space = case.variant_space
+            for key in ("block_m", "block_n", "block_k", "block_q",
+                        "block", "block_cols", "chunk"):
+                if key in space:
+                    for c in list(space[key])[::-1]:
+                        if c != base.get(key):
+                            push(dict(base, **{key: c}))
+        elif p == "memory":
+            self._moves_memory(case, base, push)
+        elif p == "fusion":
+            self._moves_fusion(case, base, push)
+        elif p == "sync":
+            self._moves_latency(case, base, push)
+            self._moves_collective(case, base, push)
+        self._neighbor_probes(case, base, push,
+                              keys=_PERSONA_KEYS.get(p))
 
 
 class DirectProposer(Proposer):
@@ -376,6 +548,258 @@ class DirectProposer(Proposer):
         return [v]
 
 
+class OfflineError(RuntimeError):
+    pass
+
+
+def chat_completion(prompt: str, *, endpoint: Optional[str], model: str,
+                    api_key: str = "", timeout_s: float = 60.0) -> str:
+    """One OpenAI-compatible /chat/completions call (the only transport
+    both ``LLMProposer`` and ``LLMBatcher`` use)."""
+    if not endpoint:
+        raise OfflineError(
+            "LLMProposer needs REPRO_LLM_ENDPOINT; offline runs use "
+            "HeuristicProposer")
+    body = json.dumps({
+        "model": model,
+        "messages": [{"role": "user", "content": prompt}],
+    }).encode()
+    req = urllib.request.Request(
+        endpoint, data=body,
+        headers={"Content-Type": "application/json",
+                 "Authorization": f"Bearer {api_key}"})
+    with urllib.request.urlopen(req, timeout=timeout_s) as r:
+        data = json.load(r)
+    return data["choices"][0]["message"]["content"]
+
+
+class LLMBatcher:
+    """Coalesces round prompts from concurrent campaign cases (or the
+    personae of one population wave) into one endpoint call.
+
+    Each case's proposer calls ``submit(prompt)`` from its own worker
+    thread; the batcher holds the prompt until either every *active*
+    participant of the current round has one pending (or ``max_batch`` is
+    reached), or ``linger_s`` elapses — then ONE request carrying all
+    pending prompts as tagged sections goes to the endpoint, and the
+    per-tag answers are handed back to the blocked submitters.  Campaign
+    workers ``register()`` on job start and ``unregister()`` on job end,
+    so the dispatch threshold tracks how many cases can still contribute
+    a prompt — the last live case never waits out the linger timer.
+
+    In-process executors share one batcher across their worker threads
+    (the port has no other executor yet).
+    """
+
+    HEADER = ("You are optimizing {n} independent H100 kernels. Each "
+              "section below is one kernel's request, tagged `### id`. "
+              "Answer ALL of them in ONE strict-JSON object mapping each "
+              "id to that section's answer (for proposal sections: the "
+              "JSON list of variant dicts).\n")
+
+    def __init__(self, transport: Optional[Callable[[str], str]] = None, *,
+                 max_batch: int = 8, linger_s: float = 0.05,
+                 timeout_s: float = 60.0):
+        self._transport = transport or (lambda prompt: chat_completion(
+            prompt, endpoint=os.environ.get("REPRO_LLM_ENDPOINT"),
+            model=os.environ.get("REPRO_LLM_MODEL", "o3"),
+            api_key=os.environ.get("REPRO_LLM_API_KEY", ""),
+            timeout_s=timeout_s))
+        self.max_batch = max(1, max_batch)
+        self.linger_s = linger_s
+        self.calls = 0               # endpoint calls actually issued
+        self.coalesced = 0           # prompts answered by those calls
+        self._cv = threading.Condition()
+        self._active = 0             # registered participants still running
+        self._seq = 0
+        self._pending: List[Dict[str, Any]] = []
+
+    # ------------------------------------------------------------------
+    def register(self) -> None:
+        with self._cv:
+            self._active += 1
+
+    def unregister(self) -> None:
+        with self._cv:
+            self._active = max(0, self._active - 1)
+            self._cv.notify_all()
+
+    # ------------------------------------------------------------------
+    def _target(self) -> int:
+        return min(max(self._active, 1), self.max_batch)
+
+    def submit(self, prompt: str) -> str:
+        """Block until this prompt's answer arrives (with the batch it
+        was coalesced into); returns the answer text for this prompt."""
+        with self._cv:
+            item = {"id": f"k{self._seq}", "prompt": prompt,
+                    "done": False, "text": None, "err": None}
+            self._seq += 1
+            self._pending.append(item)
+            self._cv.notify_all()
+            deadline = time.monotonic() + self.linger_s
+            while not item["done"]:
+                leader = self._pending and self._pending[0] is item
+                if leader and (len(self._pending) >= self._target()
+                               or time.monotonic() >= deadline):
+                    batch = self._pending
+                    self._pending = []
+                    self._dispatch(batch)      # releases _cv during I/O
+                    self._cv.notify_all()
+                    continue
+                timeout = max(0.0, deadline - time.monotonic()) \
+                    if leader else None
+                self._cv.wait(timeout=timeout if leader else 0.25)
+            if item["err"] is not None:
+                raise item["err"]
+            return item["text"]
+
+    def _dispatch(self, batch: List[Dict[str, Any]]) -> None:
+        # caller holds _cv; drop it across the network round-trip
+        self._cv.release()
+        try:
+            try:
+                if len(batch) == 1:
+                    answers = {batch[0]["id"]: self._transport(
+                        batch[0]["prompt"])}
+                else:
+                    prompt = self.HEADER.format(n=len(batch)) + "".join(
+                        f"\n### {it['id']}\n{it['prompt']}\n"
+                        for it in batch)
+                    text = self._transport(prompt)
+                    obj = json.loads(text[text.find("{"):
+                                          text.rfind("}") + 1])
+                    answers = {it["id"]: json.dumps(obj[it["id"]])
+                               for it in batch}
+                self.calls += 1
+                self.coalesced += len(batch)
+                err = None
+            except Exception as e:  # noqa: BLE001 — fail the whole batch
+                answers, err = {}, e
+        finally:
+            self._cv.acquire()
+        for it in batch:
+            it["text"] = answers.get(it["id"])
+            it["err"] = err if it["text"] is None else None
+            it["done"] = True
+
+
+class LLMProposer(Proposer):
+    """Model-in-the-loop candidate generation (the paper's actual setup).
+    Requires REPRO_LLM_ENDPOINT (OpenAI-compatible /chat/completions) and
+    optionally REPRO_LLM_MODEL / REPRO_LLM_API_KEY."""
+    name = "llm"
+    repair_key = "llm"           # model-dependent repairs: isolate in cache
+
+    PROMPT = """You are optimizing an NVIDIA H100 kernel. Case: {name} (family
+{family}). Current variant: {variant}. Variant space: {space}.
+Profiler feedback: {feedback}. Diagnosis: {diagnosis}.
+Prior effective patterns: {hints}.
+Recent errors: {errors}.
+Reply with a JSON list of up to {n} variant dicts drawn from the space."""
+
+    # persona preambles for population search: the same round prompt,
+    # but the model is told which expert it is and which levers are its
+    PERSONA_PROMPTS = {
+        "tiling": ("As the TILING expert, restrict yourself to block/"
+                   "tile/grid-shape knobs (block_m/n/k/q, block, chunk, "
+                   "unroll): tensor-core tile fill and shared memory a "
+                   "block.\n"),
+        "memory": ("As the MEMORY-LAYOUT expert, cut HBM traffic: "
+                   "storage dtype, reuse-tile sizes, and traffic-"
+                   "restructuring flags.\n"),
+        "fusion": ("As the FUSION/RESTRUCTURE expert, fuse epilogues and "
+                   "restructure passes (one_pass, rank1/moment tricks, "
+                   "precomputation).\n"),
+        "sync": ("As the SYNCHRONIZATION/LATENCY expert, remove serial "
+                 "steps: chunked scans, unrolling, vectorized exchanges, "
+                 "native sorts.\n"),
+    }
+
+    def __init__(self, patterns: Optional[PatternStore] = None,
+                 platform: str = "cpu", timeout_s: float = 60.0,
+                 batcher: Optional[LLMBatcher] = None, persona: str = ""):
+        self.endpoint = os.environ.get("REPRO_LLM_ENDPOINT")
+        self.model = os.environ.get("REPRO_LLM_MODEL", "o3")
+        self.api_key = os.environ.get("REPRO_LLM_API_KEY", "")
+        self.patterns = patterns
+        self.platform = platform
+        self.timeout_s = timeout_s
+        # attached by the campaign executor so concurrent cases' round
+        # prompts coalesce into one endpoint call
+        self.batcher = batcher
+        self.persona = persona
+
+    def to_spec(self):
+        return {"kind": self.name, "platform": self.platform,
+                "persona": self.persona}
+
+    def with_persona(self, persona, idx=0):
+        # clones share self.batcher, so one generation wave of K persona
+        # prompts coalesces into a single endpoint call
+        return LLMProposer(self.patterns, self.platform, self.timeout_s,
+                           batcher=self.batcher, persona=persona)
+
+    def _chat(self, prompt: str) -> str:
+        return chat_completion(prompt, endpoint=self.endpoint,
+                               model=self.model, api_key=self.api_key,
+                               timeout_s=self.timeout_s)
+
+    def _round_text(self, prompt: str) -> str:
+        if self.batcher is not None:
+            return self.batcher.submit(prompt)
+        return self._chat(prompt)
+
+    def propose(self, case, state, n):
+        diag = state.diagnosis
+        hints = state.hints
+        if hints is None:
+            hints = (self.patterns.suggest(
+                case, self.platform,
+                bottleneck=diag.bottleneck if diag else "")
+                if self.patterns else [])
+        prompt = self.PERSONA_PROMPTS.get(self.persona, "") + \
+            self.PROMPT.format(
+                name=case.name, family=case.family,
+                variant=state.baseline_variant, space=case.variant_space,
+                feedback=state.feedback,
+                diagnosis=diag.summary() if diag else "n/a",
+                hints=hints, errors=state.errors[-3:], n=n)
+        text = self._round_text(prompt)
+        cands = _json_span(text, "[", "]", what="variant list")
+        if not isinstance(cands, list):
+            raise ProposalError(
+                f"LLM reply parsed to {type(cands).__name__}, "
+                f"expected a list of variant dicts")
+        out = []
+        for c in cands[:n]:
+            if not isinstance(c, dict):
+                raise ProposalError(
+                    f"LLM candidate is {type(c).__name__}, expected a "
+                    f"variant dict")
+            v = dict(state.baseline_variant)
+            v.update(_validated(case, c))
+            out.append(v)
+        return out
+
+    def repair(self, case, variant, error):
+        prompt = (f"Kernel {case.name} variant {variant} failed with:\n"
+                  f"{error[:800]}\nReply with a single corrected variant "
+                  f"dict from space {case.variant_space}.")
+        try:
+            text = self._chat(prompt)
+            fix = _json_span(text, "{", "}", what="variant dict")
+            v = dict(variant)
+            v.update(_validated(case, fix))
+            return v
+        except OfflineError:
+            raise
+        except Exception:
+            # ProposalError included: a garbage or out-of-space repair
+            # reply defers to the deterministic AER rule set
+            return None
+
+
 def make_proposer(kind: str, *, seed: int = 0,
                   patterns: Optional[PatternStore] = None,
                   platform: str = "cpu") -> Proposer:
@@ -384,6 +808,5 @@ def make_proposer(kind: str, *, seed: int = 0,
     if kind == "direct":
         return DirectProposer()
     if kind == "llm":
-        raise NotImplementedError("the LLM proposer is not ported yet "
-                                  "(ROADMAP queue 1 item 9)")
+        return LLMProposer(patterns, platform)
     raise ValueError(kind)

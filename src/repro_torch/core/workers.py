@@ -1,11 +1,12 @@
 """Campaign workers: the per-case search loop and the in-process executor.
 
-Port of the in-process part of ``repro.core.workers`` (``workers.py:100-390``
-and ``InProcessExecutor``, ``:506-588``).  A campaign hands its ``CaseJob``s
-to an ``Executor`` and never touches an MEP directly; ``run_case_job`` is
-the paper's §3.2 round loop for one kernel.  The subprocess, remote and
-chaos executors, population search and the LLM batcher wait for ROADMAP
-queue 1 item 9.
+Port of the in-process part of ``repro.core.workers`` (``run_case_job``,
+``_greedy_rounds`` and ``InProcessExecutor`` with its LLM batcher).  A
+campaign hands its ``CaseJob``s to an ``Executor`` and never touches an MEP
+directly; ``run_case_job`` is the paper's §3.2 round loop for one kernel,
+or the population search (``core.population``) when a ``PopulationConfig``
+is active.  The subprocess, remote and chaos executors wait for ROADMAP
+queue 1, "The campaign fabric".
 
 On the ``h100`` platform every thread of a campaign launches on the
 device's default stream, so another thread's FE kernels could land inside
@@ -28,8 +29,10 @@ from repro_torch.core.measure import MeasureConfig, resolve_lease
 from repro_torch.core.mep import MEP, MEPConstraints, build_mep
 from repro_torch.core.optimizer import Evaluator, OptConfig, OptResult, RoundLog
 from repro_torch.core.patterns import Pattern, PatternStore
+from repro_torch.core.population import Population, PopulationConfig
 from repro_torch.core.profiler import Platform
-from repro_torch.core.proposer import Proposer, RoundState
+from repro_torch.core.proposer import (LLMBatcher, LLMProposer, Proposer,
+                                       RoundState, persona_proposers)
 
 
 @dataclass
@@ -65,6 +68,9 @@ class WorkerContext:
     # worker timing this campaign's wall-clock sections
     measure: Optional[MeasureConfig] = None
     lease_path: Optional[str] = None
+    # campaign-level default population-search policy (per-job
+    # cfg.population wins); None → the greedy §3.2 loop
+    population: Optional[PopulationConfig] = None
 
 
 # ---------------------------------------------------------------------------
@@ -75,22 +81,26 @@ def run_case_job(job: CaseJob, platform: Platform, *,
                  cache: Optional[EvalCache] = None,
                  patterns: Optional[PatternStore] = None,
                  db: Optional[ResultsDB] = None,
+                 stop_event: Optional[threading.Event] = None,
                  mep: Optional[MEP] = None,
                  measure: Optional[MeasureConfig] = None,
-                 lease_path: Optional[str] = None
+                 lease_path: Optional[str] = None,
+                 population: Optional[PopulationConfig] = None
                  ) -> OptResult:
     """Round loop (eq. 5): propose → evaluate (build→FE→time, AER-wrapped,
     cache-served) → argmin, with the uniform early stop.  Serial per
     case; concurrency happens across cases, in whichever executor —
     measured platforms included, because wall-clock sections serialize
     on the campaign's timing lease (``lease_path``), not on worker
-    exclusivity.  A ``cfg.population`` raises: population search is not
-    ported yet."""
+    exclusivity.
+
+    With a ``PopulationConfig`` active (per-job ``cfg.population`` wins
+    over the campaign-level ``population``) and a persona-capable
+    proposer, the greedy loop is replaced by the evolutionary engine in
+    ``repro_torch.core.population`` — expert persona waves, tournament-by-
+    racing selection, island migration through the PatternStore."""
     t_start = time.time()
     case, proposer, cfg = job.case, job.proposer, job.cfg
-    if cfg.population is not None:
-        raise NotImplementedError("population search is not ported yet "
-                                  "(ROADMAP queue 1 item 9)")
     # measurement policy: per-job cfg wins over the campaign default;
     # the campaign's lease path is folded in either way
     mcfg = resolve_lease(cfg.measure or measure, lease_path)
@@ -115,9 +125,25 @@ def run_case_job(job: CaseJob, platform: Platform, *,
                     baseline_v, t_base, best_v, best_t,
                     mep_log=list(mep.log))
 
-    last_bottleneck = _greedy_rounds(
-        job, platform, res, evaluator, mep, baseline_v, t_base,
-        campaign_id=campaign_id, patterns=patterns, db=db)
+    pcfg = cfg.population if cfg.population is not None else population
+    clones = persona_proposers(proposer, pcfg.personae) \
+        if pcfg is not None else None
+    if clones:
+        # population search: expert persona waves + tournament racing +
+        # island migration (core.population).  A proposer kind without
+        # persona support (e.g. DirectProposer) falls through to the
+        # greedy loop below.
+        engine = Population(case, platform, mep, evaluator, cfg, pcfg,
+                            clones, patterns=patterns, db=db,
+                            campaign_id=campaign_id, job_name=job.name,
+                            seed=job.seed)
+        last_bottleneck = engine.search(res, baseline_v, t_base,
+                                        stop_event=stop_event)
+    else:
+        last_bottleneck = _greedy_rounds(
+            job, platform, res, evaluator, mep, baseline_v, t_base,
+            campaign_id=campaign_id, patterns=patterns, db=db,
+            stop_event=stop_event)
     best_v = res.best_variant
     if not res.stop_reason:
         res.stop_reason = f"d_rounds={cfg.d_rounds} exhausted"
@@ -146,9 +172,10 @@ def run_case_job(job: CaseJob, platform: Platform, *,
 
 def _greedy_rounds(job: CaseJob, platform: Platform, res: OptResult,
                    evaluator: Evaluator, mep: MEP, baseline_v, t_base, *,
-                   campaign_id: str, patterns, db) -> str:
-    """The paper's greedy one-variant-per-round loop.  Fills ``res``
-    rounds/best/stop_reason and returns the last diagnosed bottleneck."""
+                   campaign_id: str, patterns, db, stop_event=None) -> str:
+    """The paper's greedy one-variant-per-round loop (the default without
+    a population config).  Fills ``res`` rounds/best/stop_reason and
+    returns the last diagnosed bottleneck."""
     case, proposer, cfg = job.case, job.proposer, job.cfg
     history: List[Dict[str, Any]] = []
     errors: List[str] = []
@@ -156,6 +183,10 @@ def _greedy_rounds(job: CaseJob, platform: Platform, res: OptResult,
     best_ci_rel = 0.0           # rel. CI of the timing behind best_t
     last_bottleneck = ""
     for d in range(cfg.d_rounds):
+        if stop_event is not None and stop_event.is_set():
+            res.stop_reason = "stop requested"
+            res.mep_log.append(f"round {d}: stopped (stop requested)")
+            break
         # diagnose the incumbent: WHY is it slow?  The verdict routes
         # the proposer's move set, picks the PPI hint bucket, tags the
         # round journal, and stamps this round's recorded patterns
@@ -281,7 +312,8 @@ class Executor:
     name = "abstract"
 
     def run(self, jobs: List[CaseJob], ctx: WorkerContext, *,
-            campaign_id: str = "") -> List[Any]:
+            campaign_id: str = "",
+            stop: Optional[threading.Event] = None) -> List[Any]:
         raise NotImplementedError
 
     def close(self) -> None:
@@ -317,8 +349,36 @@ class InProcessExecutor(Executor):
                                          ctx.lease_path))
             return self._meps[key]
 
-    def run(self, jobs, ctx, *, campaign_id=""):
+    def _attach_batcher(self, jobs: List[CaseJob],
+                        ctx: Optional[WorkerContext] = None
+                        ) -> Optional[LLMBatcher]:
+        """Coalesce LLM round prompts across the campaign's concurrent
+        cases: all LLM proposers without their own batcher share one.
+        Population jobs contribute one prompt per persona per wave, so
+        ``max_batch`` is sized to the sum of the jobs' wave widths."""
+        if ctx is None:      # run() stashes it; tests wrap 1-arg
+            ctx = getattr(self, "_batch_ctx", None)
+        props, width = [], 0
+        for j in jobs:
+            if not (isinstance(j.proposer, LLMProposer)
+                    and j.proposer.batcher is None):
+                continue
+            props.append(j.proposer)
+            pcfg = j.cfg.population if j.cfg.population is not None \
+                else (ctx.population if ctx is not None else None)
+            width += len(pcfg.personae) if pcfg is not None else 1
+        if len(props) < 2 or self.max_workers < 2:
+            return None
+        batcher = LLMBatcher(max_batch=max(width, len(props)))
+        for p in props:
+            p.batcher = batcher
+            batcher.register()
+        return batcher
+
+    def run(self, jobs, ctx, *, campaign_id="", stop=None):
         from concurrent.futures import ThreadPoolExecutor
+        self._batch_ctx = ctx
+        batcher = self._attach_batcher(jobs)
 
         def guarded(job: CaseJob):
             try:
@@ -326,10 +386,15 @@ class InProcessExecutor(Executor):
                 return run_case_job(
                     job, ctx.platform, campaign_id=campaign_id,
                     cache=ctx.cache, patterns=ctx.patterns, db=ctx.db,
-                    mep=mep,
-                    measure=ctx.measure, lease_path=ctx.lease_path)
+                    stop_event=stop, mep=mep,
+                    measure=ctx.measure, lease_path=ctx.lease_path,
+                    population=ctx.population)
             except Exception as e:  # noqa: BLE001 — isolate job failures
                 return e
+            finally:
+                if batcher is not None and \
+                        getattr(job.proposer, "batcher", None) is batcher:
+                    batcher.unregister()
 
         if self.max_workers == 1 or len(jobs) == 1:
             return [guarded(j) for j in jobs]

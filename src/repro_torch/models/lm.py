@@ -81,7 +81,8 @@ class LM(nn.Module):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet: dense, ssm and "
                 "hybrid are; moe, encdec and vlm come with ROADMAP.md queue 1 "
-                "item 7")
+                "(\"The MoE family\", \"Encoder–decoder\", \"The other "
+                "dense-path configs\")")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.param_dtype]

@@ -18,13 +18,14 @@ KV-cache *slots* and streams greedy decode continuously:
   every step boundary and each change is counted.  Execution is eager, so
   the model consults the registry on every call and a newly installed impl
   serves the next prefill or decode; the JAX twin's per-bucket AOT
-  executables become CUDA graphs in a later slice (ROADMAP).
+  executables become CUDA graphs in a later slice (ROADMAP queue 1,
+  "Serving, the rest").
 * **Per-bucket telemetry** — every prefill/decode event is observed at the
   ``attention`` site and tagged with the request's bucket.
 
 Every ported family (dense, ssm, hybrid); the cache's recurrent-state
 entries are spliced into their slots like K/V.  ``FixedBatchServer`` comes
-with its port (ROADMAP queue 1 item 8).
+with its port (ROADMAP queue 1, "Serving, the rest").
 """
 from __future__ import annotations
 

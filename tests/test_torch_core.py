@@ -274,16 +274,6 @@ def test_campaign_on_torch_cpu_journals_every_case(tmp_path):
     assert all(r.cache_hits > 0 for r in again)
 
 
-def test_population_search_is_not_ported_yet():
-    p = model_platform()
-    job = CaseJob(get_case("gemm"), HeuristicProposer(0, None, p.name),
-                  cfg=OptConfig(population=object()), constraints=FAST)
-    with pytest.raises(RuntimeError, match="failed") as e:
-        Campaign(p).run([job])
-    assert isinstance(e.value.__cause__, NotImplementedError)
-    assert "ROADMAP queue 1 item 9" in str(e.value.__cause__)
-
-
 def test_h100_platforms_run_on_the_card_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,5 +1,6 @@
 """The port's kernels (K1, K2, K3, K4, K5, K6, K7) against their plain
-PyTorch versions, on a card.
+PyTorch versions, on a card, and a small population search on the
+measured ``h100`` platform.
 
 Imports no JAX, so it runs on the GPU machine:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -415,6 +416,38 @@ def test_ssd_bodies_and_slices_agree(cuda, dtype, B, S, H, P, N, chunk):
     assert (ssd.launches, ssd.launches_by_path) == before
 
 
+def ssd_gate_ratio(y, st, want_y, want_st, dtype):
+    """The largest |got - want| over the gate of ``ssd_check``, output and
+    state: within it at most 1."""
+    rtol, atol = recurrence_tolerance(dtype)
+    return max(((y.float() - want_y.float()).abs()
+                / (atol + rtol * want_y.float().abs())).max().item(),
+               ((st - want_st).abs() / (1e-3 + 1e-3 * want_st.abs()))
+               .max().item())
+
+
+def test_ssd_gate_sees_one_tf32_pass(cuda):
+    """The f32 control, as K5's: K7 on xh, B and C rounded to TF32 makes
+    the error of one TF32 pass on its operands, which the gate, held
+    against the plain version on the exact operands, must catch at
+    hymba-1.5b's served heads (H 50, P 64, N 16; the CPU emulation read
+    1.84-1.89 of the gate there, tests/test_torch_ssd_mma.py); on the
+    exact operands the three passes read within it."""
+    args = ssd_inputs(cuda, torch.float32, 1, 256, 50, 64, 16)
+    xh, dt, a_log, B_t, C_t = args
+    want = ssd_plain(*args, chunk=128)
+    rounded = (tf32(xh.contiguous()), dt, a_log, tf32(B_t.contiguous()),
+               tf32(C_t.contiguous()))
+    mma = ssd.launches_by_path["mma"]
+    control = ssd_gate_ratio(*ssd(*rounded, chunk=128), *want,
+                             torch.float32)
+    exact = ssd_gate_ratio(*ssd(*args, chunk=128), *want, torch.float32)
+    torch.cuda.synchronize()
+    assert ssd.launches_by_path["mma"] == mma + 2
+    assert exact <= 1.0
+    assert control > 1.0
+
+
 def test_ssd_view_off_16_bytes_takes_the_cuda_cores(cuda):
     """xh one element past a 16-byte boundary: the wrapper takes ``simt``
     and agrees with the plain version; the kernel's entry refuses an
@@ -773,3 +806,29 @@ def test_one_pass_graph_equals_the_eager_build(cuda, name, variant):
     assert len(fn.graphs) == 2 and y3.shape == x3.shape
     assert outputs_match(y3, eager(x3)).ok
     assert outputs_match(fn(x1), y1).ok     # the first graph still replays
+
+
+# ---- the population search on the card ------------------------------------
+def test_population_campaign_on_the_card_runs_k1_on_the_tensor_cores(cuda):
+    """A small population search (gemm, size 3, 2 generations, the four
+    personae) on the measured ``h100`` platform: every candidate is
+    FE-checked and timed through K1, which takes the tensor cores at
+    every call (all the case's tiles are multiples of 16)."""
+    from repro_torch.core import (Campaign, CaseJob, H100Platform,
+                                  HeuristicProposer, MEPConstraints,
+                                  OptConfig, PatternStore, PopulationConfig)
+    platform = H100Platform()
+    before = dict(matmul.launches_by_path)
+    camp = Campaign(platform, patterns=PatternStore(),
+                    population=PopulationConfig(size=3, generations=2))
+    res = camp.run([CaseJob(
+        get_case("gemm"), HeuristicProposer(0, None, platform.name),
+        cfg=OptConfig(r=5, k=1),
+        constraints=MEPConstraints(t_max_s=2.0, r=5, k=1))])[0]
+    torch.cuda.synchronize()
+    launched = {p: matmul.launches_by_path[p] - before[p] for p in before}
+    cands = [c for rl in res.rounds for c in rl.candidates]
+    assert res.persona_stats and len(res.rounds) <= 2
+    assert any(c.status == "ok" for c in cands)
+    assert res.best_time_s <= res.baseline_time_s
+    assert launched["mma"] > len(cands) and launched["simt"] == 0

@@ -19,7 +19,11 @@ the state update xhᵀ·(dt exp(la_end − la) B) on the tensor cores.  Here:
   interpret mode, within 0.75 of the card test's gate (y: f32 rtol 1e-3,
   bf16 2^-6, atol 1e-3; state 1e-3), beside the one-pass control (G', the
   state and the scaled B in plain bf16, or one TF32 pass), which must read
-  worse.
+  worse;
+* the shape of the card's f32 control: three passes on xh, B and C
+  rounded to TF32 read above the card test's f32 gate at hymba-1.5b's
+  served heads (H 50, P 64, N 16, S 256, chunk 128) and at the
+  ``mamba_ssd`` case's (B 2, S 1024, H 8).
 
 The kernel itself runs only on a card (``tests/test_torch_cuda.py``).
 """
@@ -299,3 +303,37 @@ def test_the_mma_arithmetic_stays_inside_the_gate(B, S, H, P, N, chunk,
     print(f"one-pass control {one:.3g} of the gate, hi + lo {hi_lo:.3g}")
     assert one > hi_lo, (f"the one-pass control reads {one:.3g} of the gate,"
                          f" no worse than hi + lo ({hi_lo:.3g})")
+
+
+# (B, S, H, P, N, chunk, seed): hymba-1.5b's served heads at B = 1, S 256
+# (the card control's shape, tests/test_torch_cuda.py and chip_smoke.py),
+# and the mamba_ssd case's B 2, S 1024, H 8
+@pytest.mark.parametrize("B,S,H,P,N,chunk,seed", [
+    (1, 256, 50, 64, 16, 128, 0),
+    (1, 256, 50, 64, 16, 128, 1),
+    (2, 1024, 8, 64, 16, 128, 0),
+])
+def test_tf32_rounded_operands_read_above_the_f32_gate(B, S, H, P, N, chunk,
+                                                       seed):
+    """The card's f32 control runs K7 (three TF32 passes) on xh, B and C
+    rounded to TF32 and holds it against the plain version on the exact
+    operands, as K5's control does.  Emulated here against the JAX oracle:
+    it reads above the card test's f32 gate (1.76-1.89 of it in the runs
+    that chose the shape), while the exact operands read within 0.75; at
+    the reduced config's P 16, N 4 it read 0.60-0.83, under the gate, so
+    the control is not taken there."""
+    arrays = seeded_inputs(B, S, H, P, N, seed)
+    want_y, want_s = (torch.from_numpy(np.array(a)) for a in jref.ssd_ref(
+        *[jnp.asarray(a) for a in arrays]))
+    args = [torch.from_numpy(a) for a in arrays]
+    rounded = [tf32(t) if i in (0, 3, 4) else t for i, t in enumerate(args)]
+
+    def ratio(y, s):
+        return max(gate_ratio(y, want_y, Y_GATE[F32]),
+                   gate_ratio(s, want_s, STATE_GATE))
+    exact = ratio(*emulate_mma(*args, chunk))
+    control = ratio(*emulate_mma(*rounded, chunk))
+    print(f"TF32-rounded operands {control:.3g} of the gate, exact "
+          f"{exact:.3g}")
+    assert exact <= 0.75
+    assert control > 1.5

@@ -25,7 +25,8 @@ Phases, each fatal on failure (exit 1, no result line):
    PyTorch's SDPA (a yardstick only), beside the bound.
 3. Serve glm4-9b at full width and depth (40 layers, bf16, random weights
    from a seeded generator) with the kernel installed at the ``attention``
-   site: a BatchedServer (4 slots, max_len 256) answers 8 requests of mixed
+   site: an eager BatchedServer (``aot=False``: every call passes the
+   wrappers; 4 slots, max_len 256) answers 8 requests of mixed
    prompt length.  Checks every request's token count, the kernel's launch
    count and its launches by body (none may take ``simt``), and the
    last-token prefill logits through the kernel against the plain version;
@@ -150,6 +151,31 @@ Phases, each fatal on failure (exit 1, no result line):
    K1, K6 and K7 are held against their plain versions at every shape the
    phase gave them, every K1 call on a tile in multiples of 16 and every
    K7 call on ``mma``.  The phase's wall time is printed on its own line.
+16. Online reintegration at full width (bf16, 4 slots, phase 3, 9 and 10's
+   requests and weights): (a) glm4-9b served by ``BatchedServer`` on CUDA
+   graphs (19 captures: 6 buckets x 1, 2, 4 rows + decode; their seconds
+   and memory) against the eager server in 5 alternated rounds (decode
+   and prefill tokens/s), its tokens against phase 3's (a request that
+   differs must hold its prefill logits, graph against eager, within
+   LOGITS_RTOL), one replayed decode step and one replayed 2 x 256
+   prefill traced (busy share; the prefill's trace must name K2's
+   ``fa_mma_kernel``), ``FixedBatchServer`` on the same requests padded to
+   the longest (table 9's baseline), one ``ServeAutotuner.run_once()`` on
+   ``h100`` mid-traffic (hot sites, speedups, installs), and a forced
+   ``guarded_install`` of ``attention_prefill``'s ``cuda`` build probed by
+   a served prefill, which must install, bump one swap epoch and
+   re-capture every graph, with in-flight tokens equal to the control;
+   (c) the autotuner's thread (``start``/``stop``) beside a second wave,
+   with a registry change mid-cycle so that a re-capture waits for the
+   device lock: tokens equal, no ``autotune_error``; (b) rwkv6-7b on
+   graphs against eager (3 rounds), then mid-traffic ``guarded_install``s
+   probed by the served weights' f32 prefill: ``rwkv_wkv``'s ``cuda`` build
+   (K6 at chunk 32) must install with the tokens unchanged, the naive
+   sequential build must be rolled back for regression with the registry
+   restored, and a build off by x 1e3 refused at ``fe_fail``; (d)
+   hymba-1.5b on graphs against eager (3 rounds).  K2 and K6 must launch
+   on the phase's paths.  The phase's wall time on its own line; the
+   journal in chiprun_out/autotune.jsonl.
 Then the device times at the main shapes (K2, K1 as above; K6, K7 at their
 serving runs' heaviest prefill; K3, K4, K5 as in phase 13) in a fresh
 process (with the wrapper's host µs per call where K2's CUDA-event time
@@ -1222,6 +1248,17 @@ SERVE_SITES = {"glm4-9b": {"attention": "flash_attention"},
                               "attention": "flash_attention"}}
 # the recurrent state a prefill hands decode, by family
 STATE_KEY = {"ssm": "wkv", "hybrid": "ssm"}
+RECURRENT_SITES = ("rwkv_wkv", "ssm_chunk")
+
+
+def site_impl(site, fn):
+    """``fn`` as the impl at ``site``.  K6, K7 and their plain versions
+    return (out, state) on every call; at a recurrent site they go through
+    ``models.ssm.stateful_site``, which takes the keyword with which the
+    model asks for the state.  None (no impl) stays None."""
+    from repro_torch.models.ssm import stateful_site
+    return (stateful_site(fn) if fn is not None and site in RECURRENT_SITES
+            else fn)
 # the operands the model passes K6/K7 in its own dtype (lw, dt and a_log
 # come in f32)
 MODEL_DTYPE_ARGS = {"wkv": (0, 1, 2, 4), "ssd": (0, 3, 4)}
@@ -1251,7 +1288,7 @@ def prefill_with(model, tokens, impls):
     from repro_torch.kernels import ops
     with contextlib.ExitStack() as scope, torch.no_grad():
         for site, fn in impls.items():
-            scope.enter_context(ops.use_impl(site, fn))
+            scope.enter_context(ops.use_impl(site, site_impl(site, fn)))
         logits, cache = model.prefill(tokens)
     # the padded vocabulary's logits are -1e30 on every path
     return logits[0, -1, :model.cfg.vocab_size], cache
@@ -1298,7 +1335,7 @@ def check_recurrent_f32(model, prompts, probe, kernels, max_len, max_new):
            "state_rel_err_f32": rel_err(ck[key], cr[key]),
            "control_logits_rel_err_f32": rel_err(lc, lr),
            "control_state_rel_err_f32": rel_err(cc[key], cr[key])}
-    srv = BatchedServer(m32, slots=4, max_len=max_len)
+    srv = BatchedServer(m32, slots=4, max_len=max_len, aot=False)
     reqs = [srv.submit(p, max_new=max_new) for p in prompts]
     srv.run()
     ties = []
@@ -1344,6 +1381,38 @@ def check_recurrent_f32(model, prompts, probe, kernels, max_len, max_new):
     return got
 
 
+SERVE_MAX_NEW = 16
+
+
+def served_model(arch):
+    """``arch`` at full width and depth on the card, its weights drawn from
+    a generator seeded 0 on the card (the same weights in every phase)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    model = get_model(get_config(arch), device="cuda")
+    model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    return model
+
+
+def serve_workload(cfg):
+    """The 8 prompts a served model answers, as (lengths, prompts, max_len,
+    index of the prompt the checks prefill)."""
+    if cfg.family in STATE_KEY:  # exact-length packing: pads corrupt a state
+        rng = np.random.default_rng(9 if cfg.family == "ssm" else 10)
+        lengths = rng.integers(8, 129, size=8)
+        lengths[2] = 256                     # a multi-chunk prompt
+        max_len, probe = 272, 2
+    else:                        # padded buckets
+        rng = np.random.default_rng(0)
+        lengths = rng.integers(8, 201, size=8)
+        max_len, probe = 256, 0
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lengths]
+    return lengths, prompts, max_len, probe
+
+
 def phase_serve(report, arch):
     """Phases 3 (glm4-9b through K2), 9 (rwkv6-7b through K6) and 10
     (hymba-1.5b through K7 and K2): serve the model at full width and depth
@@ -1355,15 +1424,12 @@ def phase_serve(report, arch):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models import get_model
     from repro_torch.models.lm import layer_spec, top_spec
     from repro_torch.serve import BatchedServer, generate
 
     cfg = get_config(arch)
     t0 = time.perf_counter()
-    model = get_model(cfg, device="cuda")
-    model.init_params(torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
+    model = served_model(arch)
     n_params = sum(p.numel() for p in model.parameters())
     gib = sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30
     counted = cfg.param_counts()[0] + cfg.d_model  # param_counts omits final_ln
@@ -1384,22 +1450,15 @@ def phase_serve(report, arch):
     kernels = SERVE_SITES[arch]
     sites = {site: FirstCalls(kernel_pair(k)[0]) for site, k in kernels.items()}
     for site, impl in sites.items():
-        ops.install(site, impl, kernel=kernels[site], route="cuda")
+        ops.install(site, site_impl(site, impl), kernel=kernels[site],
+                    route="cuda")
     recurrent = cfg.family in STATE_KEY
-    if recurrent:       # exact-length packing: a padded row corrupts a state
-        rng = np.random.default_rng(9 if cfg.family == "ssm" else 10)
-        lengths = rng.integers(8, 129, size=8)
-        lengths[2] = 256                     # a multi-chunk prompt
-        max_len, probe = 272, 2
-    else:               # padded buckets
-        rng = np.random.default_rng(0)
-        lengths = rng.integers(8, 201, size=8)
-        max_len, probe = 256, 0
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
-               for n in lengths]
-    max_new = 16
+    lengths, prompts, max_len, probe = serve_workload(cfg)
+    max_new = SERVE_MAX_NEW
 
-    warm = BatchedServer(model, slots=4, max_len=max_len)  # cuBLAS, allocator
+    # eager (aot=False) serving: every call passes through the wrappers'
+    # counters and FirstCalls; phase 16 serves through CUDA graphs
+    warm = BatchedServer(model, slots=4, max_len=max_len, aot=False)
     for p in prompts[:2]:
         warm.submit(p[:16], max_new=2)
     warm.run()
@@ -1421,7 +1480,7 @@ def phase_serve(report, arch):
 
     model.prefill = timed(real_prefill, "prefill_s")
     model.decode_step = timed(real_decode, "decode_s")
-    srv = BatchedServer(model, slots=4, max_len=max_len)
+    srv = BatchedServer(model, slots=4, max_len=max_len, aot=False)
     reqs = [srv.submit(p, max_new=max_new) for p in prompts]
     for s in sites.values():
         s.calls.clear()
@@ -1478,6 +1537,7 @@ def phase_serve(report, arch):
         "decode_tokens": decode_tokens, "decode_s": stats["decode_s"],
         "decode_tokens_per_s": decode_tokens / stats["decode_s"],
         "wall_s": wall, "peak_memory_bytes": peak,
+        "tokens": [r.tokens for r in reqs],
     }
     print(f"{arch}: prefill {serve['prefill_tokens_per_s']:.1f} tokens/s "
           f"({prefill_tokens} prompt tokens in {stats['prefill_s']:.3f} s), "
@@ -2972,6 +3032,473 @@ def k2_main_shape_times(q, k, v, causal):
     return out
 
 
+# --------------------------------------------------------------------------
+# online reintegration (phase 16): BatchedServer on CUDA graphs, the serve
+# autotuner, guarded installs and rollbacks, FixedBatchServer
+# --------------------------------------------------------------------------
+def serve_wave(srv, prompts, max_new=SERVE_MAX_NEW):
+    """Serve ``prompts`` to the end; each request's tokens."""
+    reqs = [srv.submit(p, max_new=max_new) for p in prompts]
+    srv.run()
+    bad = [(r.rid, len(r.tokens)) for r in reqs
+           if not r.done or len(r.tokens) != max_new]
+    if bad:
+        fail(f"requests without their {max_new} tokens: {bad}")
+    return [r.tokens for r in reqs]
+
+
+def timed_server(srv):
+    """Wraps ``srv``'s prefill and decode calls to add their synchronised
+    host seconds to ``srv.stats``."""
+    import torch
+    srv.stats = {"prefill_s": 0.0, "decode_s": 0.0}
+    for name, key in (("_prefill", "prefill_s"), ("_decode", "decode_s")):
+        def call(*a, _real=getattr(srv, name), _key=key):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _real(*a)
+            torch.cuda.synchronize()
+            srv.stats[_key] += time.perf_counter() - t
+            return out
+        setattr(srv, name, call)
+    return srv
+
+
+def graph_server(model, max_len):
+    """A BatchedServer on CUDA graphs (4 slots), with its captures, their
+    seconds and the memory they took."""
+    import torch
+    from repro_torch.serve import BatchedServer
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    srv = timed_server(BatchedServer(model, slots=4, max_len=max_len))
+    srv.graph_bytes = torch.cuda.memory_allocated() - before
+    srv.peak_bytes = torch.cuda.max_memory_allocated()
+    return srv
+
+
+def graph_against_eager(arch, model, prompts, max_len, rounds):
+    """The graph server and the eager one (``aot=False``) serve ``prompts``
+    in ``rounds`` alternated rounds (host-clock rates move between calls):
+    decode and prefill tokens/s of each, their medians, and every round's
+    tokens, which must repeat.  Returns (graph server, readings)."""
+    from repro_torch.serve import BatchedServer
+    graph = graph_server(model, max_len)
+    eager = timed_server(BatchedServer(model, slots=4, max_len=max_len,
+                                       aot=False))
+    print(f"{arch}: graph server built: {graph.aot_compiles} captures in "
+          f"{graph.capture_s:.2f} s, {graph.graph_bytes / 2**20:.1f} MiB "
+          f"for its graphs and buffers, peak memory "
+          f"{graph.peak_bytes / 2**30:.2f} GiB", flush=True)
+    prefill_tokens = int(sum(len(p) for p in prompts))
+    decode_tokens = len(prompts) * (SERVE_MAX_NEW - 1)
+    rates = {"graph": [], "eager": []}
+    tokens = {"graph": None, "eager": None}
+    for i in range(rounds):
+        for kind in (("eager", "graph") if i % 2 == 0 else ("graph", "eager")):
+            srv = graph if kind == "graph" else eager
+            srv.stats.update(prefill_s=0.0, decode_s=0.0)
+            t = time.perf_counter()
+            got = serve_wave(srv, prompts)
+            wall = time.perf_counter() - t
+            if tokens[kind] is None:
+                tokens[kind] = got
+            elif got != tokens[kind]:
+                fail(f"{arch}: the {kind} server's tokens changed between "
+                     f"rounds")
+            rates[kind].append({
+                "decode_tokens_per_s": decode_tokens / srv.stats["decode_s"],
+                "prefill_tokens_per_s": prefill_tokens
+                / srv.stats["prefill_s"],
+                "wall_tokens_per_s": len(prompts) * SERVE_MAX_NEW / wall,
+                "wall_s": wall})
+    med = {kind: {key: float(np.median([r[key] for r in rs]))
+                  for key in rs[0]} for kind, rs in rates.items()}
+    same = sum(a == b for a, b in zip(tokens["graph"], tokens["eager"]))
+    out = {"captures": graph.aot_compiles, "capture_s": graph.capture_s,
+           "graph_bytes": graph.graph_bytes, "peak_bytes": graph.peak_bytes,
+           "rounds": rates, "median": med, "tokens": tokens,
+           "graph_equals_eager": same}
+    g, e = med["graph"], med["eager"]
+    print(f"{arch}: medians of {rounds} alternated rounds, graph | eager: "
+          + ", ".join(f"{what} {g[key]:.1f} | {e[key]:.1f} tokens/s "
+                      f"({g[key] / e[key]:.2f}x)" for what, key in (
+                          ("decode", "decode_tokens_per_s"),
+                          ("prefill", "prefill_tokens_per_s")))
+          + f", wall {g['wall_s']:.3f} | {e['wall_s']:.3f} s; {same}/"
+          f"{len(prompts)} requests with equal tokens", flush=True)
+    return graph, out
+
+
+def graph_prefill_logits(model, prompt, bucket, max_len):
+    """Last-token logits of ``prompt`` padded to ``bucket``, as the served
+    prefill graph computes them: captured in a CUDA graph and replayed,
+    beside the eager call's."""
+    import torch
+    vocab = model.cfg.vocab_size
+    toks = torch.zeros((1, bucket), dtype=torch.long, device="cuda")
+    toks[0, :len(prompt)] = torch.as_tensor(prompt, device="cuda")
+    lens = torch.tensor([len(prompt)], device="cuda")
+    with torch.no_grad():
+        eager = model.prefill(toks, max_len=max_len, lengths=lens)[0]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            model.prefill(toks, max_len=max_len, lengths=lens)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=side):
+            logits = model.prefill(toks, max_len=max_len, lengths=lens)[0]
+        g.replay()
+        torch.cuda.synchronize()
+    return logits[0, -1, :vocab].clone(), eager[0, -1, :vocab]
+
+
+def replay_split(srv, key, top=6):
+    """``time_split`` of one replay of ``srv``'s graph ``key``."""
+    graph = srv._graphs[key][0]
+    return time_split(graph.replay, top=top)
+
+
+def print_split(arch, what, r):
+    print(f"{arch} {what}: wall {r['wall_ms']:.2f} ms, device "
+          f"{r['device_ms']:.2f} ms (busy {r['device_busy_share']:.1%}) in "
+          f"{r['kernels_per_call']:.0f} kernels ({r['traces']} traces, "
+          f"{r['sentinels_lost']} sentinels lost); top: " + ", ".join(
+              f"{t['kernel'][:40]} {t['ms']:.3f}"
+              for t in r["top_kernels"][:3]), flush=True)
+
+
+def autotuner(platform, db, **cfg):
+    from repro_torch.core import EvalCache
+    from repro_torch.serve import AutotuneConfig, ServeAutotuner
+    return ServeAutotuner(platform, config=AutotuneConfig(**cfg),
+                          cache=EvalCache(), db=db)
+
+
+# the forced installs' guard probes: a same-kernel swap reads the probe's
+# spread.  A 2 x 256 glm4 prefill is host-bound (56 ms of wall, 22.7 of
+# device) and read 0.61x-1.33x K2 over K2, past the 1.25x limit (PERF.md);
+# 16 rows make the probe device-bound, and 15 calls trimmed by 3 at each
+# end steady the mean
+GUARD_R, GUARD_K, GUARD_ROWS = 15, 3, 16
+
+
+def probe_ratio(g):
+    """Installed over baseline probe time of a ``GuardedInstall``."""
+    return (g.probe_installed_s / g.probe_baseline_s
+            if g.probe_baseline_s else float("nan"))
+
+
+def swap_line(g):
+    return (f"{g.case_name} {g.variant} at scale {g.scale}: {g.reason} "
+            f"(probe {g.probe_baseline_s * 1e3:.2f} -> "
+            f"{g.probe_installed_s * 1e3:.2f} ms, generation "
+            f"{g.generation_before} -> {g.generation})")
+
+
+def phase_online(report):
+    """Phase 16: online reintegration at full width.  (a) glm4-9b on CUDA
+    graphs against eager serving and phase 3's tokens, replayed steps
+    traced, FixedBatchServer as table 9's baseline, one autotune cycle on
+    h100 mid-traffic, then a forced guarded install on the same server
+    that re-captures mid-traffic; (c) the autotuner's thread beside a
+    second wave; (b) rwkv6-7b: guarded installs of rwkv_wkv's K6 build,
+    the naive build (rolled back) and a faulty one (refused) mid-traffic;
+    (d) hymba-1.5b on CUDA graphs against eager serving."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.core import H100Platform, ResultsDB, get_case
+    from repro_torch.core.integrate import guarded_install
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.serve import FixedBatchServer, snap_scale
+
+    t0 = time.perf_counter()
+    out = report["online"] = {}
+    db_path = OUT.parent / "autotune.jsonl"
+    db_path.unlink(missing_ok=True)
+    db = ResultsDB(str(db_path))
+    platform = H100Platform()
+    flash = kernel_pair("flash_attention")[0]
+
+    # ---- (a) glm4-9b ---------------------------------------------------
+    model = served_model("glm4-9b")
+    lengths, prompts, max_len, _ = serve_workload(model.cfg)
+    ops.clear_all()
+    ops.install("attention", flash, kernel="flash_attention", route="cuda")
+    flash.launches = 0                       # this path's run
+    graph, a = graph_against_eager("glm4-9b", model, prompts, max_len, 5)
+    a["k2_launches"] = flash.launches
+    control = a["tokens"]["graph"]
+    phase3 = report["serve_glm4-9b"]["tokens"]
+    differ = [i for i, (t, e) in enumerate(zip(control, phase3)) if t != e]
+    a["differ_from_phase3"] = differ
+    for i in differ:
+        bucket = graph.bucket_of(len(prompts[i]))
+        lg, le = graph_prefill_logits(model, prompts[i], bucket, max_len)
+        rel = rel_err(lg, le)
+        print(f"glm4-9b: request {i} differs from phase 3's eager tokens "
+              f"(graph {control[i][:6]}..., eager {phase3[i][:6]}...); its "
+              f"prefill logits graph vs eager: max rel err {rel:.3g} (tol "
+              f"{LOGITS_RTOL})", flush=True)
+        if rel > LOGITS_RTOL:
+            fail(f"glm4-9b: graph prefill logits of request {i} differ by "
+                 f"{rel:.3g}")
+    print(f"glm4-9b: graph tokens equal phase 3's eager tokens in "
+          f"{len(prompts) - len(differ)}/{len(prompts)} requests; "
+          f"{a['k2_launches']} K2 launches through the wrapper in the graph "
+          f"server's run (captures and their warm-up runs; a replay does "
+          f"not pass the wrapper)", flush=True)
+    if a["k2_launches"] == 0:
+        fail("glm4-9b: K2 was never launched on the graph path")
+    a["decode_replay"] = replay_split(graph, ("decode",))
+    print_split("glm4-9b", "replayed decode step", a["decode_replay"])
+    a["prefill_replay"] = replay_split(graph, ("prefill", 256, 2), top=500)
+    print_split("glm4-9b", "replayed prefill, 2 x 256", a["prefill_replay"])
+    k2 = [t for t in a["prefill_replay"]["top_kernels"]
+          if "fa_mma_kernel" in t["kernel"]]
+    print(f"glm4-9b: K2 in the replayed prefill's trace: {k2}", flush=True)
+    if not k2:
+        fail("the replayed prefill graph's trace names no fa_mma_kernel")
+    a["prefill_replay"]["top_kernels"] = \
+        a["prefill_replay"]["top_kernels"][:6]
+
+    longest = int(max(lengths))
+    fixed = FixedBatchServer(model, slots=4, prompt_len=longest,
+                             max_len=max_len)
+    padded = [np.pad(p, (0, longest - len(p))) for p in prompts]
+    serve_wave(fixed, padded[:2], max_new=2)           # warm
+    t = time.perf_counter()
+    serve_wave(fixed, padded)
+    wall = time.perf_counter() - t
+    a["fixed_batch"] = {"wall_s": wall, "prompt_len": longest,
+                        "wall_tokens_per_s": len(prompts) * SERVE_MAX_NEW
+                        / wall}
+    print(f"glm4-9b: FixedBatchServer (table 9's baseline: prompts padded to "
+          f"{longest}, one prefill a request, one shared decode position) "
+          f"{a['fixed_batch']['wall_tokens_per_s']:.1f} tokens/s over "
+          f"{wall:.3f} s; continuous, median: graph "
+          f"{a['median']['graph']['wall_tokens_per_s']:.1f}, eager "
+          f"{a['median']['eager']['wall_tokens_per_s']:.1f}", flush=True)
+    del fixed
+
+    # one autotune cycle on h100 over the observed attention@b* sites,
+    # requests in flight on the graph server
+    ops.telemetry.reset()
+    reqs = [graph.submit(p, max_new=SERVE_MAX_NEW) for p in prompts]
+    graph.step()
+    graph.step()
+    tuner = autotuner(platform, db, min_tokens=64)
+    rep = tuner.run_once()
+    graph.run()
+    if [r.tokens for r in reqs] != control:
+        fail("glm4-9b: tokens served across the autotune cycle differ from "
+             "the control")
+    a["autotune"] = {"hot": rep.hot, "wall_s": rep.wall_s,
+                     "speedups": [r.speedup for r in rep.results],
+                     "swaps": [g.to_dict() for g in rep.swaps],
+                     "swap_epochs": graph.swap_epochs}
+    print(f"glm4-9b: autotune cycle on h100 mid-traffic in {rep.wall_s:.2f} "
+          f"s: hot {rep.hot}, campaign speedups "
+          f"{[round(x, 4) for x in a['autotune']['speedups']]}, "
+          + ("; ".join(swap_line(g) for g in rep.swaps) or "no install "
+             "(no winner beat the incumbent by 1%)")
+          + f"; the server saw {graph.swap_epochs} swap epochs; in-flight "
+          f"tokens equal the control", flush=True)
+
+    # a forced guarded install on the same server, probed by a served-model
+    # prefill: one swap epoch and one re-capture mid-traffic.  The build is
+    # K2, as the incumbent, so the guard's reading is the probe's spread
+    epochs, built = graph.swap_epochs, graph.aot_compiles
+    reqs = [graph.submit(p, max_new=SERVE_MAX_NEW) for p in prompts]
+    graph.step()
+    graph.step()
+    rows = torch.as_tensor(np.pad(np.stack([prompts[0][:160]] * GUARD_ROWS),
+                                  ((0, 0), (0, 96))), device="cuda").long()
+    lens = torch.full((GUARD_ROWS,), 160, device="cuda")
+
+    def served_prefill():
+        return model.prefill(rows, max_len=max_len, lengths=lens)[0]
+
+    case = get_case("attention_prefill")
+    forced = guarded_install(case, dict(case.baseline_variant), scale=256,
+                             impl="cuda", probe=served_prefill, r=GUARD_R,
+                             k=GUARD_K)
+    t = time.perf_counter()
+    graph.step()
+    pause = time.perf_counter() - t
+    graph.run()
+    a["forced_install"] = dict(forced.to_dict(), recapture_step_s=pause,
+                               swap_epochs=graph.swap_epochs,
+                               captures=graph.aot_compiles,
+                               probe_ratio=probe_ratio(forced))
+    print(f"glm4-9b: forced guarded install, probed by a served prefill "
+          f"({GUARD_ROWS} x 256, r={GUARD_R} k={GUARD_K}): "
+          f"{swap_line(forced)}, "
+          f"installed/baseline {probe_ratio(forced):.3f}; the next step "
+          f"re-captured in {pause:.2f} s; swap epochs {epochs} -> "
+          f"{graph.swap_epochs}, captures {built} -> {graph.aot_compiles}",
+          flush=True)
+    if forced.reason != "installed" or graph.swap_epochs != epochs + 1 \
+            or graph.aot_compiles != built + a["captures"]:
+        fail(f"glm4-9b: the forced install did not swap once: "
+             f"{a['forced_install']}")
+    if [r.tokens for r in reqs] != control:
+        fail("glm4-9b: in-flight tokens across the swap differ from the "
+             "control")
+
+    # ---- (c) the autotuner's thread beside a second wave ---------------
+    ops.telemetry.reset()
+    serve_wave(graph, prompts[:4], max_new=4)          # fresh traffic
+    tuner = autotuner(platform, db, min_tokens=64, interval_s=0.2)
+    captures = graph.aot_compiles
+    reqs = [graph.submit(p, max_new=SERVE_MAX_NEW) for p in prompts]
+    thread = tuner.start()
+    step_s = capture_s = None
+    try:
+        while graph.queue or any(graph.active):
+            if step_s is None and tuner._cycle_lock.locked():
+                # a registry change while the autotuner works on the card:
+                # the server's next step re-captures under the device lock
+                ops.install("attention", flash, kernel="flash_attention",
+                            route="cuda")
+                t, before = time.perf_counter(), graph.capture_s
+                graph.step()
+                step_s = time.perf_counter() - t
+                capture_s = graph.capture_s - before
+            else:
+                graph.step()
+    finally:
+        tuner.stop()
+    errors = list(db.records("autotune_error"))
+    c = {"cycles": len(tuner.reports), "swap_epochs": graph.swap_epochs,
+         "captures": graph.aot_compiles - captures,
+         "recapture_step_s": step_s, "recapture_s": capture_s,
+         "errors": errors,
+         "installed": [g.to_dict() for r in tuner.reports
+                       for g in r.installed]}
+    out["c"] = c
+    print(f"glm4-9b: autotuner thread beside a second wave: {c['cycles']} "
+          f"cycles, {len(c['installed'])} installs, {c['captures']} "
+          f"captures on the main thread"
+          + (f" (the step after a registry change mid-cycle took "
+             f"{step_s:.2f} s: {capture_s:.2f} s capturing, the rest "
+             f"waiting for the device lock and stepping)" if step_s else "")
+          + f", thread alive after stop: {thread.is_alive()}", flush=True)
+    if thread.is_alive() or errors or [r.tokens for r in reqs] != control:
+        fail(f"glm4-9b: the autotuner thread beside serving: {c}")
+    out["a"] = a
+    laps = out["segment_seconds"] = {"a_c": time.perf_counter() - t0}
+    del graph, model, tuner
+    ops.clear_all()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) rwkv6-7b --------------------------------------------------
+    wkv = kernel_pair("wkv")[0]
+    model = served_model("rwkv6-7b")
+    lengths, prompts, max_len, probe = serve_workload(model.cfg)
+    ops.install("rwkv_wkv", site_impl("rwkv_wkv", wkv), kernel="wkv",
+                route="cuda")
+    graph, b = graph_against_eager("rwkv6-7b", model, prompts, max_len, 3)
+    control = b["tokens"]["graph"]
+    m32 = get_model(dataclasses.replace(model.cfg, param_dtype="float32"),
+                    device="cuda")
+    m32.load_state_dict(model.state_dict())
+    p32 = torch.as_tensor(prompts[probe][:64], dtype=torch.long,
+                          device="cuda")[None]
+    rows32 = torch.as_tensor(np.stack([prompts[probe]] * 2),  # 2 x 256
+                             dtype=torch.long, device="cuda")
+
+    def served_prefill32():          # the served weights in f32
+        return m32.prefill(p32)[0]
+
+    def served_rows32():             # device-bound: the K6 install's guard
+        return m32.prefill(rows32)[0]
+
+    case = get_case("rwkv_wkv")
+    ops.telemetry.reset()
+    reqs = [graph.submit(p, max_new=SERVE_MAX_NEW) for p in prompts]
+    graph.step()
+    graph.step()
+    scale = snap_scale(case, ops.telemetry.weighted_scale("attention"))
+    wkv.launches = 0
+    # K6 at the served chunk, as the incumbent: the guard reads the spread
+    k6 = guarded_install(case, {"chunked": True, "chunk": MODEL_CHUNK},
+                         scale=scale, impl="cuda", probe=served_rows32,
+                         r=GUARD_R, k=GUARD_K)
+    k6_fn = ops.get_impl("rwkv_wkv")
+    graph.step()
+    naive = guarded_install(case, {"chunked": False, "chunk": 64},
+                            scale=scale, impl="torch",
+                            probe=served_prefill32)
+    faulty = guarded_install(dataclasses.replace(
+        case, build=lambda v, impl: (
+            lambda *x, **kw: case.build(v, impl=impl)(*x, **kw) * 1e3)),
+        {"chunked": True, "chunk": 32}, scale=scale, impl="cuda")
+    restored = ops.get_impl("rwkv_wkv") is k6_fn \
+        and ops.generation("rwkv_wkv") == k6.generation
+    graph.run()
+    b.update(k6_install=k6.to_dict(), naive_install=naive.to_dict(),
+             faulty_install=faulty.to_dict(), swap_epochs=graph.swap_epochs,
+             k6_launches=wkv.launches, registry_restored=restored,
+             k6_probe_ratio=probe_ratio(k6))
+    for what, g in ((f"K6 build (probe 2 x 256 f32, r={GUARD_R} "
+                     f"k={GUARD_K})", k6),
+                    ("naive build (probe 1 x 64 f32, r=3 k=0)", naive),
+                    ("faulty build (x 1e3)", faulty)):
+        print(f"rwkv6-7b: {what} mid-traffic: {swap_line(g)}, "
+              f"installed/baseline {probe_ratio(g):.3f}", flush=True)
+    same = [r.tokens for r in reqs] == control
+    print(f"rwkv6-7b: after the three, the registry holds the K6 build "
+          f"again: {restored}; swap epochs {graph.swap_epochs}; "
+          f"{wkv.launches} K6 launches (served prefills and the guards); "
+          f"in-flight tokens equal the control: {same}", flush=True)
+    if k6.reason != "installed" or not same:
+        fail(f"rwkv6-7b: the K6 build's install: {b['k6_install']}, tokens "
+             f"equal the control: {same}")
+    if not (naive.rolled_back and naive.reason.startswith("regressed")
+            and restored):
+        fail(f"rwkv6-7b: the naive build was not rolled back for regression"
+             f" with the registry restored: {b['naive_install']}")
+    if faulty.installed or not faulty.reason.startswith("fe_fail"):
+        fail(f"rwkv6-7b: the faulty build was not refused at FE: "
+             f"{b['faulty_install']}")
+    if wkv.launches == 0:
+        fail("rwkv6-7b: K6 was never launched on the graph server's path")
+    b["decode_replay"] = replay_split(graph, ("decode",))
+    print_split("rwkv6-7b", "replayed decode step", b["decode_replay"])
+    out["b"] = b
+    laps["b"] = time.perf_counter() - t0 - sum(laps.values())
+    del graph, model, m32
+    ops.clear_all()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) hymba-1.5b ------------------------------------------------
+    model = served_model("hymba-1.5b")
+    _, prompts, max_len, _ = serve_workload(model.cfg)
+    for site, name in SERVE_SITES["hymba-1.5b"].items():
+        ops.install(site, site_impl(site, kernel_pair(name)[0]), kernel=name,
+                    route="cuda")
+    graph, d = graph_against_eager("hymba-1.5b", model, prompts, max_len, 3)
+    d["decode_replay"] = replay_split(graph, ("decode",))
+    print_split("hymba-1.5b", "replayed decode step", d["decode_replay"])
+    out["d"] = d
+    del graph, model
+    ops.clear_all()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    laps["d"] = out["seconds"] - sum(laps.values())
+    print(f"phase 16 (online reintegration) took {out['seconds']:.1f} s: "
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in laps.items()),
+          flush=True)
+
+
 def main() -> None:
     import gc
     import torch
@@ -2987,8 +3514,15 @@ def main() -> None:
 
     report = {}
     t_start = time.perf_counter()
+    laps = report["phase_seconds"] = {}
+
+    def lap(name):
+        laps[name] = time.perf_counter() - t_start - sum(laps.values())
+
     name, smi = phase_device(report)
+    lap("device and build")
     phase_kernel(report)
+    lap("K2")
     glm_launches, glm_calls, glm_checks = phase_serve(report, "glm4-9b")
     gc.collect()
     torch.cuda.empty_cache()
@@ -3002,29 +3536,39 @@ def main() -> None:
     require_mma(main_shape, "the main shape")
     main_shape.update(k2_main_shape_times(q, k, v, causal))
     report["main_path_shape"] = main_shape
+    lap("glm4-9b")
 
     k1_launches, k1_calls, main_key = phase_campaign(report)
     k1_rows, k1_main = phase_k1_checks(report, k1_calls, main_key)
     k2_pipeline_checks = phase_integrate(report)
+    lap("campaign, K1, integrate")
 
     phase_recurrent_kernels(report)
     rwkv_launches, rwkv_calls, rwkv_checks = phase_serve(report, "rwkv6-7b")
     gc.collect()
     torch.cuda.empty_cache()
+    lap("K6 and K7, rwkv6-7b")
     hymba_launches, hymba_calls, hymba_checks = phase_serve(report,
                                                             "hymba-1.5b")
     gc.collect()
     torch.cuda.empty_cache()
+    lap("hymba-1.5b")
     table4_checks = phase_table4(report)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("table 4")
     suite_launches, suite_calls, suite_results = phase_suite_kernels(report)
     suite_checks, suite_mains, k5_fixed = phase_suite_kernel_checks(
         report, suite_calls, suite_results)
+    lap("suites")
     phase_tables(report)
+    lap("tables 1-3")
     pop_launches, pop_checks = phase_population(report)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("population")
+    phase_online(report)
+    lap("online")
     wkv_main, wkv_call = main_recurrent_shape("wkv", rwkv_calls["wkv"])
     wkv_main["host_us_per_call"] = host_us_per_call(
         lambda: kernel_pair("wkv")[0](*wkv_call[0], **wkv_call[1]))
@@ -3149,6 +3693,9 @@ def main() -> None:
           + "); grouped_matmul at E 8 M 512 K 256 N 512 f32 128^3; "
           f"all phases passed in {report['seconds']:.1f} s; details in "
           f"{OUT.relative_to(ROOT)}", flush=True)
+    lap("main shapes")
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                        laps.items()), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

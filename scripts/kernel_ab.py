@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Times one tree's K1, K3, K4, K5, K6 and K7 on the card at their PERF.md
-main shapes, so that two trees can be compared in one call on one card.
+main shapes, or its eager serving of one model, so that two trees can be
+compared in one call on one card.
 
     python3 scripts/kernel_ab.py --tree DIR [--label NAME]
+    python3 scripts/kernel_ab.py --tree DIR --serve ARCH [--rounds N]
 
 ``DIR`` is a checkout of this repository (``.`` for this one; another
 commit unpacked by ``git archive`` into the git-ignored ``build/``).  Its
@@ -46,6 +48,16 @@ its checks, ``fit``, the ``_compile`` lookup, ``torch.empty_like``, the
 ``torch.cuda.device`` context, ``JITFunction.run`` (a whole launch through
 Triton's own path, 2000 calls) and, where the tree caches the compiled
 kernel, the launch key and the bare launch through its launcher.
+
+With ``--serve ARCH`` (``glm4-9b``, ``rwkv6-7b`` or ``hymba-1.5b``) it
+serves that model instead, as ``chip_smoke.py``'s phases 3, 9 and 10 do:
+full width and depth in bf16, the weights from a generator seeded 0 on the
+card, the tree's kernels at their sites, the tree's ``BatchedServer``
+(eager: ``aot=False`` where the tree has graphs; 4 slots) answering the
+same 8 requests of 16 new tokens, ``N`` rounds (default 3) after a warm-up
+wave.  Each round's prefill and decode tokens/s (host seconds of
+``model.prefill`` and ``model.decode_step``, each synchronised), their
+medians and every request's tokens go to the JSON line.
 
 Shapes: K3 n 4,194,304 f32 at each of the ``reduction`` case's blocks
 (16384, 4096, 1024); K5 E 8 M 512 K 256 N 512 f32 and bf16 on 128^3; K1
@@ -121,10 +133,69 @@ def k4_components(k4, fn, resolve_device):
     return comp
 
 
+def serve_leg(cs, arch: str, rounds: int):
+    """The tree's eager serving of ``arch``: rates a round and tokens."""
+    import inspect
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+    from repro_torch.serve import BatchedServer
+
+    model = cs.served_model(arch)
+    # a tree without ``stateful_site`` takes the wrappers as they are
+    wrap = getattr(ssm, "stateful_site", None)
+    for site, name in cs.SERVE_SITES[arch].items():
+        fn = cs.kernel_pair(name)[0]
+        ops.install(site, wrap(fn) if wrap and site in cs.RECURRENT_SITES
+                    else fn)
+    lengths, prompts, max_len, _ = cs.serve_workload(model.cfg)
+    eager = ({"aot": False} if "aot" in inspect.signature(
+        BatchedServer).parameters else {})
+    stats = {}
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stats[key] += time.perf_counter() - t
+            return out
+        return call
+
+    model.prefill = timed(model.prefill, "prefill_s")
+    model.decode_step = timed(model.decode_step, "decode_s")
+    rates, tokens = [], None
+    for i in range(rounds + 1):          # round 0 warms up
+        stats.update(prefill_s=0.0, decode_s=0.0)
+        srv = BatchedServer(model, slots=4, max_len=max_len, **eager)
+        reqs = [srv.submit(p, max_new=cs.SERVE_MAX_NEW) for p in prompts]
+        srv.run()
+        got = [r.tokens for r in reqs]
+        if i == 0:
+            tokens = got
+            continue
+        if got != tokens:
+            sys.exit(f"kernel_ab: {arch}'s tokens changed between rounds")
+        rates.append({
+            "prefill_tokens_per_s": float(lengths.sum()) / stats["prefill_s"],
+            "decode_tokens_per_s": sum(len(t) - 1 for t in got)
+            / stats["decode_s"]})
+    med = {key: float(np.median([r[key] for r in rates])) for key in rates[0]}
+    print(f"  {arch} eager serving, median of {rounds} rounds: prefill "
+          f"{med['prefill_tokens_per_s']:.1f} tokens/s, decode "
+          f"{med['decode_tokens_per_s']:.1f} tokens/s (rounds {rates})",
+          flush=True)
+    return {"arch": arch, "median": med, "rounds": rates, "tokens": tokens}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", required=True)
     ap.add_argument("--label", default=None)
+    ap.add_argument("--serve", default=None)
+    ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(ROOT))
@@ -148,6 +219,11 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
+    if args.serve:
+        line = {"label": args.label or str(Path(args.tree)), "nvidia_smi": smi,
+                "serve": serve_leg(cs, args.serve, args.rounds)}
+        write_line(line)
+        return
 
     g = torch.Generator(device="cuda").manual_seed(18)
     x3 = torch.randn(4194304, device="cuda", generator=g)
@@ -282,8 +358,11 @@ def main() -> None:
     print("  host us a call: " + ", ".join(f"{k} {v:.2f}"
                                            for k, v in comp.items()),
           flush=True)
-    line = {"label": args.label or str(Path(args.tree)), "nvidia_smi": smi,
-            "kernels": out, "components": comp}
+    write_line({"label": args.label or str(Path(args.tree)),
+                "nvidia_smi": smi, "kernels": out, "components": comp})
+
+
+def write_line(line) -> None:
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     with open(ROOT / "chiprun_out" / "kernel_ab.jsonl", "a") as f:
         f.write(json.dumps(line) + "\n")

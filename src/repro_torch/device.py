@@ -1,4 +1,5 @@
-"""Device selection shared by the port's entry points.
+"""Device selection shared by the port's entry points, and the lock that
+keeps CUDA-graph capture apart from other threads' device work.
 
 Every entry point runs on the card unless the caller asks for the CPU: a
 ``device`` argument defaults to ``"cuda"``, and without a GPU that default
@@ -6,7 +7,16 @@ raises instead of carrying on on the CPU.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
+
+# Held by ``BatchedServer`` while it captures its CUDA graphs and by a
+# ``ServeAutotuner`` cycle (campaign, FE checks, guard probes).  A capture
+# runs in CUDA's global mode, where a CUDA call from another thread breaks
+# the capture or the call; re-entrant, so a thread that holds it may
+# capture.
+DEVICE_LOCK = threading.RLock()
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -96,27 +96,31 @@ def _wkv_case_ref(r, k, v, lw, u):
 
 
 def _wkv_build(variant, impl="torch"):
-    """Site signature: (r, k, v, lw, u, chunk=...) → o.
+    """Site signature: (r, k, v, lw, u, chunk=..., return_state=False) → o,
+    or (o, final state [B,H,K,V] f32) with ``return_state=True``, as the
+    model asks at its ``rwkv_wkv`` site when prefill keeps the state (the
+    Pallas build returns o alone; ROADMAP.md queue 3).
 
     ``impl="cuda"`` is the hand-written WKV kernel K6, with ``chunk`` the
-    time steps it stages per load (its output only, as the Pallas build
-    returns).  The ``chunked`` torch build is the model's three-phase
-    chunked WKV; the naive one the sequential recurrence."""
+    time steps it stages per load.  The ``chunked`` torch build is the
+    model's three-phase chunked WKV; the naive one the sequential
+    recurrence."""
     chunk = variant.get("chunk", 64)
     if impl == "cuda":
-        def fn(r, k, v, lw, u, **kw):
-            return wkv(r, k, v, lw, u, chunk=chunk, device=r.device.type)[0]
+        def fn(r, k, v, lw, u, *, return_state=False, **kw):
+            out = wkv(r, k, v, lw, u, chunk=chunk, device=r.device.type)
+            return out if return_state else out[0]
         return fn
     if variant.get("chunked"):
-        def chunked(r, k, v, lw, u, **kw):
-            o, _ = _wkv_chunked(r, k, v, lw, u, chunk, use_impl=False)
-            return o.to(r.dtype)
+        def chunked(r, k, v, lw, u, *, return_state=False, **kw):
+            o, state = _wkv_chunked(r, k, v, lw, u, chunk, use_impl=False)
+            return (o.to(r.dtype), state) if return_state else o.to(r.dtype)
         return chunked
 
     # naive: sequential token-by-token recurrence (the extracted hotspot)
-    def seq(r, k, v, lw, u, **kw):
-        o, _ = kref.wkv_ref(r, k, v, lw, u)
-        return o.to(r.dtype)
+    def seq(r, k, v, lw, u, *, return_state=False, **kw):
+        o, state = kref.wkv_ref(r, k, v, lw, u)
+        return (o.to(r.dtype), state) if return_state else o.to(r.dtype)
     return seq
 
 
@@ -153,28 +157,32 @@ def _ssd_case_ref(xh, dt, a_log, B_t, C_t):
 
 
 def _ssd_build(variant, impl="torch"):
-    """Site signature: (xh, dt, a_log, B_t, C_t, chunk=...) → y.
+    """Site signature: (xh, dt, a_log, B_t, C_t, chunk=...,
+    return_state=False) → y, or (y, final state [B,H,P,N] f32) with
+    ``return_state=True``, as the model asks at its ``ssm_chunk`` site when
+    prefill keeps the state (the Pallas build returns y alone; ROADMAP.md
+    queue 3).
 
     ``impl="cuda"`` is the hand-written SSD kernel K7 at the variant's
-    ``chunk`` (its output only, as the Pallas build returns).  The
-    ``chunked`` torch build is the model's chunked SSD; the naive one the
-    sequential scan."""
+    ``chunk``.  The ``chunked`` torch build is the model's chunked SSD; the
+    naive one the sequential scan."""
     chunk = variant.get("chunk", 128)
     if impl == "cuda":
-        def fn(xh, dt, a_log, B_t, C_t, **kw):
-            return ssd(xh, dt, a_log, B_t, C_t, chunk=chunk,
-                       device=xh.device.type)[0]
+        def fn(xh, dt, a_log, B_t, C_t, *, return_state=False, **kw):
+            out = ssd(xh, dt, a_log, B_t, C_t, chunk=chunk,
+                      device=xh.device.type)
+            return out if return_state else out[0]
         return fn
     if variant.get("chunked"):
-        def chunked(xh, dt, a_log, B_t, C_t, **kw):
-            y, _ = _ssd_chunked(xh, dt, a_log, B_t, C_t, chunk,
-                                use_impl=False)
-            return y
+        def chunked(xh, dt, a_log, B_t, C_t, *, return_state=False, **kw):
+            y, state = _ssd_chunked(xh, dt, a_log, B_t, C_t, chunk,
+                                    use_impl=False)
+            return (y, state) if return_state else y
         return chunked
 
-    def seq(xh, dt, a_log, B_t, C_t, **kw):
-        y, _ = kref.ssd_ref(xh, dt, a_log, B_t, C_t)
-        return y
+    def seq(xh, dt, a_log, B_t, C_t, *, return_state=False, **kw):
+        y, state = kref.ssd_ref(xh, dt, a_log, B_t, C_t)
+        return (y, state) if return_state else y
     return seq
 
 

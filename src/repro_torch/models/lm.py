@@ -108,16 +108,18 @@ class LM(nn.Module):
     # ------------------------------------------------------------------
     # blocks
     # ------------------------------------------------------------------
-    def _block(self, x, p, positions, cache=None, pos=None):
+    def _block(self, x, p, positions, cache=None, pos=None,
+               need_state: bool = False):
         """One block.  With ``cache`` (this layer's slice of the decode
         cache) it decodes one token: K/V are written at ``pos`` in place,
         attention runs over the cache, and the recurrent state continues
         from the cache.  Returns (x, this call's cache entries: k/v of the
-        call, the new recurrent state)."""
+        call, the new recurrent state).  ``need_state``: the caller keeps
+        the recurrent state of a parallel call (prefill)."""
         cfg = self.cfg
         B, S, _ = x.shape
         if cfg.family == "ssm":
-            return self._rwkv_block(x, p, cache)
+            return self._rwkv_block(x, p, cache, need_state)
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         q, k, v = L._project_qkv(h, p, cfg, positions)
         if cache is None:
@@ -136,7 +138,8 @@ class LM(nn.Module):
                   if name.startswith("mamba_")}
             m_state = None if cache is None else {"conv": cache["conv"],
                                                   "ssm": cache["ssm"]}
-            mamba_out, m_new = SSM.mamba_block(h, mp, cfg, state=m_state)
+            mamba_out, m_new = SSM.mamba_block(h, mp, cfg, state=m_state,
+                                               need_state=need_state)
             # mean of per-branch normalized outputs (hymba parallel heads)
             attn_out = L.rms_norm(attn_out, p["attn_out_ln"], cfg.norm_eps)
             mamba_out = L.rms_norm(mamba_out, p["mamba_out_ln"], cfg.norm_eps)
@@ -148,7 +151,7 @@ class LM(nn.Module):
         x = x + L.mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps), p, cfg)
         return x, new
 
-    def _rwkv_block(self, x, p, cache):
+    def _rwkv_block(self, x, p, cache, need_state: bool = False):
         """One RWKV6 block (time mix, channel mix); decodes from ``cache``
         when given, else starts from zero token shifts and state."""
         cfg = self.cfg
@@ -158,7 +161,8 @@ class LM(nn.Module):
         tm_out, (shift_tm, wkv) = SSM.rwkv_time_mix(
             h, p, cfg,
             shift_state=zeros if cache is None else cache["shift_tm"],
-            wkv_state=None if cache is None else cache["wkv"])
+            wkv_state=None if cache is None else cache["wkv"],
+            need_state=need_state)
         x = x + tm_out
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         cm_out, shift_cm = SSM.rwkv_channel_mix(
@@ -183,7 +187,8 @@ class LM(nn.Module):
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
         caches: List[Dict[str, torch.Tensor]] = []
         for layer in self.layers:
-            x, new = self._block(x, layer.tensors(), positions)
+            x, new = self._block(x, layer.tensors(), positions,
+                                 need_state=collect_cache)
             if collect_cache:
                 caches.append(new)
         x = L.rms_norm(x, self.top.final_ln, self.cfg.norm_eps)

@@ -14,11 +14,19 @@ algorithms:
   cross term ``r_t ⊙ exp(lw_exclusive) · S_start``.  Exact, no decay clamp.
 
 ``_ssd_chunked`` and ``_wkv_chunked`` consult the kernel registry's
-``ssm_chunk`` and ``rwkv_wkv`` sites as the JAX twins do.  An installed
-kernel that returns ``(out, state)`` (K6 ``kernels.rwkv_wkv.wkv``, K7
-``kernels.ssd_scan.ssd``) serves prefill with its final state; one that
-returns ``out`` alone gets a state of zeros, as in JAX.  Weights keep the
-``[in, out]`` layout, so ``x @ w`` is the twin's ``einsum``.
+``ssm_chunk`` and ``rwkv_wkv`` sites as the JAX twins do.  Where the caller
+needs the final state (``need_state``: prefill, or a segment continuing
+from a carried state) the impl is called with ``return_state=True`` and
+must return ``(out, state)``, as every build of the ``rwkv_wkv`` /
+``mamba_ssd`` cases does; an impl that returns ``out`` alone raises there
+and names its site.  K6 (``kernels.rwkv_wkv.wkv``) and K7
+(``kernels.ssd_scan.ssd``) return ``(out, state)`` on every call and are
+installed as ``stateful_site(wrapper)``, which takes the keyword.  The
+JAX twins hand decode a state of zeros instead (ROADMAP.md queue 3).
+Where no state is needed (a forward that keeps no cache) the impl is
+called without the keyword, and an output alone gets zeros, which nothing
+reads.  Weights keep the ``[in, out]`` layout, so ``x @ w`` is the twin's
+``einsum``.
 """
 from __future__ import annotations
 
@@ -69,7 +77,36 @@ def _causal_conv(x, w, b):
     return out + b
 
 
-def _ssd_chunked(xh, dt, a_log, B_t, C_t, chunk: int, use_impl: bool = True):
+def stateful_site(fn):
+    """A recurrent site's impl from a kernel wrapper that returns
+    ``(out, state)`` on every call: it takes the sites' ``return_state``
+    keyword and passes the rest on."""
+    def impl(*args, return_state: bool = False, **kw):
+        return fn(*args, **kw)
+    return impl
+
+
+def _site_call(site: str, impl, args, chunk: int, need_state: bool,
+               state_shape, device):
+    """``impl`` at a recurrent ``site`` → (out, final state); see the module
+    docstring for ``need_state``."""
+    if not need_state:
+        out = impl(*args, chunk=chunk)
+        if isinstance(out, tuple):
+            return out
+        return out, torch.zeros(state_shape, dtype=torch.float32,
+                                device=device)
+    out = impl(*args, chunk=chunk, return_state=True)
+    if not isinstance(out, tuple):
+        raise RuntimeError(
+            f"the impl installed at {site!r} returned no state: prefill "
+            "hands decode the site's final state, so an impl there must "
+            "return (out, state) when called with return_state=True")
+    return out
+
+
+def _ssd_chunked(xh, dt, a_log, B_t, C_t, chunk: int, use_impl: bool = True,
+                 need_state: bool = False):
     """Exact SSD over chunks.
 
     xh [B,S,H,P] inputs per head; dt [B,S,H] (post-softplus); a_log [H] (>0);
@@ -79,14 +116,10 @@ def _ssd_chunked(xh, dt, a_log, B_t, C_t, chunk: int, use_impl: bool = True):
         from repro_torch.kernels import ops
         impl = ops.get_impl("ssm_chunk")
         if impl is not None:
-            out = impl(xh, dt, a_log, B_t, C_t, chunk=chunk)
-            if isinstance(out, tuple):
-                return out
-            # stateless impl (training forward only): the JAX twin's state
-            # of zeros; prefill needs an impl that returns the state
             Bb, _, H, P = xh.shape
-            return out, torch.zeros((Bb, H, P, B_t.shape[-1]),
-                                    dtype=torch.float32, device=xh.device)
+            return _site_call("ssm_chunk", impl, (xh, dt, a_log, B_t, C_t),
+                              chunk, need_state,
+                              (Bb, H, P, B_t.shape[-1]), xh.device)
 
     Bb, S, H, P = xh.shape
     N = B_t.shape[-1]
@@ -127,10 +160,12 @@ def _ssd_chunked(xh, dt, a_log, B_t, C_t, chunk: int, use_impl: bool = True):
     return y.to(xh.dtype), s_cur
 
 
-def mamba_block(x, p, cfg: ModelConfig, *, state: Dict = None):
+def mamba_block(x, p, cfg: ModelConfig, *, state: Dict = None,
+                need_state: bool = False):
     """Full mamba mixer.  ``state=None`` → parallel (train/prefill) mode,
     returns (y, new_state); state dict has 'conv' [B,K-1,d_in], 'ssm'
-    [B,H,P,N] for single-token decode."""
+    [B,H,P,N] for single-token decode.  ``need_state``: the caller keeps
+    the parallel mode's final state (prefill)."""
     s = cfg.ssm
     d_in, H, P = mamba_dims(cfg)
     B, S, _ = x.shape
@@ -154,7 +189,8 @@ def mamba_block(x, p, cfg: ModelConfig, *, state: Dict = None):
     xh = xi_conv.reshape(B, S, H, P)
 
     if state is None:
-        y, s_final = _ssd_chunked(xh, dt, p["a_log"], B_t, C_t, s.chunk)
+        y, s_final = _ssd_chunked(xh, dt, p["a_log"], B_t, C_t, s.chunk,
+                                  need_state=need_state)
     else:
         a = torch.exp(-torch.exp(p["a_log"].float()) * dt[:, 0, :])  # [B,H]
         u = dt[:, 0, :, None] * xh[:, 0].float()                       # [B,H,P]
@@ -204,7 +240,8 @@ def rwkv_param_spec(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     }
 
 
-def _wkv_chunked(r, k, v, lw, u, chunk: int, use_impl: bool = True):
+def _wkv_chunked(r, k, v, lw, u, chunk: int, use_impl: bool = True,
+                 need_state: bool = False):
     """Exact chunked WKV6.  r/k/v/lw: [B,S,H,K] (lw = log decay ≤ 0), u [H,K].
     Returns o [B,S,H,V] and final state [B,H,K,V].
 
@@ -214,12 +251,9 @@ def _wkv_chunked(r, k, v, lw, u, chunk: int, use_impl: bool = True):
         from repro_torch.kernels import ops
         impl = ops.get_impl("rwkv_wkv")
         if impl is not None:
-            out = impl(r, k, v, lw, u, chunk=chunk)
-            if isinstance(out, tuple):
-                return out
             Bb, _, H, K = r.shape
-            return out, torch.zeros((Bb, H, K, v.shape[-1]),
-                                    dtype=torch.float32, device=r.device)
+            return _site_call("rwkv_wkv", impl, (r, k, v, lw, u), chunk,
+                              need_state, (Bb, H, K, v.shape[-1]), r.device)
 
     B, S, H, K = r.shape
     V = v.shape[-1]
@@ -278,8 +312,11 @@ def _token_shift(x, last):
     return prev, x[:, -1, :]
 
 
-def rwkv_time_mix(x, p, cfg: ModelConfig, *, shift_state, wkv_state):
-    """RWKV6 attention replacement.  Returns (out, (shift', wkv'))."""
+def rwkv_time_mix(x, p, cfg: ModelConfig, *, shift_state, wkv_state,
+                  need_state: bool = False):
+    """RWKV6 attention replacement.  Returns (out, (shift', wkv')).
+    ``need_state``: the caller keeps wkv' (prefill); a segment continuing
+    from ``wkv_state`` always needs it."""
     B, S, d = x.shape
     H = d // cfg.ssm.head_dim
     K = cfg.ssm.head_dim
@@ -304,7 +341,9 @@ def rwkv_time_mix(x, p, cfg: ModelConfig, *, shift_state, wkv_state):
                                  p["bonus_u"], wkv_state.float())
         o = o[:, None]
     else:
-        o, wkv_new = _wkv_chunked(r, k, v, lw, p["bonus_u"], cfg.ssm.chunk)
+        o, wkv_new = _wkv_chunked(
+            r, k, v, lw, p["bonus_u"], cfg.ssm.chunk,
+            need_state=need_state or wkv_state is not None)
         if wkv_state is not None:
             # continuing from a previous segment: fold carried state in via
             # the same cross-term identity (decode path handles step-wise).

@@ -1,3 +1,7 @@
 from repro_torch.serve.decode import (  # noqa: F401
-    BatchedServer, Request, generate,
+    BatchedServer, FixedBatchServer, Request, generate,
+)
+from repro_torch.serve.autotune import (  # noqa: F401
+    AutotuneConfig, AutotuneReport, ServeAutotuner, bucket_key, snap_scale,
+    split_bucket_key,
 )

@@ -25,6 +25,7 @@ from repro_torch.kernels.rwkv_wkv import wkv
 from repro_torch.kernels.ssd_scan import ssd
 from repro_torch.models import get_model
 from repro_torch.models.convert import params_from_jax
+from repro_torch.models.ssm import stateful_site
 from repro_torch.models.layers import init_rule
 from repro_torch.models.lm import layer_spec, top_spec
 
@@ -59,10 +60,12 @@ def _clean_registry():
 
 def kernel_sites(arch):
     """The site impls chip_smoke.py installs, bound to the CPU: the K6/K7
-    wrappers (their plain versions here) and, for hymba, K2."""
+    wrappers (their plain versions here) through ``stateful_site`` and, for
+    hymba, K2."""
     if arch == "rwkv6-7b":
-        return {"rwkv_wkv": functools.partial(wkv, device="cpu")}
-    return {"ssm_chunk": functools.partial(ssd, device="cpu"),
+        return {"rwkv_wkv": stateful_site(functools.partial(wkv,
+                                                            device="cpu"))}
+    return {"ssm_chunk": stateful_site(functools.partial(ssd, device="cpu")),
             "attention": functools.partial(flash_attention, device="cpu")}
 
 

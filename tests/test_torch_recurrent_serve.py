@@ -26,6 +26,7 @@ from repro_torch.kernels.rwkv_wkv import wkv
 from repro_torch.kernels.ssd_scan import ssd
 from repro_torch.models import get_model
 from repro_torch.models.convert import params_from_jax
+from repro_torch.models.ssm import stateful_site
 from repro_torch.serve import BatchedServer, generate
 
 MAX_NEW = 4
@@ -104,12 +105,10 @@ def test_server_through_the_kernel_sites_matches_jax(arch):
     """The site impls chip_smoke.py installs (K6, or K7 and K2), their
     plain versions on the CPU: prefill continues from their final state."""
     tm, prompts, refs = setup(arch)
-    sites = ({"rwkv_wkv": functools.partial(wkv, device="cpu")}
-             if arch == "rwkv6-7b" else
-             {"ssm_chunk": functools.partial(ssd, device="cpu"),
-              "attention": functools.partial(flash_attention, device="cpu")})
+    sites = ({"rwkv_wkv": stateful_site(wkv)} if arch == "rwkv6-7b" else
+             {"ssm_chunk": stateful_site(ssd), "attention": flash_attention})
     for site, fn in sites.items():
-        ops.install(site, fn)
+        ops.install(site, functools.partial(fn, device="cpu"))
     srv = BatchedServer(tm, slots=4, max_len=40, device="cpu")
     reqs = [srv.submit(p, max_new=MAX_NEW) for p in prompts]
     srv.run()

@@ -176,13 +176,40 @@ Phases, each fatal on failure (exit 1, no result line):
    hymba-1.5b on graphs against eager (3 rounds).  K2 and K6 must launch
    on the phase's paths.  The phase's wall time on its own line; the
    journal in chiprun_out/autotune.jsonl.
+17. The rest of the decoder-only models through K2 at ``attention``
+   (random weights from ``served_model``'s seeded generator; each model
+   freed before the next is made): (a) qwen2-moe-a2.7b (moe: 60 experts,
+   top 4, a fused shared expert) at full width and depth in bf16, the
+   slice's main path: an eager BatchedServer (4 slots, max_len 256)
+   answers phase 3's 8 requests, K2 launched at every layer of every
+   packed prefill and every launch on ``mma``; the same requests on CUDA
+   graphs must give the eager tokens (captures, their seconds, tokens/s
+   of both, peak memory); the replayed decode step and 2 x 256 prefill
+   traced (the prefill's trace must name ``fa_mma_kernel``); K2 held
+   against its plain version at every (B, S) of the run; then the
+   last-token prefill logits through K2 against the plain version, in
+   float32 at full width and depth (the model converted in place), within
+   1e-3 with no token routed to another expert set (the bf16 figures
+   printed beside, not gated); (b) command-r-35b at full width and depth
+   (bf16, 60.6 GB) and codeqwen1.5-7b, stablelm-3b (head_dim 80),
+   chameleon-34b (vlm, qk-norm) and dbrx-132b at full width cut to 4
+   layers (each cut printed as ``reduced: n_layers 40→4``), each served
+   on CUDA graphs (8 requests; 4 for the cut ones), K2 launched at every
+   layer of every prefill capture, all on ``mma``, and held against its
+   plain version at every (B, S) of the captures; (c) the int8 KV cache
+   on codeqwen1.5-7b (4 layers, float32): 8 teacher-forced decode steps
+   against the exact cache, logits within 0.25 and the argmax equal at
+   every step, the cache's bytes 130/256 of a bf16 cache's; then its 8
+   requests from the int8 cache on CUDA graphs, with the eager server's
+   tokens.  The phase's wall time on its own line.
 Then the device times at the main shapes (K2, K1 as above; K6, K7 at their
 serving runs' heaviest prefill; K3, K4, K5 as in phase 13) in a fresh
 process (with the wrapper's host µs per call where K2's CUDA-event time
 exceeds 1.5x its device time), K7's ``simt`` body, host µs a call and
 one-pass controls at its main shape (bf16; and f32: K7 on xh, B and C
 rounded to TF32, which must read above the gate), the ``kernels`` JSON
-line (K1-K7; K1, K6 and K7's launches include phase 15's; K1,
+line (K1-K7; K1, K6 and K7's launches include phase 15's, K2's phase
+17's; K1,
 K2, K5 and K7 with their launches by body, the main shape's body, the
 device time and the TF32, P-in-bf16 or one-pass controls; K2, K3, K4, K5,
 K6 and K7 with the host µs a call; K4 with phase 12's compiles and cache hits and its vector loads; K5
@@ -1384,13 +1411,19 @@ def check_recurrent_f32(model, prompts, probe, kernels, max_len, max_new):
 SERVE_MAX_NEW = 16
 
 
-def served_model(arch):
-    """``arch`` at full width and depth on the card, its weights drawn from
-    a generator seeded 0 on the card (the same weights in every phase)."""
+def served_model(arch, n_layers=None, param_dtype=None, kv_quant=False):
+    """``arch`` at full width on the card, at full depth or cut to
+    ``n_layers``, in the config's dtype or ``param_dtype``, its weights drawn
+    from a generator seeded 0 on the card (the same weights in every
+    phase)."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
-    model = get_model(get_config(arch), device="cuda")
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
+                              param_dtype=param_dtype or cfg.param_dtype)
+    model = get_model(cfg, device="cuda", kv_quant=kv_quant)
     model.init_params(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     return model
@@ -3049,9 +3082,9 @@ def serve_wave(srv, prompts, max_new=SERVE_MAX_NEW):
 
 def timed_server(srv):
     """Wraps ``srv``'s prefill and decode calls to add their synchronised
-    host seconds to ``srv.stats``."""
+    host seconds to ``srv.stats``, and its prefill calls."""
     import torch
-    srv.stats = {"prefill_s": 0.0, "decode_s": 0.0}
+    srv.stats = {"prefill_s": 0.0, "decode_s": 0.0, "prefill_calls": 0}
     for name, key in (("_prefill", "prefill_s"), ("_decode", "decode_s")):
         def call(*a, _real=getattr(srv, name), _key=key):
             torch.cuda.synchronize()
@@ -3059,6 +3092,7 @@ def timed_server(srv):
             out = _real(*a)
             torch.cuda.synchronize()
             srv.stats[_key] += time.perf_counter() - t
+            srv.stats["prefill_calls"] += _key == "prefill_s"
             return out
         setattr(srv, name, call)
     return srv
@@ -3499,6 +3533,380 @@ def phase_online(report):
           flush=True)
 
 
+# --------------------------------------------------------------------------
+# the decoder-only zoo (phase 17): the MoE family, the other dense-path
+# configs and the int8 KV cache, served through K2
+# --------------------------------------------------------------------------
+# layers served of the configs cut in depth (full width): dbrx-132b's 40
+# layers are 263 GB in bf16; the other three are cut for the run's time
+ZOO_CUTS = {"codeqwen1.5-7b": 4, "stablelm-3b": 4, "chameleon-34b": 4,
+            "dbrx-132b": 4}
+# the reference's int8-cache check (tests/test_perf_variants.py): logits
+# within 0.25 of the exact cache's, argmax equal, over 8 teacher-forced
+# steps after 16 prompt tokens
+KV_QUANT_ATOL = 0.25
+
+
+def zoo_k2_checks(arch, calls, fresh=False):
+    """K2 against its plain version at every (B, S) of ``calls`` (the first
+    call at each), each bf16 call on ``mma``; one line for the lot.  With
+    ``fresh``, on seeded normal inputs of each call's shapes and dtype: a
+    capture's warm-up prefills zero tokens, whose K/V rows are all equal,
+    so attention returns V exactly on any path and could not disagree."""
+    import torch
+    rows = []
+    for (B, S), (args, kw) in sorted(calls.items()):
+        if fresh:
+            g = torch.Generator(device="cuda").manual_seed(B * 4096 + S)
+            args = [torch.randn(a.shape, generator=g, device="cuda",
+                                dtype=a.dtype) for a in args[:3]]
+        r = compare(*args, kw.get("causal", True))
+        require_mma(r, f"{arch}'s serving shape B={B} S={S}")
+        if not agrees(r):
+            fail(f"K2 disagrees at {arch}'s serving shape: {r}")
+        rows.append(r)
+    print(f"  K2 against its plain version at {len(rows)} (B, S) of "
+          f"{arch}'s run{' (seeded inputs)' if fresh else ''} (H "
+          f"{rows[0]['H']}, KV {rows[0]['KV']}, hd "
+          f"{rows[0]['hd']}, {rows[0]['dtype']}, bodies "
+          f"{sorted({r['path'] for r in rows})}): max_abs_err "
+          f"{max(r['max_abs_err'] for r in rows):.3g}, largest tol ratio "
+          f"{max(r['tol_ratio'] for r in rows):.2f}", flush=True)
+    return rows
+
+
+def require_k2_mma_launches(arch, flash, dtype) -> None:
+    if dtype == "bfloat16" and flash.launches_by_path["simt"]:
+        fail(f"{arch}: bf16 K2 launches on the CUDA cores: "
+             f"{flash.launches_by_path}")
+
+
+def cut_line(arch, cut):
+    from repro_torch.configs import get_config
+    full = get_config(arch).n_layers
+    return (f"reduced: n_layers {full}→{cut}" if cut and cut < full
+            else f"full depth ({full} layers)")
+
+
+def routed_prefill(model, tokens, impls):
+    """``prefill_with`` that also returns each moe layer's top-k experts,
+    as sets (sorted indices) [1, S, K] a layer."""
+    from repro_torch.models import layers as L
+    real, routes = L.moe_route, []
+
+    def recording(x, p, m):
+        out = real(x, p, m)
+        routes.append(out[2].sort(dim=-1).values)
+        return out
+    L.moe_route = recording
+    try:
+        logits, _ = prefill_with(model, tokens, impls)
+    finally:
+        L.moe_route = real
+    return logits, routes
+
+
+def routing_flips(a, b) -> int:
+    """Tokens whose top-k expert set differs, summed over the layers."""
+    return sum(int((x != y).any(dim=-1).sum()) for x, y in zip(a, b))
+
+
+def moe_gate(model, tokens, flash, plain):
+    """Last-token prefill logits of ``tokens`` through K2 against the plain
+    version, and the tokens routed to another expert set between the two."""
+    import torch
+    lk, rk = routed_prefill(model, tokens, {"attention": flash})
+    lr, rr = routed_prefill(model, tokens, {"attention": plain})
+    if not (torch.isfinite(lk).all() and lk.shape == (model.cfg.vocab_size,)):
+        fail(f"{model.cfg.name}: prefill logits not finite or of shape "
+             f"{tuple(lk.shape)}")
+    return rel_err(lk, lr), routing_flips(rk, rr), len(rk)
+
+
+def zoo_graph_serve(arch, model, prompts, max_len, flash, cut=None,
+                    label=None):
+    """``model`` (``arch`` cut to ``cut`` layers) served on CUDA graphs with
+    K2 at ``attention`` (its launches counted from zero: every layer of
+    every prefill graph, each captured after one warm-up run), K2 held
+    against its plain version at every (B, S) of the captures, on seeded
+    inputs; prints the rates, captures and peak memory under ``label``.
+    Returns the readings."""
+    import torch
+    from repro_torch.kernels import ops
+    cfg = model.cfg
+    rec = FirstCalls(flash)
+    ops.clear_all()
+    ops.install("attention", rec, kernel="flash_attention", route="cuda")
+    zero_launches(flash)
+    graph = graph_server(model, max_len)
+    prefill_graphs = sum(key[0] == "prefill" for key in graph._graphs)
+    need = 2 * cfg.n_layers * prefill_graphs
+    launches, by_path = flash.launches, dict(flash.launches_by_path)
+    if need == 0 or launches != need:
+        fail(f"{arch}: {launches} K2 launches in {prefill_graphs} prefill "
+             f"captures of {cfg.n_layers} layers, {need} expected")
+    require_k2_mma_launches(arch, flash, cfg.param_dtype)
+    t = time.perf_counter()
+    tokens = serve_wave(graph, prompts)
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    gib = sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30
+    label = label or arch
+    out = {"arch": arch, "layers": cfg.n_layers, "cut": cut_line(arch, cut),
+           "param_gib": gib, "requests": len(prompts),
+           "prompt_lengths": [len(p) for p in prompts],
+           "captures": graph.aot_compiles, "capture_s": graph.capture_s,
+           "k2_launches": launches, "k2_launches_by_path": by_path,
+           "decode_tokens_per_s": len(prompts) * (SERVE_MAX_NEW - 1)
+           / graph.stats["decode_s"],
+           "prefill_tokens_per_s": sum(map(len, prompts))
+           / graph.stats["prefill_s"],
+           "wall_s": wall, "peak_memory_bytes": peak, "tokens": tokens}
+    print(f"{label}: {cfg.family}, {cut_line(arch, cut)}, full width (d_model "
+          f"{cfg.d_model}, H {cfg.n_heads}, KV {cfg.n_kv_heads}, hd "
+          f"{cfg.resolved_head_dim}), {cfg.param_dtype}, {gib:.2f} GiB: "
+          f"{len(prompts)} requests on CUDA graphs ({graph.aot_compiles} "
+          f"captures in {graph.capture_s:.2f} s, K2 launched {launches} "
+          f"times in them, by body {by_path}) in {wall:.2f} s: decode "
+          f"{out['decode_tokens_per_s']:.1f} tokens/s, prefill "
+          f"{out['prefill_tokens_per_s']:.1f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    out["checks"] = zoo_k2_checks(label, rec.calls, fresh=True)
+    graph._graphs.clear()
+    ops.clear_all()
+    return out
+
+
+def free_card():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def phase_zoo(report):
+    """Phase 17: the rest of the decoder-only models through K2.
+    qwen2-moe-a2.7b at full width and depth (the main path: eager and
+    CUDA-graph serving, K2 launches and checks, the f32 gate with routing
+    flips, replayed steps traced), command-r-35b at full width and depth,
+    codeqwen1.5-7b, stablelm-3b, chameleon-34b and dbrx-132b at full width
+    cut to 4 layers, and the int8 KV cache on codeqwen1.5-7b.  Returns
+    (K2 launches, launches by body, checks) of the phase."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import BatchedServer
+
+    t0 = time.perf_counter()
+    out = report["zoo"] = {}
+    flash, plain = kernel_pair("flash_attention")
+    total, checks = {}, []
+
+    # ---- qwen2-moe-a2.7b at full width and depth, bf16 -----------------
+    arch = "qwen2-moe-a2.7b"
+    free_card()
+    model = served_model(arch)
+    cfg = model.cfg
+    gib = sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30
+    lengths, prompts, max_len, probe = serve_workload(cfg)
+    rec = FirstCalls(flash)
+    ops.clear_all()
+    ops.install("attention", rec, kernel="flash_attention", route="cuda")
+    warm = BatchedServer(model, slots=4, max_len=max_len, aot=False)
+    serve_wave(warm, [p[:16] for p in prompts[:2]], max_new=2)
+    del warm
+    rec.calls.clear()
+    eager = timed_server(BatchedServer(model, slots=4, max_len=max_len,
+                                       aot=False))
+    zero_launches(flash)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    eager_tokens = serve_wave(eager, prompts)
+    wall = time.perf_counter() - t
+    eager_calls = dict(rec.calls)
+    q = {"arch": arch, "layers": cfg.n_layers, "param_gib": gib,
+         "prompt_lengths": lengths.tolist(), "eager_wall_s": wall,
+         "eager_peak_memory_bytes": torch.cuda.max_memory_allocated(),
+         "k2_launches": flash.launches,
+         "k2_launches_by_path": dict(flash.launches_by_path),
+         "prefill_calls": eager.stats["prefill_calls"],
+         "eager_decode_tokens_per_s": len(prompts) * (SERVE_MAX_NEW - 1)
+         / eager.stats["decode_s"],
+         "eager_prefill_tokens_per_s": int(lengths.sum())
+         / eager.stats["prefill_s"]}
+    add_launches(total, "k2", read_launches(flash))
+    need = cfg.n_layers * eager.stats["prefill_calls"]
+    print(f"{arch}: moe ({cfg.moe.n_experts} experts, top {cfg.moe.top_k}, "
+          f"{cfg.moe.n_shared} shared fused to {cfg.moe.d_ff_shared}), "
+          f"full depth ({cfg.n_layers} layers), bf16, {gib:.2f} GiB: an eager"
+          f" BatchedServer served {len(prompts)} requests (prompt lengths "
+          f"{lengths.tolist()}, padded buckets) in {wall:.2f} s: "
+          f"{q['prefill_calls']} packed prefills, K2 launches "
+          f"{q['k2_launches']} ({need} needed), by body "
+          f"{q['k2_launches_by_path']}; decode "
+          f"{q['eager_decode_tokens_per_s']:.1f} tokens/s, prefill "
+          f"{q['eager_prefill_tokens_per_s']:.1f} tokens/s, peak memory "
+          f"{q['eager_peak_memory_bytes'] / 2**30:.2f} GiB", flush=True)
+    if need == 0 or flash.launches != need:
+        fail(f"{arch}: K2 launches {flash.launches}, {need} expected")
+    require_k2_mma_launches(arch, flash, cfg.param_dtype)
+    zero_launches(flash)
+    graph = graph_server(model, max_len)
+    t = time.perf_counter()
+    graph_tokens = serve_wave(graph, prompts)
+    q.update(graph_wall_s=time.perf_counter() - t,
+             captures=graph.aot_compiles, capture_s=graph.capture_s,
+             graph_bytes=graph.graph_bytes,
+             graph_peak_memory_bytes=torch.cuda.max_memory_allocated(),
+             graph_decode_tokens_per_s=len(prompts) * (SERVE_MAX_NEW - 1)
+             / graph.stats["decode_s"],
+             graph_prefill_tokens_per_s=int(lengths.sum())
+             / graph.stats["prefill_s"],
+             tokens=graph_tokens,
+             graph_equals_eager=sum(a == b for a, b in zip(graph_tokens,
+                                                           eager_tokens)))
+    add_launches(total, "k2", read_launches(flash))
+    require_k2_mma_launches(arch, flash, cfg.param_dtype)
+    print(f"{arch}: on CUDA graphs ({graph.aot_compiles} captures in "
+          f"{graph.capture_s:.2f} s, {graph.graph_bytes / 2**20:.1f} MiB): "
+          f"decode {q['graph_decode_tokens_per_s']:.1f} tokens/s, prefill "
+          f"{q['graph_prefill_tokens_per_s']:.1f} tokens/s, peak memory "
+          f"{q['graph_peak_memory_bytes'] / 2**30:.2f} GiB; "
+          f"{q['graph_equals_eager']}/{len(prompts)} requests with the eager"
+          f" server's tokens", flush=True)
+    if graph_tokens != eager_tokens:
+        fail(f"{arch}: the graph server's tokens differ from the eager "
+             f"server's")
+    q["decode_replay"] = replay_split(graph, ("decode",))
+    print_split(arch, "replayed decode step", q["decode_replay"])
+    q["prefill_replay"] = replay_split(graph, ("prefill", 256, 2), top=500)
+    print_split(arch, "replayed prefill, 2 x 256", q["prefill_replay"])
+    k2 = [t for t in q["prefill_replay"]["top_kernels"]
+          if "fa_mma_kernel" in t["kernel"]]
+    print(f"{arch}: K2 in the replayed prefill's trace: {k2}", flush=True)
+    if not k2:
+        fail(f"{arch}: the replayed prefill graph's trace names no "
+             f"fa_mma_kernel")
+    q["prefill_replay"]["top_kernels"] = q["prefill_replay"]["top_kernels"][:8]
+    q["checks"] = zoo_k2_checks(arch, eager_calls) + zoo_k2_checks(
+        f"{arch} (captures)", {k: c for k, c in rec.calls.items()
+                               if k not in eager_calls}, fresh=True)
+    checks += q["checks"]
+    del graph, eager
+    ops.clear_all()
+    free_card()
+    # the gate: last-token prefill logits, K2 against the plain version.  In
+    # bf16 through 24 random layers a router near-tie flips an expert set
+    # and the logits with it (printed); gated in float32, converted in place
+    # (the bf16 and the f32 model do not fit the card together)
+    p0 = torch.as_tensor(prompts[probe], dtype=torch.long,
+                         device="cuda")[None]
+    rel16, flips16, n_layers = moe_gate(model, p0, flash, plain)
+    model.float()
+    model.dtype = torch.float32
+    model.cfg = cfg = dataclasses.replace(cfg, param_dtype="float32")
+    rel, flips, _ = moe_gate(model, p0, flash, plain)
+    q.update(bf16_logits_rel_err=rel16, bf16_routing_flips=flips16,
+             f32_logits_rel_err=rel, f32_routing_flips=flips,
+             f32_peak_memory_bytes=torch.cuda.max_memory_allocated())
+    print(f"{arch}: prefill (prompt of {len(prompts[probe])}) through K2 vs "
+          f"the plain version, last-token logits relative to the largest: "
+          f"float32 {rel:.3g} (tol {RECURRENT_F32_RTOL}), tokens routed to "
+          f"another expert set over {n_layers} layers {flips}; bf16 (not "
+          f"gated) {rel16:.3g}, {flips16} routed elsewhere; f32 peak memory "
+          f"{q['f32_peak_memory_bytes'] / 2**30:.2f} GiB", flush=True)
+    if rel > RECURRENT_F32_RTOL or flips:
+        fail(f"{arch}: float32 prefill through K2 differs: logits {rel:.3g}, "
+             f"{flips} routing flips")
+    out[arch] = q
+    del model
+    free_card()
+
+    # ---- command-r-35b at full width and depth, then the depth cuts ----
+    for arch in ("command-r-35b", *ZOO_CUTS):
+        cut = ZOO_CUTS.get(arch)
+        model = served_model(arch, n_layers=cut)
+        _, prompts, max_len, _ = serve_workload(model.cfg)
+        r = zoo_graph_serve(arch, model, prompts if cut is None
+                            else prompts[:4], max_len, flash, cut)
+        add_launches(total, "k2", {"total": r["k2_launches"],
+                                   **r["k2_launches_by_path"]})
+        checks += r["checks"]
+        out[arch] = r
+        del model
+        free_card()
+
+    # ---- the int8 KV cache: codeqwen1.5-7b, 4 layers, float32 ----------
+    arch, cut = "codeqwen1.5-7b", ZOO_CUTS["codeqwen1.5-7b"]
+    exact = served_model(arch, n_layers=cut, param_dtype="float32")
+    quant = served_model(arch, n_layers=cut, param_dtype="float32",
+                         kv_quant=True)
+    quant.load_state_dict(exact.state_dict())
+    ops.clear_all()
+    ops.install("attention", flash, kernel="flash_attention", route="cuda")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    toks = torch.randint(0, exact.cfg.vocab_size, (2, 24), generator=g,
+                         device="cuda")
+    vocab = exact.cfg.vocab_size
+    worst, agree = 0.0, 0
+    with torch.no_grad():
+        _, c0 = exact.prefill(toks[:, :16], max_len=24)
+        _, c1 = quant.prefill(toks[:, :16], max_len=24)
+        for i in range(16, 24):
+            g0, c0 = exact.decode_step(c0, toks[:, i:i + 1], i)
+            g1, c1 = quant.decode_step(c1, toks[:, i:i + 1], i)
+            g0, g1 = g0[..., :vocab], g1[..., :vocab]
+            worst = max(worst, (g0 - g1).abs().max().item())
+            agree += int(torch.equal(g0.argmax(-1), g1.argmax(-1)))
+    nbytes = {name: sum(t.numel() * t.element_size() for t in c.values())
+              for name, c in (("int8", c1), ("exact", c0))}
+    bf16 = sum(t.numel() * 2 for t in c0.values())
+    kv = {"arch": arch, "cut": cut_line(arch, cut),
+          "max_abs_logit_diff": worst, "argmax_equal_steps": agree,
+          "cache_bytes_int8": nbytes["int8"],
+          "cache_bytes_f32": nbytes["exact"], "cache_bytes_bf16": bf16}
+    print(f"{arch}: int8 KV cache, {kv['cut']}, full width, float32: 8 "
+          f"teacher-forced steps after 16 prompt tokens (2 rows), largest "
+          f"logit difference from the exact cache {worst:.4g} (tol "
+          f"{KV_QUANT_ATOL}), argmax equal at {agree}/8 steps; cache bytes "
+          f"(2 rows x 24) int8 + bf16 scales {nbytes['int8']:,}, a bf16 "
+          f"cache {bf16:,} ({nbytes['int8'] / bf16:.4f} of it; 130/256 = "
+          f"{130 / 256:.4f}), this f32 cache {nbytes['exact']:,}", flush=True)
+    if worst >= KV_QUANT_ATOL or agree != 8:
+        fail(f"{arch}: the int8 cache's decode leaves the exact cache's: {kv}")
+    if nbytes["int8"] * 256 != bf16 * 130:
+        fail(f"{arch}: the int8 cache holds {nbytes['int8']} bytes, not "
+             f"130/256 of {bf16}")
+    del exact, c0, c1
+    _, prompts, max_len, _ = serve_workload(quant.cfg)
+    eager_tokens = serve_wave(BatchedServer(quant, slots=4, max_len=max_len,
+                                            aot=False), prompts)
+    kv["graph"] = r = zoo_graph_serve(arch, quant, prompts, max_len, flash,
+                                      cut, label=f"{arch} (int8 KV cache)")
+    kv["graph_equals_eager"] = sum(a == b for a, b in zip(r["tokens"],
+                                                          eager_tokens))
+    print(f"{arch}: from the int8 cache, {kv['graph_equals_eager']}/"
+          f"{len(prompts)} requests on CUDA graphs with the eager server's "
+          f"tokens", flush=True)
+    if r["tokens"] != eager_tokens:
+        fail(f"{arch}: int8-cache graph tokens differ from eager")
+    add_launches(total, "k2", {"total": r["k2_launches"],
+                               **r["k2_launches_by_path"]})
+    checks += r["checks"]
+    out["kv_quant"] = kv
+    del quant
+    ops.clear_all()
+    free_card()
+    out["seconds"] = time.perf_counter() - t0
+    by_path = dict(total["k2"])
+    launches = out["k2_launches"] = by_path.pop("total")
+    out["k2_launches_by_path"] = by_path
+    print(f"phase 17 (the decoder-only zoo) took {out['seconds']:.1f} s; K2 "
+          f"launched {launches} times in it, by body {by_path}", flush=True)
+    return launches, by_path, checks
+
+
 def main() -> None:
     import gc
     import torch
@@ -3569,6 +3977,8 @@ def main() -> None:
     lap("population")
     phase_online(report)
     lap("online")
+    zoo_launches, zoo_by_path, zoo_checks = phase_zoo(report)
+    lap("decoder-only zoo")
     wkv_main, wkv_call = main_recurrent_shape("wkv", rwkv_calls["wkv"])
     wkv_main["host_us_per_call"] = host_us_per_call(
         lambda: kernel_pair("wkv")[0](*wkv_call[0], **wkv_call[1]))
@@ -3603,7 +4013,7 @@ def main() -> None:
               flush=True)
     k2_by_path = {body: sum(report[f"serve_{a}"]["launches_by_path"][
         "flash_attention"][body] for a in ("glm4-9b", "hymba-1.5b"))
-        for body in ("mma", "simt")}
+        + zoo_by_path[body] for body in ("mma", "simt")}
 
     k7_by_path = {body: report["serve_hymba-1.5b"]["launches_by_path"][
         "ssd"][body] + pop_launches["ssd"][body] for body in ("mma", "simt")}
@@ -3621,12 +4031,12 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:82",
         "launches": glm_launches["flash_attention"]
-        + hymba_launches["flash_attention"],
+        + hymba_launches["flash_attention"] + zoo_launches,
         "launches_by_path": k2_by_path,
         "main_shape_path": main_shape["path"],
         "max_abs_err": max(r["max_abs_err"] for r in
                            glm_checks["flash_attention"] + k2_pipeline_checks
-                           + hymba_checks["flash_attention"]),
+                           + hymba_checks["flash_attention"] + zoo_checks),
         "ms": main_shape["ms"], "device_ms": main_shape["kernel_device_ms"],
         "simt_ms": main_shape["simt_ms"],
         "host_us_per_call": main_shape["host_us_per_call"],

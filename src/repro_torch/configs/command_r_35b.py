@@ -1,0 +1,21 @@
+"""command-r-35b — dense GQA, no-bias, parallel block [hf:CohereForAI/c4ai-command-r-v01; unverified]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="command-r-35b",
+    family="dense",
+    n_layers=40,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=22528,
+    vocab_size=256000,
+    head_dim=128,
+    rope_theta=8_000_000.0,
+    act="swiglu",
+    qkv_bias=False,          # assigned: no-bias
+    parallel_block=True,     # cohere runs attn and mlp in parallel
+    tie_embeddings=True,
+    norm_eps=1e-5,
+    source="hf:CohereForAI/c4ai-command-r-v01 (assigned dims; unverified tier)",
+)

@@ -1,5 +1,5 @@
-"""Core transformer layers, dense subset: norms, RoPE, chunked and decode
-attention, MLP.
+"""Core transformer layers: norms, RoPE, chunked and decode attention (with
+the int8 KV cache's quantization), MLP, MoE.
 
 Port of ``repro.models.layers``.  Shapes follow [batch, seq, heads,
 head_dim] and weights keep the JAX package's ``[in, out]`` layout, so
@@ -9,8 +9,9 @@ hotspot ``attention_chunked`` consults the kernel-variant registry
 (``repro_torch.kernels.ops``) so an installed kernel takes over without
 touching model code.
 
-Not ported here: ``kv_quantize``, context-parallel attention,
-``flash_decode_sharded`` and MoE (no sharding in the port yet).
+Not ported here: context-parallel attention, ``flash_decode_sharded`` and
+the ``ShardCtx``/``shard_map`` branches of ``moe_block`` (no sharding in
+the port yet).
 """
 from __future__ import annotations
 
@@ -209,14 +210,35 @@ def decode_lengths(pos, batch: int, device=None):
     return torch.as_tensor(pos, device=device).long() + 1
 
 
+# ---- int8 KV-cache quantization (per-position, per-kv-head scales) ------
+def kv_quantize(x):
+    """x [..., hd] → (int8 values, bf16 scales [..., 1]); rounds half to
+    even, as ``jnp.round`` does."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-8
+    q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def kv_dequantize(q, scale, dtype=torch.float32):
+    return (q.float() * scale.float()).to(dtype)
+
+
 def attention_decode(q, k_cache, v_cache, length: Optional[torch.Tensor] = None,
-                     softcap: float = 0.0):
-    """Single-token decode: q [B, 1, H, hd] vs caches [B, T, KV, hd]."""
+                     softcap: float = 0.0, k_scale=None, v_scale=None):
+    """Single-token decode: q [B, 1, H, hd] vs caches [B, T, KV, hd]
+    (optionally int8 with per-position scales, attended in f32).  Returns
+    q's dtype; the JAX twin returns the promoted f32 over an int8 cache,
+    which its bf16 models cannot carry through their layer scan."""
+    if k_scale is not None:
+        k_cache = kv_dequantize(k_cache, k_scale)
+        v_cache = kv_dequantize(v_cache, v_scale)
     B, _, H, hd = q.shape
     T, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
     scale = 1.0 / math.sqrt(hd)
-    qh = q.reshape(B, KV, G, hd)
+    qh = q.reshape(B, KV, G, hd).to(torch.promote_types(q.dtype,
+                                                        k_cache.dtype))
     s = torch.einsum("bkgh,btkh->bkgt", qh, k_cache).float() * scale
     if softcap > 0.0:
         s = torch.tanh(s / softcap) * softcap
@@ -225,7 +247,7 @@ def attention_decode(q, k_cache, v_cache, length: Optional[torch.Tensor] = None,
         s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgt,btkh->bkgh", p, v_cache)
-    return out.reshape(B, 1, H, hd)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -254,3 +276,104 @@ def mlp(x, p, cfg: ModelConfig):
     if cfg.mlp_bias:
         out = out + p["b2"]
     return out
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts (capacity-based per-sequence local dispatch)
+# --------------------------------------------------------------------------
+def moe_param_spec(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    m = cfg.moe
+    d, fe = cfg.d_model, m.d_ff_expert
+    spec = {
+        "router": (d, m.n_experts),
+        "we1": (m.n_experts, d, fe),
+        "we2": (m.n_experts, fe, d),
+        "we3": (m.n_experts, d, fe),
+    }
+    if m.n_shared:
+        spec.update({
+            "ws1": (d, m.d_ff_shared),
+            "ws2": (m.d_ff_shared, d),
+            "ws3": (d, m.d_ff_shared),
+            "ws_gate": (d, 1),
+        })
+    return spec
+
+
+def _moe_capacity(S: int, m) -> int:
+    c = int(math.ceil(S * m.top_k * m.capacity_factor / m.n_experts))
+    return max(4, ((c + 3) // 4) * 4)
+
+
+def moe_route(x, p, m):
+    """Router of a MoE layer: (probs f32 [B, S, E], gates [B, S, K]
+    renormalised over the top k, expert indices [B, S, K]).  Ties go to the
+    lower expert index, as ``lax.top_k`` breaks them (a stable descending
+    sort; ``torch.topk`` leaves their order unspecified, and bf16 router
+    logits tie)."""
+    probs = torch.softmax((x @ p["router"]).float(), dim=-1)
+    gate, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, eidx = gate[..., :m.top_k], eidx[..., :m.top_k]
+    return probs, gate / gate.sum(dim=-1, keepdim=True), eidx
+
+
+def moe_block(x, p, cfg: ModelConfig):
+    """x: [B, S, d].  Tokens are routed within their own sequence, top k of
+    E experts each.  Decode (S == 1) runs every expert and combines by the
+    gates; a parallel call dispatches each expert at most ``_moe_capacity``
+    tokens, in sequence order, and drops the rest (a dropped token's slot
+    gets zeros added, as the JAX twin's ``.at[].add`` does, so it leaves the
+    kept token there intact).  Every shape is static for a given (B, S), so
+    the block is captured in a CUDA graph as it is."""
+    m = cfg.moe
+    B, S, d = x.shape
+    E, K = m.n_experts, m.top_k
+    a = act_fn(cfg.act)
+    _, gate, eidx = moe_route(x, p, m)
+    gate = gate.to(x.dtype)
+
+    if S == 1:
+        # decode: all-expert dense compute then weighted combine
+        xe = x[:, 0].expand(E, B, d)                        # [E, B, d]
+        h = a(torch.bmm(xe, p["we1"])) * torch.bmm(xe, p["we3"])
+        ye = torch.bmm(h, p["we2"])                         # [E, B, d]
+        w = torch.zeros((B, E), dtype=x.dtype, device=x.device).scatter_(
+            -1, eidx[:, 0], gate[:, 0])                     # [B, E]
+        out = torch.einsum("ebd,be->bd", ye, w)[:, None]
+    else:
+        C = _moe_capacity(S, m)
+        T = S * K
+        ef = eidx.reshape(B, T)                             # [B, T]
+        gf = gate.reshape(B, T)
+        # a token's place in its expert's queue, in sequence order; the
+        # scan runs along the contiguous axis (along T as the middle axis
+        # CUDA scans one column a thread: among a prefill's slowest kernels)
+        onehot = F.one_hot(ef, E).transpose(1, 2).contiguous()  # [B, E, T]
+        pos = ((onehot.cumsum(dim=-1) - onehot) * onehot).sum(dim=1)
+        keep = (pos < C).to(x.dtype)                        # [B, T]
+        xk = x[:, :, None].expand(B, S, K, d).reshape(B, T, d)  # s*K + j
+        pos_c = pos.clamp(max=C - 1)
+        rows = torch.arange(B, device=x.device)[:, None]
+        slot = (rows * E + ef) * C + pos_c                  # [B, T]
+        buf = torch.zeros((B * E * C, d), dtype=x.dtype, device=x.device)
+        buf.index_add_(0, slot.reshape(-1),
+                       (xk * keep[..., None]).reshape(B * T, d))
+        buf = buf.view(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
+        h = a(torch.bmm(buf, p["we1"])) * torch.bmm(buf, p["we3"])
+        ye = torch.bmm(h, p["we2"]).view(E, B, C, d)
+        yk = ye[ef, rows, pos_c] * (gf * keep)[..., None]   # [B, T, d]
+        out = yk.reshape(B, S, K, d).sum(dim=2)
+
+    if m.n_shared:
+        h = a(x @ p["ws1"]) * (x @ p["ws3"])
+        sgate = torch.sigmoid((x @ p["ws_gate"]).float())
+        out = out + (h @ p["ws2"]) * sgate.to(x.dtype)
+    return out
+
+
+def moe_aux_loss(x, p, cfg: ModelConfig) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style)."""
+    m = cfg.moe
+    probs, _, eidx = moe_route(x, p, m)
+    frac = F.one_hot(eidx, m.n_experts).float().mean(dim=(0, 1, 2))
+    return m.n_experts * (frac * probs.mean(dim=(0, 1))).sum()

@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense, ssm and hybrid families, as an ``nn.Module``.
+"""Decoder-only LM covering the dense / vlm / moe / hybrid / ssm families,
+as an ``nn.Module``.
 
 Port of ``repro.models.lm``.  Layers are an ``nn.ModuleList`` run by an
 explicit Python loop (the JAX twin scans stacked layers with remat).
@@ -9,11 +10,16 @@ module's state dict.
 Entry points:
   forward(tokens)                     — parallel forward → hidden states
   prefill(tokens, max_len, lengths)   — last-token logits + cache: K/V
-                                        (dense, hybrid) and the recurrent
+                                        (every family but ssm; int8 with
+                                        per-position scales under
+                                        ``kv_quant``) and the recurrent
                                         state (ssm: wkv, token shifts;
                                         hybrid: conv tail, SSD state)
   decode_step(cache, token, pos)      — one token per row; the cache is
                                         updated in place
+
+vlm is the dense path (its image tokens are vocabulary entries); a moe
+layer has ``moe_block`` where the others have the MLP.
 """
 from __future__ import annotations
 
@@ -29,6 +35,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the cache entries held per position (written at [:S] by prefill and at
+# ``pos`` by decode); every other entry is a recurrent state, whole per row
+KV_ENTRIES = ("k", "v", "k_scale", "v_scale")
 
 
 def layer_spec(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
@@ -42,7 +51,10 @@ def layer_spec(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     spec.update(L.attn_param_spec(cfg))
     if not cfg.parallel_block:
         spec["ln2"] = (d,)
-    spec.update(L.mlp_param_spec(cfg))
+    if cfg.family == "moe":
+        spec.update(L.moe_param_spec(cfg))
+    else:
+        spec.update(L.mlp_param_spec(cfg))
     if cfg.family == "hybrid":
         spec.update({f"mamba_{k}": v
                      for k, v in SSM.mamba_param_spec(cfg).items()})
@@ -75,15 +87,18 @@ class ParamGroup(nn.Module):
 
 
 class LM(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device="cuda"):
+    def __init__(self, cfg: ModelConfig, *, device="cuda",
+                 kv_quant: bool = False):
         super().__init__()
-        if cfg.family not in ("dense", "ssm", "hybrid"):
+        if cfg.family not in ("dense", "vlm", "moe", "hybrid", "ssm"):
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: dense, ssm and "
-                "hybrid are; moe, encdec and vlm come with ROADMAP.md queue 1 "
-                "(\"The MoE family\", \"Encoder–decoder\", \"The other "
-                "dense-path configs\")")
+                f"family {cfg.family!r} is not ported yet: dense, vlm, moe, "
+                "hybrid and ssm are; encdec comes with ROADMAP.md queue 1 "
+                "(\"Encoder–decoder\")")
         self.cfg = cfg
+        # int8 KV cache with per-(position, kv-head) bf16 scales: 130/256
+        # of a bf16 cache's bytes at head_dim 128
+        self.kv_quant = kv_quant
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.param_dtype]
         self.layers = nn.ModuleList(
@@ -126,11 +141,16 @@ class LM(nn.Module):
             att = L.attention_chunked(q, k, v, causal=True,
                                       softcap=cfg.logit_softcap)
         else:
-            L.cache_update(cache["k"], k, pos)
-            L.cache_update(cache["v"], v, pos)
+            kv = {"k": k, "v": v}
+            if self.kv_quant:
+                for name in ("k", "v"):
+                    kv[name], kv[f"{name}_scale"] = L.kv_quantize(kv[name])
+            for name, t in kv.items():
+                L.cache_update(cache[name], t, pos)
             length = L.decode_lengths(pos, B, x.device)
-            att = L.attention_decode(q, cache["k"], cache["v"], length,
-                                     cfg.logit_softcap)
+            att = L.attention_decode(
+                q, cache["k"], cache["v"], length, cfg.logit_softcap,
+                **{n: cache[n] for n in ("k_scale", "v_scale") if n in kv})
         attn_out = att.reshape(B, S, -1) @ p["wo"]
         new = {"k": k, "v": v}
         if cfg.family == "hybrid":
@@ -148,8 +168,10 @@ class LM(nn.Module):
         if cfg.parallel_block:
             return x + attn_out + L.mlp(h, p, cfg), new
         x = x + attn_out
-        x = x + L.mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps), p, cfg)
-        return x, new
+        h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        if cfg.family == "moe":
+            return x + L.moe_block(h2, p, cfg), new
+        return x + L.mlp(h2, p, cfg), new
 
     def _rwkv_block(self, x, p, cache, need_state: bool = False):
         """One RWKV6 block (time mix, channel mix); decodes from ``cache``
@@ -208,15 +230,21 @@ class LM(nn.Module):
     # ------------------------------------------------------------------
     def cache_shapes(self, batch: int, max_len: int):
         """name → (shape, dtype) of the decode cache: K/V for the attention
-        families, the recurrent state (f32 for wkv/ssm) for ssm/hybrid;
-        every entry has the layer axis first."""
+        families (int8, with bf16 ``k_scale``/``v_scale`` a position and kv
+        head, under ``kv_quant``), the recurrent state (f32 for wkv/ssm) for
+        ssm/hybrid; every entry has the layer axis first."""
         cfg = self.cfg
         Lc = cfg.n_layers
         shapes = {}
         if cfg.family != "ssm":
             kv = (Lc, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-            shapes["k"] = (kv, self.dtype)
-            shapes["v"] = (kv, self.dtype)
+            kv_dtype = torch.int8 if self.kv_quant else self.dtype
+            shapes["k"] = (kv, kv_dtype)
+            shapes["v"] = (kv, kv_dtype)
+            if self.kv_quant:
+                sc = (Lc, batch, max_len, cfg.n_kv_heads, 1)
+                shapes["k_scale"] = (sc, torch.bfloat16)
+                shapes["v_scale"] = (sc, torch.bfloat16)
         if cfg.family == "hybrid":
             ms = SSM.mamba_state_shape(cfg, batch)
             shapes["conv"] = ((Lc,) + ms["conv"], self.dtype)
@@ -242,7 +270,11 @@ class LM(nn.Module):
         ``lengths-1`` per row instead of the last column.  Under causal
         attention the pad tail never influences earlier positions, so a
         packed prefill equals per-request prefills (pad K/V beyond
-        ``lengths`` is masked out at decode by the per-slot length).
+        ``lengths`` is masked out at decode by the per-slot length) — except
+        in the moe family, where an expert's capacity grows with the padded
+        length, so a padded row may drop fewer tokens than the same prompt
+        alone (as in the JAX twin).  Attention runs in full precision; under
+        ``kv_quant`` the cache stores the quantized K/V and their scales.
         """
         B, Sq = tokens.shape
         max_len = max_len or Sq
@@ -256,7 +288,10 @@ class LM(nn.Module):
         cache = self.init_cache(B, max_len)
         for i, new in enumerate(caches):
             for name, t in new.items():
-                if name in ("k", "v"):
+                if name in KV_ENTRIES:
+                    if self.kv_quant:
+                        t, scale = L.kv_quantize(t)
+                        cache[f"{name}_scale"][i, :, :Sq] = scale
                     cache[name][i, :, :Sq] = t
                 else:                      # recurrent state: the row's end
                     cache[name][i] = t
@@ -278,7 +313,7 @@ class LM(nn.Module):
                                  cache={n: c[i] for n, c in cache.items()},
                                  pos=pos)
             for name, t in new.items():
-                if name not in ("k", "v"):  # K/V were written at pos
+                if name not in KV_ENTRIES:  # K/V were written at pos
                     cache[name][i].copy_(t)
         x = L.rms_norm(x, self.top.final_ln, self.cfg.norm_eps)
         return self.logits_fn(x), cache

@@ -11,9 +11,13 @@ KV-cache *slots* and streams greedy decode continuously:
   prefilled as one packed batch per bucket per admission wave.  Under
   causal attention the pad tail cannot influence earlier positions and pad
   K/V beyond the true length is masked out at decode, so packed prefill
-  equals per-request prefill.  The recurrent families (ssm, hybrid) pack
-  exact-length groups instead: a pad token would enter the cumulative
-  state (``padded_packing`` False, ``bucket_of`` the prompt length).
+  equals per-request prefill — except in the moe family, where an
+  expert's capacity grows with the padded length, so a padded row may
+  drop fewer tokens than the prompt alone (the JAX twin's docstring calls
+  packing exact; the port mirrors its code).  The recurrent families
+  (ssm, hybrid) pack exact-length groups instead: a pad token would enter
+  the cumulative state (``padded_packing`` False, ``bucket_of`` the
+  prompt length).
 * **CUDA graphs** (``aot``, the counterpart of the JAX twin's per-bucket
   AOT executables) — one decode graph over all slots (token and positions
   in static buffers, greedy argmax inside, the live cache as its state:
@@ -39,8 +43,9 @@ KV-cache *slots* and streams greedy decode continuously:
 * **Per-bucket telemetry** — every prefill/decode event is observed at the
   ``attention`` site and tagged with the request's bucket.
 
-Every ported family (dense, ssm, hybrid); the cache's recurrent-state
-entries are spliced into their slots like K/V.  ``FixedBatchServer`` is
+Every decoder-only family (dense, vlm, moe, hybrid, ssm), with the int8
+KV cache too (``LM(kv_quant=True)``); the cache's scales and
+recurrent-state entries are spliced into their slots like K/V.  ``FixedBatchServer`` is
 the pre-continuous baseline of the table-9 comparison (single shared
 decode position, one prefill call per request), eager.
 """

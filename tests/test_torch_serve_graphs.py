@@ -2,7 +2,9 @@
 with the hand-written kernels at their sites (K2 at ``attention``, K6 at
 ``rwkv_wkv``, K7 at ``ssm_chunk``), random weights from a seeded generator.
 
-* the graph server serves the eager server's tokens, request for request;
+* the graph server serves the eager server's tokens, request for request
+  (qwen2-moe-a2.7b: the MoE block's capacity dispatch inside the prefill
+  graphs; codeqwen1.5-7b from the int8 KV cache);
 * ``aot_compiles`` is 1 + len(buckets) x len(row counts) at construction
   and again after an epoch bump (one decode graph alone for the recurrent
   families, which prefill eagerly at exact lengths);
@@ -35,6 +37,7 @@ from repro_torch.serve import AutotuneConfig, BatchedServer, ServeAutotuner
 pytestmark = pytest.mark.cuda
 
 SITES = {"glm4-9b": {"attention": flash_attention},
+         "qwen2-moe-a2.7b": {"attention": flash_attention},
          "rwkv6-7b": {"rwkv_wkv": stateful_site(wkv)},
          "hymba-1.5b": {"ssm_chunk": stateful_site(ssd),
                         "attention": flash_attention}}
@@ -52,10 +55,10 @@ def cuda():
     ops.telemetry.reset()
 
 
-def model_of(arch):
+def model_of(arch, **kw):
     cfg = dataclasses.replace(get_config(arch).reduced(),
                               param_dtype="float32")
-    model = get_model(cfg, device="cuda")
+    model = get_model(cfg, device="cuda", **kw)
     model.init_params(torch.Generator(device="cuda").manual_seed(0))
     return model
 
@@ -91,6 +94,17 @@ def test_graph_server_serves_the_eager_tokens(cuda, arch):
                   ps)
     srv = BatchedServer(model, slots=4, max_len=MAX_LEN)
     assert srv.aot
+    assert serve(srv, ps) == eager
+
+
+def test_graph_server_serves_from_the_int8_cache(cuda):
+    model = model_of("codeqwen1.5-7b", kv_quant=True)
+    ops.install("attention", flash_attention)
+    ps = prompts(model)
+    eager = serve(BatchedServer(model, slots=4, max_len=MAX_LEN, aot=False),
+                  ps)
+    srv = BatchedServer(model, slots=4, max_len=MAX_LEN)
+    assert srv.cache["k"].dtype == torch.int8
     assert serve(srv, ps) == eager
 
 

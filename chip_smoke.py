@@ -202,14 +202,35 @@ Phases, each fatal on failure (exit 1, no result line):
    every step, the cache's bytes 130/256 of a bf16 cache's; then its 8
    requests from the int8 cache on CUDA graphs, with the eager server's
    tokens.  The phase's wall time on its own line.
-Then the device times at the main shapes (K2, K1 as above; K6, K7 at their
+18. whisper-medium (encdec) at full width and depth (24 encoder and 24
+   decoder layers, d_model 1024, 1500 frames, bf16, random weights from
+   ``served_model``'s seeded generator, frames [4, 1500, 1024] from the
+   same seed; nothing cut), served by ``generate()`` with K2 at
+   ``attention``: 4 rows, prompts of 8 tokens, 32 new tokens.  K2 takes
+   the encoder (non-causal, 1500 x 1500: a ragged key edge), the
+   decoder's self-attention (causal, S = T = 8) and cross-attention at
+   prefill (S 8, T 1500) and at each decode step (S 1, T 1500): exactly
+   24 + 24 + 24 + 24 x 31 = 816 launches, all on ``mma``.  K2 held
+   against its plain version at each of those (causal, S, T) on the run's
+   inputs; a control, K2 with the causal mask on the encoder's inputs
+   against the plain non-causal result, must read above the gate.  K2 at
+   the encoder and the decode-cross shapes in 5 alternated rounds (kernel,
+   ``simt`` body, plain, SDPA; host µs a call; the bound), the encoder's,
+   prefill's and a decode step's ``time_split``, decode tokens/s and peak
+   memory.  Then the gate in float32 (converted in place, K2 on
+   ``simt``): last-token prefill logits within 1e-3 of the plain
+   version's largest and ``generate()``'s tokens equal in 4 of 4 rows;
+   the bf16 logits figure printed beside, not gated.  The phase's wall
+   time on its own line.
+Then the device times at the main shapes (K2, K1 as above, K2 also at
+whisper's encoder and decode-cross shapes; K6, K7 at their
 serving runs' heaviest prefill; K3, K4, K5 as in phase 13) in a fresh
 process (with the wrapper's host µs per call where K2's CUDA-event time
 exceeds 1.5x its device time), K7's ``simt`` body, host µs a call and
 one-pass controls at its main shape (bf16; and f32: K7 on xh, B and C
 rounded to TF32, which must read above the gate), the ``kernels`` JSON
-line (K1-K7; K1, K6 and K7's launches include phase 15's, K2's phase
-17's; K1,
+line (K1-K7; K1, K6 and K7's launches include phase 15's, K2's phases
+17 and 18's, with whisper's two shapes; K1,
 K2, K5 and K7 with their launches by body, the main shape's body, the
 device time and the TF32, P-in-bf16 or one-pass controls; K2, K3, K4, K5,
 K6 and K7 with the host µs a call; K4 with phase 12's compiles and cache hits and its vector loads; K5
@@ -368,6 +389,14 @@ def compare(q, k, v, causal=True):
     }
 
 
+def gate_ratio(got, want) -> float:
+    """The largest |got - want| / (atol + rtol |want|) under K2's gate."""
+    rtol, atol = KERNEL_TOL[str(want.dtype).replace("torch.", "")]
+    want = want.float()
+    return ((got.float() - want).abs() / (atol + rtol * want.abs())).max(
+        ).item()
+
+
 def agrees(r) -> bool:
     return r["finite"] and r["tol_ratio"] <= 1.0
 
@@ -393,11 +422,10 @@ def p_bf16_control(q, k, v, causal=True) -> float:
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.models.layers import attention_chunked
-    want = flash_attention_ref(q, k, v, causal=causal).float()
-    got = attention_chunked(q, k, v, causal=causal, use_impl=False).float()
+    want = flash_attention_ref(q, k, v, causal=causal)
+    got = attention_chunked(q, k, v, causal=causal, use_impl=False)
     torch.cuda.synchronize()
-    rtol, atol = KERNEL_TOL[str(q.dtype).replace("torch.", "")]
-    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+    return gate_ratio(got, want)
 
 
 def host_us_per_call(fn, calls: int = 1000) -> float:
@@ -447,9 +475,9 @@ def demangled(name: str) -> str:
         [dtype] + re.findall(r"L[ib](\d+)E", m.group(3))) + ">"
 
 
-def measure_attention(q, k, v, causal=True, device_time=True):
-    """Kernel vs plain version on the same inputs: errors and times (the
-    profiler's device time of the kernel only with ``device_time``)."""
+def measure_attention(q, k, v, causal=True):
+    """Kernel vs plain version on the same inputs: errors and times, with
+    the profiler's device time of the kernel."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref,
@@ -458,12 +486,11 @@ def measure_attention(q, k, v, causal=True, device_time=True):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     bound_ms, bound_by = attention_bound(r["B"], r["S"], r["T"], r["H"],
                                          r["KV"], r["hd"], r["dtype"], causal)
-    if device_time:
-        split = time_split(lambda: flash_attention(q, k, v, causal=causal),
-                           kernels_per_call=1)
-        r["kernel_device_ms"] = split["device_ms"]
-        r["kernel_trace"] = {key: split[key]
-                             for key in ("traces", "sentinels_lost")}
+    split = time_split(lambda: flash_attention(q, k, v, causal=causal),
+                       kernels_per_call=1)
+    r["kernel_device_ms"] = split["device_ms"]
+    r["kernel_trace"] = {key: split[key]
+                         for key in ("traces", "sentinels_lost")}
     if r["dtype"] == "bfloat16":     # the CUDA-core body on the same inputs
         r["simt_ms"] = cuda_ms(lambda: run_body(q, k, v, causal=causal,
                                                 path="simt"))
@@ -1423,7 +1450,8 @@ def served_model(arch, n_layers=None, param_dtype=None, kv_quant=False):
     cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
                               param_dtype=param_dtype or cfg.param_dtype)
-    model = get_model(cfg, device="cuda", kv_quant=kv_quant)
+    model = get_model(cfg, device="cuda",
+                      **({"kv_quant": True} if kv_quant else {}))
     model.init_params(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     return model
@@ -3036,27 +3064,41 @@ def device_time_child(path: str) -> None:
     print(json.dumps(out), flush=True)
 
 
-def k2_main_shape_times(q, k, v, causal):
-    """At K2's main shape: the kernel (through the wrapper), the CUDA-core
-    body and SDPA in 5 alternated rounds (host-clock rates move between
-    calls), their medians, the wrapper's host µs per call and the P-in-bf16
-    control."""
+def k2_shape_times(q, k, v, causal, calls):
+    """K2 at one shape: the kernel (through the wrapper), its ``simt``
+    body, the plain version and SDPA (a yardstick) in 5 alternated rounds,
+    the wrapper's host µs a call over ``calls`` calls, and the bound."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention, run_body
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref,
+                                                     run_body)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    fns = {"ms": lambda: flash_attention(q, k, v, causal=causal),
-           "simt_ms": lambda: run_body(q, k, v, causal=causal, path="simt"),
-           "library_ms": lambda: F.scaled_dot_product_attention(
-               qt, kt, vt, is_causal=causal, enable_gqa=True)}
-    out = alternated(fns)
-    rounds = out["rounds"]
+    out = alternated({
+        "ms": lambda: flash_attention(q, k, v, causal=causal),
+        "simt_ms": lambda: run_body(q, k, v, causal=causal, path="simt"),
+        "plain_ms": lambda: flash_attention_ref(q, k, v, causal=causal),
+        "library_ms": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)})
     out["host_us_per_call"] = host_us_per_call(
-        lambda: flash_attention(q, k, v, causal=causal))
+        lambda: flash_attention(q, k, v, causal=causal), calls=calls)
+    B, S, H, hd = q.shape
+    out["bound_ms"], out["bound_by"] = attention_bound(
+        B, S, k.shape[1], H, k.shape[2], hd,
+        str(q.dtype).replace("torch.", ""), causal)
+    out["path"] = k2_path(q, k, v)
+    return out
+
+
+def k2_main_shape_times(q, k, v, causal):
+    """At K2's main shape: ``k2_shape_times`` (host µs over 1000 calls)
+    and the P-in-bf16 control."""
+    out = k2_shape_times(q, k, v, causal, calls=1000)
     out["p_bf16_control_tol_ratio"] = p_bf16_control(q, k, v, causal)
     print(f"K2 at the main shape (B={q.shape[0]}, S={q.shape[1]}, "
-          f"{str(q.dtype)[6:]}, {k2_path(q, k, v)}), medians of 5 alternated "
+          f"{str(q.dtype)[6:]}, {out['path']}), medians of 5 alternated "
           f"rounds: kernel {out['ms']:.4f} ms, simt body {out['simt_ms']:.4f}"
-          f", sdpa {out['library_ms']:.4f} (rounds {rounds}); wrapper host "
+          f", plain {out['plain_ms']:.4f}, sdpa {out['library_ms']:.4f} "
+          f"(rounds {out['rounds']}); wrapper host "
           f"{out['host_us_per_call']:.1f} us a call; P-in-bf16 control "
           f"{out['p_bf16_control_tol_ratio']:.2f} of the gate (must read "
           "above 1)", flush=True)
@@ -3907,6 +3949,211 @@ def phase_zoo(report):
     return launches, by_path, checks
 
 
+# --------------------------------------------------------------------------
+# the encoder–decoder family (phase 18): whisper-medium through K2
+# --------------------------------------------------------------------------
+# whisper-medium's traffic: 4 rows of 1500 frames, prompts of 8 tokens, 32
+# new tokens (40 positions, inside the published 448-token context)
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW = 4, 8, 32
+
+
+def whisper_k2_key(q, k, v, causal=True, **_):
+    """(causal, S, T) of a K2 call."""
+    return (causal, q.shape[1], k.shape[1])
+
+
+def phase_whisper(report):
+    """Phase 18: whisper-medium (encdec) at full width and depth in bf16,
+    served by ``generate()`` with K2 at ``attention``: the launch count and
+    bodies, K2 against its plain version at every (causal, S, T) of the run,
+    a wrong-mask control, K2 timed at the encoder and decode-cross shapes,
+    the serving figures, then the f32 gate.  Returns (K2 launches by body
+    with "total", checks, {shape name: (row, call)} for the device times)."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import run_body
+    from repro_torch.models.whisper import (dec_layer_spec, enc_layer_spec,
+                                            top_spec)
+    from repro_torch.serve import generate
+
+    t0 = time.perf_counter()
+    out = report["whisper"] = {}
+    flash, plain = kernel_pair("flash_attention")
+    B, P, new = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW
+    free_card()
+    held = torch.cuda.memory_allocated()      # earlier phases' tensors
+    model = served_model("whisper-medium")
+    cfg = model.cfg
+    enc_layers, vocab = cfg.encoder.n_layers, cfg.vocab_size
+    n_params = sum(p.numel() for p in model.parameters())
+    layout = (enc_layers * sum(map(math.prod, enc_layer_spec(cfg).values()))
+              + cfg.n_layers * sum(map(math.prod,
+                                       dec_layer_spec(cfg).values()))
+              + sum(map(math.prod, top_spec(cfg).values())))
+    gib = sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30
+    if n_params != layout:
+        fail(f"whisper-medium: {n_params} parameters, {layout} in the layout")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    frames = torch.randn(B, cfg.encoder.n_frames, cfg.d_model, generator=g,
+                         device="cuda")
+    prompts = np.random.default_rng(0).integers(0, vocab, (B, P)).astype(
+        np.int32)
+    print(f"whisper-medium: encdec, {enc_layers} encoder + {cfg.n_layers} "
+          f"decoder layers, d_model {cfg.d_model}, H {cfg.n_heads}, hd "
+          f"{cfg.resolved_head_dim}, {cfg.encoder.n_frames} frames, "
+          f"{n_params:,} params (config's count {cfg.param_counts()[0]:,} "
+          f"leaves out the learned positions), {cfg.param_dtype}, {gib:.2f} "
+          f"GiB; nothing cut", flush=True)
+
+    rec = FirstCalls(flash, key=whisper_k2_key)
+    ops.clear_all()
+    ops.install("attention", rec, kernel="flash_attention", route="cuda")
+    generate(model, prompts, max_new=2, frames=frames)       # warm-up
+    rec.calls.clear()
+    zero_launches(flash)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    tokens = generate(model, prompts, max_new=new, frames=frames)
+    wall = time.perf_counter() - t
+    launches = read_launches(flash)
+    peak = torch.cuda.max_memory_allocated()
+    # the encoder's layers, the decoder's self and cross at prefill, and
+    # its cross at each of the new - 1 decode steps
+    need = enc_layers + 2 * cfg.n_layers + cfg.n_layers * (new - 1)
+    shapes = {(False, cfg.encoder.n_frames, cfg.encoder.n_frames): "encoder",
+              (True, P, P): "decoder self, prefill",
+              (False, P, cfg.encoder.n_frames): "cross, prefill",
+              (False, 1, cfg.encoder.n_frames): "cross, decode"}
+    print(f"whisper-medium: generate() of {B} rows ({P}-token prompts, "
+          f"{new} new tokens) through K2 at attention in {wall:.2f} s: K2 "
+          f"launched {launches['total']} times ({need} needed), by body "
+          f"{ {b: n for b, n in launches.items() if b != 'total'} }, at "
+          f"(causal, S, T) {sorted(rec.calls)}; peak memory "
+          f"{(peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB "
+          "earlier phases hold", flush=True)
+    if launches["total"] != need or launches["mma"] != need:
+        fail(f"whisper-medium: K2 launches {launches}, {need} on mma needed")
+    if set(rec.calls) != set(shapes):
+        fail(f"whisper-medium: K2 called at {sorted(rec.calls)}, not at "
+             f"{sorted(shapes)}")
+    if tokens.shape != (B, new) or not ((tokens >= 0) & (tokens < vocab)
+                                        ).all():
+        fail(f"whisper-medium: generate() gave tokens of shape "
+             f"{tokens.shape} outside [0, {vocab})")
+
+    checks = []
+    for key, what in shapes.items():
+        args, kw = rec.calls[key]
+        r = compare(*args, causal=key[0])
+        r["shape"] = what
+        require_mma(r, f"whisper-medium's {what}")
+        if not agrees(r):
+            fail(f"K2 disagrees at whisper-medium's {what}: {r}")
+        checks.append(r)
+        print(f"  K2 vs plain at the {what} (causal {key[0]}, S {key[1]}, "
+              f"T {key[2]}, B {r['B']}, H {r['H']}, hd {r['hd']}, "
+              f"{r['dtype']}, {r['path']}): max_abs_err "
+              f"{r['max_abs_err']:.3g}, {r['tol_ratio']:.2f} of the gate",
+              flush=True)
+    enc_call = rec.calls[(False, cfg.encoder.n_frames, cfg.encoder.n_frames)]
+    q, k, v = enc_call[0]
+    control = gate_ratio(run_body(q, k, v, causal=True, path=k2_path(q, k, v)),
+                         plain(q, k, v, causal=False))
+    print(f"  control: K2 with the causal mask on the encoder's inputs against"
+          f" the plain non-causal result reads {control:.3g} of the gate "
+          "(must read above 1)", flush=True)
+    if control <= 1.0:
+        fail("K2's gate does not see a causal mask on the encoder's inputs")
+
+    times = {}
+    for name, key in (("encoder", (False, cfg.encoder.n_frames,
+                                   cfg.encoder.n_frames)),
+                      ("decode_cross", (False, 1, cfg.encoder.n_frames))):
+        args = tuple(a.clone() for a in rec.calls[key][0])  # off the cache
+        # 200 calls: at the encoder shape 1000 would fill the launch queue
+        r = k2_shape_times(*args, causal=False, calls=200)
+        r.update(B=B, S=key[1], T=key[2], H=cfg.n_heads, hd=args[0].shape[3])
+        times[name] = (r, (args, {"causal": False}))
+        print(f"  K2 at whisper's {name} shape (B {B}, S {key[1]}, T "
+              f"{key[2]}, H {cfg.n_heads}, hd {r['hd']}, bf16, non-causal, "
+              f"{r['path']}), medians of 5 alternated rounds: kernel "
+              f"{r['ms']:.4f} ms, simt body {r['simt_ms']:.4f}, plain "
+              f"{r['plain_ms']:.4f}, sdpa {r['library_ms']:.4f}; wrapper "
+              f"host {r['host_us_per_call']:.1f} us a call; bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+
+    ptoks = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
+    with torch.no_grad():
+        enc_split = time_split(lambda: model.encode(frames))
+        pre_split = time_split(lambda: model.prefill(ptoks, frames,
+                                                     max_len=P + new))
+        _, cache = model.prefill(ptoks, frames, max_len=P + new)
+        last = ptoks[:, -1:]
+        dec_split = time_split(lambda: model.decode_step(cache, last, P))
+    del cache
+    out.update(
+        params=n_params, param_gib=gib, batch=B, prompt=P, new_tokens=new,
+        generate_wall_s=wall, peak_memory_bytes=peak - held,
+        held_before_bytes=held, k2_launches=launches,
+        k2_calls=[list(key) for key in sorted(rec.calls)],
+        causal_mask_control_tol_ratio=control, encoder=enc_split,
+        prefill=pre_split, decode_step=dec_split,
+        decode_tokens_per_s=B / dec_split["wall_ms"] * 1e3,
+        tokens=tokens.tolist(),
+        k2_times={n: r for n, (r, _) in times.items()})
+    for what, s in (("encoder", enc_split), ("prefill", pre_split),
+                    ("decode step", dec_split)):
+        print_split("whisper-medium", f"eager {what}", s)
+    print(f"whisper-medium: eager decode {out['decode_tokens_per_s']:.1f} "
+          f"tokens/s ({B} rows); whole generate() {B * new / wall:.1f} "
+          "tokens/s", flush=True)
+
+    # the gate: last-token prefill logits through K2 against its plain
+    # version, and generate()'s tokens; in bf16 as a figure (rounding flips
+    # through 48 random layers), gated in float32 (K2 on simt), converted in
+    # place
+    def prefill_logits(impl):
+        with ops.use_impl("attention", impl), torch.no_grad():
+            logits, _ = model.prefill(ptoks, frames)
+        return logits[:, -1, :vocab]
+
+    def served(impl):
+        with ops.use_impl("attention", impl):
+            return generate(model, prompts, max_new=new, frames=frames)
+
+    rel16 = rel_err(prefill_logits(flash), prefill_logits(plain))
+    model.float()
+    model.dtype = torch.float32
+    model.cfg = dataclasses.replace(cfg, param_dtype="float32")
+    rel = rel_err(prefill_logits(flash), prefill_logits(plain))
+    zero_launches(flash)
+    tok32 = served(flash)
+    f32_launches = read_launches(flash)
+    same = int(sum((a == b).all() for a, b in zip(tok32, served(plain))))
+    out.update(bf16_logits_rel_err=rel16, f32_logits_rel_err=rel,
+               f32_rows_equal=same, f32_k2_launches=f32_launches)
+    print(f"whisper-medium: prefill through K2 vs the plain version, "
+          f"last-token logits relative to the largest: float32 {rel:.3g} "
+          f"(tol {RECURRENT_F32_RTOL}); generate() tokens equal in {same}/{B}"
+          f" rows (K2 launched {f32_launches['total']} times, on simt "
+          f"{f32_launches['simt']}); bf16 (not gated) {rel16:.3g}",
+          flush=True)
+    if rel > RECURRENT_F32_RTOL or same != B:
+        fail(f"whisper-medium: float32 through K2 differs: logits {rel:.3g},"
+             f" {same}/{B} rows equal")
+    if f32_launches["simt"] != need:
+        fail(f"whisper-medium: f32 K2 launches {f32_launches}, {need} on "
+             "simt needed")
+    del model, rec
+    ops.clear_all()
+    free_card()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 18 (whisper-medium) took {out['seconds']:.1f} s", flush=True)
+    return launches, checks, times
+
+
 def main() -> None:
     import gc
     import torch
@@ -3938,7 +4185,7 @@ def main() -> None:
         c[0][0].shape[0] * c[0][0].shape[1] * c[0][1].shape[1]))
     q, k, v = args
     causal = kw.get("causal", True)
-    main_shape = measure_attention(q, k, v, causal=causal, device_time=False)
+    main_shape = compare(q, k, v, causal)
     if not agrees(main_shape):
         fail(f"kernel disagrees at the serving run's shape: {main_shape}")
     require_mma(main_shape, "the main shape")
@@ -3979,6 +4226,8 @@ def main() -> None:
     lap("online")
     zoo_launches, zoo_by_path, zoo_checks = phase_zoo(report)
     lap("decoder-only zoo")
+    whisper_launches, whisper_checks, whisper_times = phase_whisper(report)
+    lap("whisper-medium")
     wkv_main, wkv_call = main_recurrent_shape("wkv", rwkv_calls["wkv"])
     wkv_main["host_us_per_call"] = host_us_per_call(
         lambda: kernel_pair("wkv")[0](*wkv_call[0], **wkv_call[1]))
@@ -3994,7 +4243,9 @@ def main() -> None:
              ("ssd", "ssd", ssd_main, ssd_call),
              *[(n, n, r, call) for n, (r, call) in suite_mains.items()],
              *[(f"grouped_matmul main {d}", "grouped_matmul", r, call)
-               for d, (r, call) in k5_fixed.items()]]
+               for d, (r, call) in k5_fixed.items()],
+             *[(f"flash_attention whisper {n}", "flash_attention", r, call)
+               for n, (r, call) in whisper_times.items()]]
     for (_, _, r, _), dev in zip(timed, fresh_device_time(
             [(n, *device_time_args(n, call)) for _, n, _, call in timed])):
         r["kernel_device_ms"] = dev["device_ms"]
@@ -4013,7 +4264,8 @@ def main() -> None:
               flush=True)
     k2_by_path = {body: sum(report[f"serve_{a}"]["launches_by_path"][
         "flash_attention"][body] for a in ("glm4-9b", "hymba-1.5b"))
-        + zoo_by_path[body] for body in ("mma", "simt")}
+        + zoo_by_path[body] + whisper_launches[body]
+        for body in ("mma", "simt")}
 
     k7_by_path = {body: report["serve_hymba-1.5b"]["launches_by_path"][
         "ssd"][body] + pop_launches["ssd"][body] for body in ("mma", "simt")}
@@ -4031,12 +4283,14 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:82",
         "launches": glm_launches["flash_attention"]
-        + hymba_launches["flash_attention"] + zoo_launches,
+        + hymba_launches["flash_attention"] + zoo_launches
+        + whisper_launches["total"],
         "launches_by_path": k2_by_path,
         "main_shape_path": main_shape["path"],
         "max_abs_err": max(r["max_abs_err"] for r in
                            glm_checks["flash_attention"] + k2_pipeline_checks
-                           + hymba_checks["flash_attention"] + zoo_checks),
+                           + hymba_checks["flash_attention"] + zoo_checks
+                           + whisper_checks),
         "ms": main_shape["ms"], "device_ms": main_shape["kernel_device_ms"],
         "simt_ms": main_shape["simt_ms"],
         "host_us_per_call": main_shape["host_us_per_call"],
@@ -4045,6 +4299,14 @@ def main() -> None:
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
         "p_bf16_control_tol_ratio": main_shape["p_bf16_control_tol_ratio"],
+        **{f"whisper_{n}_shape": {
+            key: r[key] for key in ("B", "S", "T", "H", "hd", "path", "ms",
+                                    "kernel_device_ms", "simt_ms",
+                                    "plain_ms", "library_ms", "bound_ms",
+                                    "bound_by", "host_us_per_call")}
+           for n, (r, _) in whisper_times.items()},
+        "whisper_causal_mask_control_tol_ratio": report["whisper"][
+            "causal_mask_control_tol_ratio"],
     }, {
         "name": "matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/matmul.cu",

@@ -1,13 +1,20 @@
 """Model factory: arch config → model instance."""
 from __future__ import annotations
 
+from typing import Union
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import LM
+from repro_torch.models.whisper import EncDecLM
+
+Model = Union[LM, EncDecLM]
 
 
-def get_model(cfg: ModelConfig, device="cuda", **kw) -> LM:
+def get_model(cfg: ModelConfig, device="cuda", **kw) -> Model:
     """The port's model for ``cfg`` on ``device`` (parameters allocated,
-    not initialised: call ``init_params`` or load a state dict).  Every
-    decoder-only family is ported (``kw``: ``kv_quant``); ``LM`` names the
-    ROADMAP item for encdec."""
+    not initialised: call ``init_params`` or load a state dict):
+    ``EncDecLM`` for the encdec family, else ``LM`` (``kw``:
+    ``kv_quant``)."""
+    if cfg.family == "encdec":
+        return EncDecLM(cfg, device=device, **kw)
     return LM(cfg, device=device, **kw)

@@ -68,6 +68,18 @@ def rms_norm(x, scale, eps):
     return (out * scale.float()).to(x.dtype)
 
 
+def layer_norm(x, scale, bias, eps):
+    """LayerNorm over the last axis: f32 statistics, the biased variance
+    (as ``jnp.var``), an optional bias; the result in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * scale.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
 def act_fn(name: str):
     if name == "swiglu":
         return F.silu

@@ -91,10 +91,10 @@ class LM(nn.Module):
                  kv_quant: bool = False):
         super().__init__()
         if cfg.family not in ("dense", "vlm", "moe", "hybrid", "ssm"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: dense, vlm, moe, "
-                "hybrid and ssm are; encdec comes with ROADMAP.md queue 1 "
-                "(\"Encoder–decoder\")")
+            raise ValueError(
+                f"LM runs the decoder-only families (dense, vlm, moe, hybrid, "
+                f"ssm), not {cfg.family!r}: models.get_model builds the "
+                "model of an encdec config (models.whisper.EncDecLM)")
         self.cfg = cfg
         # int8 KV cache with per-(position, kv-head) bf16 scales: 130/256
         # of a bf16 cache's bytes at head_dim 128

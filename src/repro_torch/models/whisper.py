@@ -1,0 +1,249 @@
+"""Whisper-style encoder–decoder backbone, as an ``nn.Module``.
+
+Port of ``repro.models.whisper``.  The conv/mel frontend is a stub, as in
+the reference: callers pass precomputed frame embeddings [B, n_frames,
+d_model].  The encoder is bidirectional with learned positions; the
+decoder is causal, with learned positions and cross-attention to the
+encoder's output.  Layers are ``nn.ModuleList``s run by an explicit Python
+loop (the JAX twin scans stacked layers with remat), with the JAX names and
+``[in, out]`` layout; ``models.convert.params_from_jax`` turns a JAX tree
+into this module's state dict.
+
+Entry points:
+  encode(frames)                          — encoder output [B, F, d]
+  decode_parallel(tokens, enc_out, ...)   — decoder hidden states (and the
+                                            per-layer self and cross K/V)
+  prefill(tokens, frames, max_len)        — last-token logits + cache: the
+                                            self K/V (``k``, ``v``) and
+                                            every layer's cross K/V
+                                            (``xk``, ``xv``), computed once
+  decode_step(cache, token, pos)          — one token per row at a shared
+                                            position; K/V written at ``pos``
+                                            in place
+
+Self-attention in parallel mode (the encoder's non-causal, the decoder's
+causal) and every cross-attention, at prefill and at decode, go through
+``layers.attention_chunked``, so an impl installed at the ``attention``
+site takes each of them, as in the reference; decode self-attention is
+``layers.attention_decode``.  Not ported yet: ``loss``, ``param_axes``,
+``cache_axes`` and remat, which wait for the training slice, as the port's
+``LM.loss`` does (ROADMAP.md queue 1, "Extraction, training, checkpoints,
+data, runtime and launch").
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.lm import _DTYPES, ParamGroup
+
+MAX_DECODER_POS = 32768  # learned positions table bound (largest assigned shape)
+
+
+def enc_layer_spec(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    d = cfg.d_model
+    spec = {"ln1": (d,), "ln1_b": (d,), "ln2": (d,), "ln2_b": (d,)}
+    spec.update(L.attn_param_spec(cfg))
+    spec.update(L.mlp_param_spec(cfg))
+    return spec
+
+
+def dec_layer_spec(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    d = cfg.d_model
+    spec = {"ln1": (d,), "ln1_b": (d,), "ln2": (d,), "ln2_b": (d,),
+            "ln3": (d,), "ln3_b": (d,)}
+    spec.update(L.attn_param_spec(cfg))
+    spec.update({f"x_{k}": v for k, v in L.attn_param_spec(cfg).items()})
+    spec.update(L.mlp_param_spec(cfg))
+    return spec
+
+
+def top_spec(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    vp, d = cfg.padded_vocab(), cfg.d_model
+    return {"embed": (vp, d), "dec_pos": (MAX_DECODER_POS, d),
+            "enc_pos": (cfg.encoder.n_frames, d),
+            "enc_final_ln": (d,), "enc_final_ln_b": (d,),
+            "final_ln": (d,), "final_ln_b": (d,)}
+
+
+class EncDecLM(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device="cuda"):
+        super().__init__()
+        if cfg.family != "encdec" or cfg.encoder is None:
+            raise ValueError(f"EncDecLM needs an encdec config with an "
+                             f"encoder; {cfg.name} is {cfg.family!r} with "
+                             f"encoder {cfg.encoder}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = _DTYPES[cfg.param_dtype]
+        self.enc_layers = nn.ModuleList(
+            ParamGroup(enc_layer_spec(cfg), self.dtype, self.device)
+            for _ in range(cfg.encoder.n_layers))
+        self.dec_layers = nn.ModuleList(
+            ParamGroup(dec_layer_spec(cfg), self.dtype, self.device)
+            for _ in range(cfg.n_layers))
+        self.top = ParamGroup(top_spec(cfg), self.dtype, self.device)
+
+    # ------------------------------------------------------------------
+    def init_params(self, generator: torch.Generator) -> None:
+        """Fill every parameter in place by the JAX package's init rule
+        (``layers.init_rule``, names as they are: ``x_bq`` and ``final_ln``
+        are drawn normal), drawing from ``generator``, which must live on
+        the model's device."""
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, model on "
+                             f"{self.device}")
+        for layer in [*self.enc_layers, *self.dec_layers]:
+            L.init_from_spec(layer.tensors(), generator)
+        L.init_from_spec(self.top.tensors(), generator)
+
+    # ------------------------------------------------------------------
+    def _ln(self, x, p, name):
+        return L.layer_norm(x, p[name], p[name + "_b"], self.cfg.norm_eps)
+
+    def _self_attn(self, x, p, causal: bool, cache=None, pos=None):
+        """Self-attention over ``x`` (no rotation: learned positions).
+        Parallel (``cache`` None) through ``attention_chunked``; else one
+        token decoded against this layer's (k, v) cache, written at ``pos``
+        in place.  Returns (output, this call's (k, v))."""
+        B, S, _ = x.shape
+        q, k, v = L._project_qkv(x, p, self.cfg, None)
+        if cache is None:
+            out = L.attention_chunked(q, k, v, causal=causal)
+        else:
+            k_cache, v_cache = cache
+            L.cache_update(k_cache, k, pos)
+            L.cache_update(v_cache, v, pos)
+            out = L.attention_decode(q, k_cache, v_cache,
+                                     L.decode_lengths(pos, B, x.device))
+        return out.reshape(B, S, -1) @ p["wo"], (k, v)
+
+    def _cross_attn(self, x, p, xk, xv):
+        """Non-causal attention of ``x`` to the encoder's K/V (B, F, KV,
+        hd), through ``attention_chunked`` at prefill and at decode."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        q = x @ p["x_wq"]
+        if cfg.qkv_bias:
+            q = q + p["x_bq"]
+        q = q.reshape(B, S, cfg.n_heads, cfg.resolved_head_dim)
+        out = L.attention_chunked(q, xk, xv, causal=False)
+        return out.reshape(B, S, -1) @ p["x_wo"]
+
+    # ------------------------------------------------------------------
+    def encode(self, frames):
+        """frames: [B, n_frames, d_model] (the stub frontend's output)."""
+        cfg = self.cfg
+        want = (cfg.encoder.n_frames, cfg.d_model)
+        if frames.dim() != 3 or tuple(frames.shape[1:]) != want:
+            raise ValueError(f"frames must be [B, {want[0]}, {want[1]}], got "
+                             f"{tuple(frames.shape)}")
+        x = frames.to(self.dtype) + self.top.enc_pos.to(self.dtype)
+        for layer in self.enc_layers:
+            p = layer.tensors()
+            a, _ = self._self_attn(self._ln(x, p, "ln1"), p, causal=False)
+            x = x + a
+            x = x + L.mlp(self._ln(x, p, "ln2"), p, cfg)
+        return L.layer_norm(x, self.top.enc_final_ln, self.top.enc_final_ln_b,
+                            cfg.norm_eps)
+
+    def _dec_embed(self, tokens, pos0: int):
+        x = F.embedding(tokens, self.top.embed).to(self.dtype)
+        positions = pos0 + torch.arange(tokens.shape[1], device=tokens.device)
+        return x + self.top.dec_pos[positions].to(self.dtype)
+
+    def _cross_kv(self, p, enc_out):
+        """One decoder layer's cross K/V of the encoder output:
+        [B, F, KV, hd] each."""
+        cfg = self.cfg
+        k, v = enc_out @ p["x_wk"], enc_out @ p["x_wv"]
+        if cfg.qkv_bias:
+            k, v = k + p["x_bk"], v + p["x_bv"]
+        B, Fr = enc_out.shape[:2]
+        shape = (B, Fr, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return k.reshape(shape), v.reshape(shape)
+
+    def _dec_block(self, x, p, xk, xv, cache=None, pos=None):
+        a, kv = self._self_attn(self._ln(x, p, "ln1"), p, causal=True,
+                                cache=cache, pos=pos)
+        x = x + a
+        x = x + self._cross_attn(self._ln(x, p, "ln2"), p, xk, xv)
+        return x + L.mlp(self._ln(x, p, "ln3"), p, self.cfg), kv
+
+    def decode_parallel(self, tokens, enc_out, *,
+                        collect_cache: bool = False):
+        """Causal decoder over [B, S] attending to ``enc_out``.  Returns
+        (hidden, caches): with ``collect_cache`` the per-layer list of
+        ``{"k", "v"}`` (self, [B, S, KV, hd]) and ``{"xk", "xv"}`` (cross,
+        [B, F, KV, hd]), else None."""
+        x = self._dec_embed(tokens, 0)
+        caches: List[Dict[str, torch.Tensor]] = []
+        for layer in self.dec_layers:
+            p = layer.tensors()
+            xk, xv = self._cross_kv(p, enc_out)
+            x, (k, v) = self._dec_block(x, p, xk, xv)
+            if collect_cache:
+                caches.append({"k": k, "v": v, "xk": xk, "xv": xv})
+        x = L.layer_norm(x, self.top.final_ln, self.top.final_ln_b,
+                         self.cfg.norm_eps)
+        return x, (caches if collect_cache else None)
+
+    def logits_fn(self, hidden):
+        """Tied embeddings; the padded vocabulary's logits are -1e30."""
+        cfg = self.cfg
+        logits = (hidden @ self.top.embed.T).float()
+        if cfg.padded_vocab() != cfg.vocab_size:
+            logits[..., cfg.vocab_size:] = L.NEG_INF
+        return logits
+
+    # ------------------------------------------------------------------
+    def cache_shapes(self, batch: int, max_len: int):
+        """name → (shape, dtype): self K/V over ``max_len`` positions and
+        cross K/V over the encoder's frames, the layer axis first."""
+        cfg = self.cfg
+        Lc, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+        kv = (Lc, batch, max_len, KV, hd)
+        xkv = (Lc, batch, cfg.encoder.n_frames, KV, hd)
+        return {"k": (kv, self.dtype), "v": (kv, self.dtype),
+                "xk": (xkv, self.dtype), "xv": (xkv, self.dtype)}
+
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
+        return {name: torch.zeros(shape, dtype=dtype, device=self.device)
+                for name, (shape, dtype) in
+                self.cache_shapes(batch, max_len).items()}
+
+    def prefill(self, tokens, frames, max_len: Optional[int] = None):
+        """Returns (last-token logits [B, 1, V], cache ready at pos=S)."""
+        B, Sq = tokens.shape
+        enc_out = self.encode(frames)
+        hidden, caches = self.decode_parallel(tokens, enc_out,
+                                              collect_cache=True)
+        logits = self.logits_fn(hidden[:, -1:, :])
+        cache = self.init_cache(B, max_len or Sq)
+        for i, new in enumerate(caches):
+            cache["k"][i, :, :Sq] = new["k"]
+            cache["v"][i, :, :Sq] = new["v"]
+            cache["xk"][i] = new["xk"]
+            cache["xv"][i] = new["xv"]
+        return logits, cache
+
+    def decode_step(self, cache, token, pos: int):
+        """token [B, 1] at the shared position ``pos`` (an int: the cache
+        length).  Writes the new self K/V into ``cache`` in place.
+        Returns (logits [B, 1, V], cache)."""
+        pos = int(pos)
+        x = self._dec_embed(token, pos)
+        for i, layer in enumerate(self.dec_layers):
+            x, _ = self._dec_block(x, layer.tensors(), cache["xk"][i],
+                                   cache["xv"][i],
+                                   cache=(cache["k"][i], cache["v"][i]),
+                                   pos=pos)
+        x = L.layer_norm(x, self.top.final_ln, self.top.final_ln_b,
+                         self.cfg.norm_eps)
+        return self.logits_fn(x), cache

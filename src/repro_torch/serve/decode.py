@@ -45,7 +45,9 @@ KV-cache *slots* and streams greedy decode continuously:
 
 Every decoder-only family (dense, vlm, moe, hybrid, ssm), with the int8
 KV cache too (``LM(kv_quant=True)``); the cache's scales and
-recurrent-state entries are spliced into their slots like K/V.  ``FixedBatchServer`` is
+recurrent-state entries are spliced into their slots like K/V.  Both
+servers refuse an encoder–decoder model, as the JAX twin's do: it is
+served by ``generate(..., frames=...)``.  ``FixedBatchServer`` is
 the pre-continuous baseline of the table-9 comparison (single shared
 decode position, one prefill call per request), eager.
 """
@@ -71,19 +73,31 @@ def _check_model_device(model, dev: torch.device) -> None:
 
 
 @torch.no_grad()
-def generate(model, prompts, *, max_new: int = 16,
+def generate(model, prompts, *, max_new: int = 16, frames=None,
              eos_id: Optional[int] = None, device="cuda") -> np.ndarray:
     """Greedy generation for a fixed batch.  prompts: [B, S] ints (numpy or
-    tensor).  With ``eos_id``, a sequence stops at its first EOS: every
+    tensor).  An encoder–decoder model takes ``frames`` [B, n_frames,
+    d_model] (numpy or tensor, moved to the model's device), which no other
+    model takes.  With ``eos_id``, a sequence stops at its first EOS: every
     later column is ``eos_id``, and the loop exits once all rows finished.
     """
     dev = resolve_device(device)
     _check_model_device(model, dev)
+    encdec = model.cfg.family == "encdec"
+    if encdec != (frames is not None):
+        raise ValueError("an encdec model needs frames= and no other model "
+                         f"takes them ({model.cfg.name} is "
+                         f"{model.cfg.family!r})")
     prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                               device=model.device)
     B, S = prompts.shape
     vocab = model.cfg.vocab_size
-    logits, cache = model.prefill(prompts, max_len=S + max_new)
+    if encdec:
+        logits, cache = model.prefill(
+            prompts, torch.as_tensor(frames, device=model.device),
+            max_len=S + max_new)
+    else:
+        logits, cache = model.prefill(prompts, max_len=S + max_new)
     tok = logits[:, -1, :vocab].argmax(dim=-1)[:, None]
     done = (tok[:, 0] == eos_id) if eos_id is not None \
         else torch.zeros(B, dtype=torch.bool, device=model.device)
@@ -137,6 +151,9 @@ class _SlotServer:
     def __init__(self, model, *, slots: int, max_len: int,
                  eos_id: Optional[int], telemetry: Optional[ops.Telemetry],
                  device):
+        if model.cfg.family == "encdec":
+            raise ValueError(f"{type(self).__name__} serves decoder-only "
+                             "models; serve an encdec model with generate()")
         dev = resolve_device(device)
         _check_model_device(model, dev)
         self.model = model

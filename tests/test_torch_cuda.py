@@ -79,6 +79,26 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, B, S, T, H, KV, hd,
     flash_gate(got, flash_attention_ref(q, k, v, causal=causal))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T", [
+    (4, 1500, 1500),     # whisper's encoder: 1500 = 23 x 64 + 28 keys
+    (4, 8, 1500),        # cross-attention at prefill
+    (4, 1, 1500),        # cross-attention at decode
+    (2, 200, 150),       # S > T, both edges ragged
+])
+def test_flash_kernel_takes_whisper_non_causal_shapes(cuda, dtype, B, S, T):
+    """whisper-medium's regimes at its heads (H 16, hd 64), non-causal: bf16
+    on the tensor cores, f32 on the CUDA cores."""
+    q, k, v = flash_inputs(cuda, dtype, B, S, T, 16, 16, 64)
+    path = "mma" if dtype == torch.bfloat16 else "simt"
+    by_path = dict(flash_attention.launches_by_path)
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_path[path] == by_path[path] + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    flash_gate(got, flash_attention_ref(q, k, v, causal=False))
+
+
 @pytest.mark.parametrize("B,S,T,H,KV,hd,causal", [
     (2, 256, 256, 32, 2, 128, True),     # glm4-9b's main shape
     (2, 256, 256, 25, 5, 64, True),

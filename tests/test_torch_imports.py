@@ -25,6 +25,7 @@ from repro_torch.kernels.rwkv_wkv import wkv
 from repro_torch.kernels.ssd_scan import ssd
 from repro_torch.models import get_model
 from repro_torch.models.lm import LM
+from repro_torch.models.whisper import EncDecLM
 from repro_torch.serve import BatchedServer, generate
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -53,6 +54,8 @@ def test_guard_sees_every_port_module():
     for must in ("chip_smoke.py", "src/repro_torch/serve/decode.py",
                  "src/repro_torch/kernels/flash_attention.py",
                  "src/repro_torch/models/lm.py",
+                 "src/repro_torch/models/whisper.py",
+                 "src/repro_torch/configs/whisper_medium.py",
                  "src/repro_torch/kernels/matmul.py",
                  "src/repro_torch/kernels/suites/polybench.py",
                  "src/repro_torch/kernels/suites/hpc.py",
@@ -80,6 +83,8 @@ RWKV = dataclasses.replace(get_config("rwkv6-7b").reduced(),
                            param_dtype="float32")
 HYMBA = dataclasses.replace(get_config("hymba-1.5b").reduced(),
                             param_dtype="float32")
+WHISPER = dataclasses.replace(get_config("whisper-medium").reduced(),
+                              param_dtype="float32")
 
 
 def _cpu_model(cfg=CFG):
@@ -114,6 +119,11 @@ ENTRY_POINTS = {
                                                   torch.zeros(2, 16, 8),
                                                   **kw),
     "get_model(rwkv6)": lambda **kw: get_model(RWKV, **kw),
+    "EncDecLM": lambda **kw: EncDecLM(WHISPER, **kw),
+    "get_model(whisper)": lambda **kw: get_model(WHISPER, **kw),
+    "generate(whisper)": lambda **kw: generate(
+        _cpu_model(WHISPER), np.zeros((1, 4), np.int32), max_new=2,
+        frames=np.zeros((1, 16, 64), np.float32), **kw),
     "BatchedServer(hymba)": lambda **kw: BatchedServer(
         _cpu_model(HYMBA), slots=1, max_len=16, **kw),
     "H100ModelPlatform": lambda **kw: H100ModelPlatform(**kw),

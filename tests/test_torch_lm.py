@@ -23,6 +23,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import get_model
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.layers import init_rule
+from repro_torch.models.lm import LM
 
 TOL = 1e-4
 
@@ -198,8 +199,12 @@ def test_bf16_conversion_is_bit_exact():
 
 @pytest.mark.parametrize("family", ["encdec"])
 def test_other_families_name_their_roadmap_item(family):
+    """``LM`` refuses the encoder–decoder family and names the factory
+    that builds its model; without an encoder that model refuses too."""
     cfg = dataclasses.replace(get_config("glm4-9b").reduced(), family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+    with pytest.raises(ValueError, match="get_model builds"):
+        LM(cfg, device="cpu")
+    with pytest.raises(ValueError, match="with an encoder"):
         get_model(cfg, device="cpu")
 
 

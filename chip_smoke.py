@@ -95,10 +95,11 @@ Phases, each fatal on failure (exit 1, no result line):
 11. The paper's Table 4 hotspots: a ``Campaign`` on ``h100`` over
    ``rwkv_wkv`` and ``mamba_ssd`` (every candidate FE-checked and timed
    through K6 or K7), then each winner's ``integrated_speedup`` into
-   rwkv6-7b / hymba-1.5b at full width in float32 (28.1 / 5.9 GiB) over
-   2x256 tokens against the naive sequential recurrence; ``fe_ok`` must be
-   true, and every K7 call of the case and the integration must take
-   ``mma`` (launches by body).  K6 and K7 are held against their plain
+   rwkv6-7b / hymba-1.5b at full width in float32 (rwkv6-7b cut to 8 of
+   its 32 layers, 8.5 GiB, the cut printed; hymba-1.5b whole, 5.9 GiB)
+   over 2x256 tokens against the naive sequential recurrence; ``fe_ok``
+   must be true, and every K7 call of the case and the integration must
+   take ``mma`` (launches by body).  K6 and K7 are held against their plain
    versions at every shape the phase gave them.
 12. The rest of the suites' kernels: a ``Campaign`` on ``h100`` over the
    four cases whose ``cuda`` build launches a hand-written kernel,
@@ -222,6 +223,48 @@ Phases, each fatal on failure (exit 1, no result line):
    version's largest and ``generate()``'s tokens equal in 4 of 4 rows;
    the bf16 logits figure printed beside, not gated.  The phase's wall
    time on its own line.
+19. Training (every earlier model freed first): (a) stablelm-3b, the
+   reference launcher's default arch, trained whole at full width and
+   depth (32 layers, d 2560, vocab 50304 padded to 50432, 2,795,932,160
+   parameters; bf16 weights, f32 moments, remat; it would not fit 80 GB
+   in f32 with AdamW; random weights from ``served_model``'s seed) on
+   ``SyntheticLMData`` at a global batch of 8 x S 1024 with ``accum`` 2
+   for 8 AdamW steps (lr 3e-4, warmup 2), the plain path at every site:
+   each step's loss, grad norm, lr and ms; tokens/s, 6·N·tokens over the
+   steady step at the bf16 peak (989 TFLOP/s) and peak memory; the loss
+   of a held-out batch (16 x 1024 tokens, every motif of the stream)
+   before the first step and after each; the last step's update of four
+   leaves (UPDATE_LEAVES) against float64 AdamW from the step's own
+   weights, moments, gradients, grad norm and lr.  Fails unless every
+   loss and grad norm is finite, the first loss is within 1.5 of ln V,
+   the last is below the first, the held-out loss fell, the parameters
+   moved and the update agrees with float64 AdamW (moments within
+   UPDATE_MOMENT_RTOL, bf16 weights within half an ulp plus
+   UPDATE_F32_ROUNDINGS f32 roundings of their operands, and off the
+   result rounded to bf16 in at most UPDATE_OFF_SHARE of them).
+   Where one step's time goes (``time_split``: three more steps, one
+   timed, one traced).  (b) ``core.extraction`` on the twelfth step: the
+   top ten hotspots
+   (forward, backward and remat's recompute, by einsum spec or call site)
+   and every attention hotspot's rank; the top one must be a product and
+   an attention hotspot must name the splice point ``'attention'``.  (d)
+   A train step with K2 at ``attention`` must raise
+   ``NoBackwardKernelError`` before any launch and change nothing.  (c)
+   The trained weights served through K2 by an eager BatchedServer (4
+   slots, 4 prompts of 32-128 tokens from the training stream, 16 new
+   tokens): K2 launched at every layer of every prefill, all on ``mma``
+   (bf16, hd 80), held against its plain version at every (B, S) of the
+   run, and the last-token prefill logits of a 256-token prompt through K2
+   against the plain version within LOGITS_RTOL (phase 3's gate).  (e) The
+   fault-tolerant loop on device tensors at the reduced config in f32
+   (checkpoint every 4 steps into a temporary directory, a failure
+   injected at step 6, 10 steps) ends at the uninterrupted run's
+   parameters (within 1e-6); a full-width checkpoint would write ~28 GB
+   (weights and moments), so the loop runs reduced.  (f) Two train steps
+   of the reduced config in f32 (TF32 off) on the card and on the CPU:
+   the first step's gradients, each step's loss, grad norm and lr, and
+   the moments within TRAIN_GRAD_TOL, TRAIN_METRIC_RTOL and
+   TRAIN_MOMENT_TOL.  The phase's wall time on its own line.
 Then the device times at the main shapes (K2, K1 as above, K2 also at
 whisper's encoder and decode-cross shapes; K6, K7 at their
 serving runs' heaviest prefill; K3, K4, K5 as in phase 13) in a fresh
@@ -230,7 +273,7 @@ exceeds 1.5x its device time), K7's ``simt`` body, host µs a call and
 one-pass controls at its main shape (bf16; and f32: K7 on xh, B and C
 rounded to TF32, which must read above the gate), the ``kernels`` JSON
 line (K1-K7; K1, K6 and K7's launches include phase 15's, K2's phases
-17 and 18's, with whisper's two shapes; K1,
+17, 18 and 19's, with whisper's two shapes; K1,
 K2, K5 and K7 with their launches by body, the main shape's body, the
 device time and the TF32, P-in-bf16 or one-pass controls; K2, K3, K4, K5,
 K6 and K7 with the host µs a call; K4 with phase 12's compiles and cache hits and its vector loads; K5
@@ -1077,6 +1120,11 @@ RECURRENT_CHUNKS = {"wkv": (16, 32, 64, 128),       # the cases' variants
 MODEL_CHUNK = 128                 # rwkv6-7b's and hymba-1.5b's ssm.chunk
 TABLE4_CASES = {"rwkv_wkv": ("wkv", "rwkv6-7b"),
                 "mamba_ssd": ("ssd", "hymba-1.5b")}
+# Table 4's application cut in depth at full width: rwkv6-7b's naive
+# sequential recurrence took 3.8 s a forward at 32 layers on the H100, 26 s
+# of the phase over its 7 forwards, and its layers are alike, so the
+# Integrated Speedup is close to a per-layer ratio
+TABLE4_CUTS = {"rwkv6-7b": 8}
 
 
 def kernel_pair(name):
@@ -1889,8 +1937,10 @@ def phase_table4(report):
 
             gc.collect()
             torch.cuda.empty_cache()
-            cfg = dataclasses.replace(get_config(arch),
-                                      param_dtype="float32")
+            cut = TABLE4_CUTS.get(arch)
+            cfg = dataclasses.replace(
+                get_config(arch), param_dtype="float32",
+                n_layers=cut or get_config(arch).n_layers)
             t = time.perf_counter()
             model = get_model(cfg, device="cuda")
             model.init_params(torch.Generator(device="cuda").manual_seed(0))
@@ -1898,7 +1948,7 @@ def phase_table4(report):
             toks = torch.as_tensor(np.random.default_rng(1).integers(
                 0, cfg.vocab_size, (2, 256)), device="cuda")
             gib = sum(p.numel() for p in model.parameters()) * 4 / 2**30
-            print(f"  {arch} float32 ({cfg.n_layers} layers, d_model "
+            print(f"  {arch} float32 ({cut_line(arch, cut)}, d_model "
                   f"{cfg.d_model}, {gib:.2f} GiB) initialised in "
                   f"{time.perf_counter() - t:.1f} s", flush=True)
             before = kernel.launches
@@ -4154,6 +4204,461 @@ def phase_whisper(report):
     return launches, checks, times
 
 
+TRAIN_ARCH = "stablelm-3b"       # the reference launcher's default arch
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 8, 1024, 2, 8
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=1000)
+# (f): the first step's gradients on the card against the CPU's, relative
+# plus a share of the largest gradient (f32, TF32 off: summation order
+# only); each step's loss and grad norm; the moments against their largest
+TRAIN_GRAD_TOL = (1e-4, 1e-5)
+TRAIN_METRIC_RTOL = 1e-5
+TRAIN_MOMENT_TOL = 1e-4
+# (a): the last full-width step's AdamW update of these leaves against a
+# float64 recomputation from the step's own inputs (a weight matrix of the
+# first and of the last layer, a norm scale that decays, the final norm,
+# which does not); the moments within UPDATE_MOMENT_RTOL of their largest;
+# each bf16 weight within half a bf16 ulp of the float64 result plus the
+# error of UPDATE_F32_ROUNDINGS f32 roundings of its operands (p and
+# lr·delta: where they cancel, f32's error is not small against the
+# result's ulp), and equal to the result rounded to bf16 but for
+# UPDATE_OFF_SHARE of them
+UPDATE_LEAVES = ("layers.0.wq", "layers.31.w2", "layers.31.ln1",
+                 "top.final_ln")
+UPDATE_MOMENT_RTOL = 1e-5
+UPDATE_F32_ROUNDINGS = 8
+UPDATE_OFF_SHARE = 1e-3
+# (a): the held-out batch whose loss is read before the first step and
+# after each: 16 rows, one of each of the stream's 16 motifs, from a step
+# the training never draws
+HELD_ROWS, HELD_STEP = 16, 1000
+
+
+def train_steps_here(model, opt_cfg, data, steps, device, record=None):
+    """``steps`` AdamW steps of ``model`` from fresh moments on ``data``'s
+    step-keyed batches: (params, opt state, per-step metrics as floats).
+    ``record`` (a dict) receives the first step's gradients."""
+    from repro_torch.data import make_global_batch
+    from repro_torch.train import init_state, make_train_step, model_params
+
+    def hook(grads):
+        if record is not None and not record:
+            record.update({n: t.clone() for n, t in grads.items()})
+        return grads
+    step = make_train_step(model, opt_cfg, grad_hook=hook)
+    params = model_params(model)
+    opt = init_state(params)
+    metrics = []
+    for s in range(steps):
+        params, opt, m = step(params, opt,
+                              make_global_batch(data, s, device=device))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return params, opt, metrics
+
+
+def update_against_f64(opt_cfg, before, grads, params, opt, metrics):
+    """One step's AdamW update of the leaves in ``before`` (their weights
+    and moments before the step) against a float64 recomputation from the
+    step's inputs: ``grads`` (the step's f32 gradients as the grad hook saw
+    them), its grad norm and lr.  Per leaf: the moments' largest error over
+    their largest value, the largest weight error in bf16 ulps of the
+    float64 result and over its bound (half an ulp plus f32's error on the
+    operands), the share of weights off that result rounded to the
+    weights' dtype, the share of weights the step changed, and the norm of
+    the applied update over the float64 update's."""
+    import torch
+    from repro_torch.train.optim import decays
+    c = opt_cfg
+    t = int(opt["step"])
+    scale = min(1.0, c.clip_norm / (metrics["grad_norm"] + 1e-9))
+    rows = {}
+    for n, g in grads.items():
+        p0, mu0, nu0 = (before[k][n] for k in ("p", "mu", "nu"))
+        g = g * scale
+        mu = c.b1 * mu0 + (1 - c.b1) * g
+        nu = c.b2 * nu0 + (1 - c.b2) * g * g
+        delta = (mu / (1 - c.b1 ** t)) / (torch.sqrt(nu / (1 - c.b2 ** t))
+                                          + c.eps)
+        if decays(n, params[n]):
+            delta = delta + c.weight_decay * p0
+        step = metrics["lr"] * delta
+        ref = p0 - step
+        got = params[n].double()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            ref.abs().clamp_min(2.0 ** -126))) - 7)
+        bound = (ulp / 2 + UPDATE_F32_ROUNDINGS * 2.0 ** -24
+                 * (p0.abs() + step.abs()))
+        rows[n] = {
+            "decays": decays(n, params[n]),
+            "mu_rel_err": float((opt["mu"][n].double() - mu).abs().max()
+                                / mu.abs().max()),
+            "nu_rel_err": float((opt["nu"][n].double() - nu).abs().max()
+                                / nu.abs().max()),
+            "max_ulps": float(((got - ref).abs() / ulp).max()),
+            "err_over_bound": float(((got - ref).abs() / bound).max()),
+            "off_rounded_share": float(
+                (params[n] != ref.to(params[n].dtype)).double().mean()),
+            "changed_share": float((got != p0).double().mean()),
+            "update_kept": float((got - p0).norm() / (ref - p0).norm())}
+    return rows
+
+
+def ft_run(path, cfg, state_dict, data, opt_cfg, fail_at):
+    """The fault-tolerant loop on the card (reduced model, f32): checkpoint
+    every 4 steps, 10 steps, ``fail_at`` failures injected.  Returns (final
+    params, restarts, last step)."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import make_global_batch
+    from repro_torch.models import get_model
+    from repro_torch.runtime import FailureInjector, FaultTolerantLoop
+    from repro_torch.train import init_state, make_train_step, model_params
+    model = get_model(cfg, device="cuda")
+    model.load_state_dict(state_dict)
+    step_fn = make_train_step(model, opt_cfg)
+    loop = FaultTolerantLoop(CheckpointManager(path, keep=2),
+                             checkpoint_every=4,
+                             injector=FailureInjector(fail_at))
+    params = model_params(model)
+
+    def one(state, step):
+        p, o, m = step_fn(state["params"], state["opt"],
+                          make_global_batch(data, step, device="cuda"))
+        return {"params": p, "opt": o}, m
+    state, final = loop.run({"params": params, "opt": init_state(params)},
+                            one, num_steps=10)
+    torch.cuda.synchronize()
+    return state["params"], loop.restarts, final
+
+
+def phase_training(report):
+    """Phase 19: training on the card.  (a) stablelm-3b trained whole (bf16
+    weights, f32 moments, remat) on ``SyntheticLMData``; (b) the hotspots of
+    its train step; (c) the trained weights served through K2 by an eager
+    BatchedServer, K2 checked on the run's inputs and the prefill logits
+    gated against the plain version; (d) a train step through K2 refused;
+    (e) the fault-tolerant loop on device tensors (reduced, f32); (f) the
+    same two train steps on the card and on the CPU.  Returns (K2 launches
+    by body with "total", K2 checks)."""
+    import dataclasses
+    import math
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import extraction
+    from repro_torch.data import SyntheticLMData, make_global_batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.no_backward import NoBackwardKernelError
+    from repro_torch.models import get_model
+    from repro_torch.serve import BatchedServer
+    from repro_torch.train import (AdamWConfig, init_state, make_train_step,
+                                   model_params)
+
+    t0 = time.perf_counter()
+    out = report["training"] = {}
+    flash, _ = kernel_pair("flash_attention")
+    ops.clear_all()
+
+    # ---- (a) stablelm-3b whole --------------------------------------------
+    free_card()
+    held = torch.cuda.memory_allocated()
+    model = served_model(TRAIN_ARCH)
+    cfg = model.cfg
+    params = model_params(model)
+    n_params = sum(p.numel() for p in params.values())
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    captured = {}
+
+    def capture(grads):
+        if captured.pop("armed", False):
+            captured["grads"] = {n: grads[n].double() for n in UPDATE_LEAVES}
+        return grads
+    step_fn = make_train_step(model, opt_cfg, accum=TRAIN_ACCUM,
+                              grad_hook=capture)
+    opt = init_state(params)
+    data = SyntheticLMData(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    held_out = make_global_batch(
+        SyntheticLMData(cfg, TRAIN_SEQ, HELD_ROWS, seed=0), HELD_STEP,
+        device="cuda")
+
+    def held_loss():
+        with torch.no_grad():
+            return float(model.loss(held_out)[0])
+    held_losses = [held_loss()]
+    first = {n: params[n][:4].clone() for n in ("layers.0.wq", "top.lm_head")}
+    torch.cuda.reset_peak_memory_stats()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steps = []
+    for s in range(TRAIN_STEPS):
+        batch = make_global_batch(data, s, device="cuda")
+        if s == TRAIN_STEPS - 1:
+            captured["armed"] = True
+            before = {"p": {n: params[n].double() for n in UPDATE_LEAVES},
+                      **{k: {n: opt[k][n].double() for n in UPDATE_LEAVES}
+                         for k in ("mu", "nu")}}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        row = {"step": s, "ms": ms, **{k: float(v) for k, v in m.items()}}
+        held_losses.append(held_loss())
+        row["held_loss_after"] = held_losses[-1]
+        steps.append(row)
+        print(f"{TRAIN_ARCH} train step {s}: loss {row['loss']:.4f} grad "
+              f"norm {row['grad_norm']:.4f} lr {row['lr']:.2e} {ms:.1f} ms;"
+              f" held-out loss after it {held_losses[-1]:.4f}", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    update = update_against_f64(opt_cfg, before, captured.pop("grads"),
+                                params, opt, steps[-1])
+    del before
+    steady = [r["ms"] for r in steps[1:]]
+    step_s = sum(steady) / len(steady) / 1e3
+    a = {"arch": TRAIN_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+         "vocab": cfg.vocab_size, "padded_vocab": cfg.padded_vocab(),
+         "params": n_params, "param_dtype": cfg.param_dtype, "remat": True,
+         "global_batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "accum": TRAIN_ACCUM,
+         "opt": TRAIN_OPT, "steps": steps, "steady_step_ms": step_s * 1e3,
+         "tokens_per_s": tokens / step_s,
+         "bf16_peak_share": 6 * n_params * tokens / (step_s * 989e12),
+         "peak_memory_bytes": peak, "memory_held_before_bytes": held,
+         "held_out": {"rows": HELD_ROWS, "step": HELD_STEP,
+                      "losses": held_losses},
+         "update_against_f64": update}
+    out["train"] = a
+    moved = any(not torch.equal(params[n][:4], t) for n, t in first.items())
+    losses = [r["loss"] for r in steps]
+    print(f"{TRAIN_ARCH}: trained whole ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size} padded to "
+          f"{cfg.padded_vocab()}, {n_params:,} parameters, bf16 weights, "
+          f"f32 moments, remat), global batch {TRAIN_BATCH} x S {TRAIN_SEQ}, "
+          f"accum {TRAIN_ACCUM}, {TRAIN_STEPS} steps: loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f} (ln V {math.log(cfg.vocab_size):.4f}); "
+          f"steady step {a['steady_step_ms']:.1f} ms (first "
+          f"{steps[0]['ms']:.1f}), {a['tokens_per_s']:.1f} tokens/s, "
+          f"6·N·tokens at {100 * a['bf16_peak_share']:.1f}% of the bf16 peak "
+          f"(989 TFLOP/s), peak memory {peak / 2**30:.2f} GiB "
+          f"({held / 2**30:.2f} GiB held before)", flush=True)
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in steps):
+        fail(f"{TRAIN_ARCH}: a loss or grad norm is not finite: {steps}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.5:
+        fail(f"{TRAIN_ARCH}: first loss {losses[0]:.4f} is not within 1.5 "
+             f"of ln V")
+    if not losses[-1] < losses[0]:
+        fail(f"{TRAIN_ARCH}: the loss did not fall: {losses}")
+    if not moved:
+        fail(f"{TRAIN_ARCH}: the parameters did not move")
+    print(f"{TRAIN_ARCH}: held-out loss ({HELD_ROWS} x {TRAIN_SEQ} tokens, "
+          f"every motif, stream step {HELD_STEP}) before the first step and "
+          f"after each: " + " ".join(f"{x:.4f}" for x in held_losses),
+          flush=True)
+    if not (math.isfinite(held_losses[-1])
+            and held_losses[-1] < held_losses[0]):
+        fail(f"{TRAIN_ARCH}: the held-out loss did not fall: {held_losses}")
+    print(f"{TRAIN_ARCH}: step {TRAIN_STEPS - 1}'s update against float64 "
+          f"AdamW from its inputs (moments rtol {UPDATE_MOMENT_RTOL}, weights"
+          f" within half a bf16 ulp plus {UPDATE_F32_ROUNDINGS} f32 roundings"
+          f" of their operands, off the rounded result in at most "
+          f"{UPDATE_OFF_SHARE} of them):", flush=True)
+    for n, r in update.items():
+        print(f"  {n:14s} decays {str(r['decays']):5s} mu {r['mu_rel_err']:.3g}"
+              f" nu {r['nu_rel_err']:.3g} weights {r['max_ulps']:.3f} ulp "
+              f"({r['err_over_bound']:.3f} of the bound), "
+              f"{r['off_rounded_share']:.3g} off; changed "
+              f"{r['changed_share']:.4f} of them, {r['update_kept']:.4f} of "
+              f"the float64 update's norm kept", flush=True)
+    if any(r["mu_rel_err"] > UPDATE_MOMENT_RTOL
+           or r["nu_rel_err"] > UPDATE_MOMENT_RTOL
+           or r["err_over_bound"] > 1
+           or r["off_rounded_share"] > UPDATE_OFF_SHARE
+           for r in update.values()):
+        fail(f"{TRAIN_ARCH}: the bf16 update is off float64 AdamW: {update}")
+    # where one step's time goes: three more steps (warm-up, timed, traced)
+    state = {"params": params, "opt": opt,
+             "batch": make_global_batch(data, TRAIN_STEPS, device="cuda")}
+    opt = None            # the state holds the moments: one copy, not two
+
+    def one_more():
+        state["params"], state["opt"], _ = step_fn(
+            state["params"], state["opt"], state["batch"])
+    split = time_split(one_more, reps=1, top=8)
+    params, opt = state["params"], state["opt"]
+    a["step_split"] = split
+    print_split(TRAIN_ARCH, "train step (8 x 1024 tokens, accum 2)", split)
+    print(f"{TRAIN_ARCH} train step, top kernels (device ms): " + ", ".join(
+        f"{k['kernel'][:70]} {k['ms']:.2f}" for k in split["top_kernels"]),
+        flush=True)
+
+    # ---- (b) the train step's hotspots -------------------------------------
+    t = time.perf_counter()
+    batch = make_global_batch(data, TRAIN_STEPS + 3, device="cuda")
+    spots = extraction.profile_all(step_fn, params, opt, batch)
+    torch.cuda.synchronize()
+    prof_s = time.perf_counter() - t
+    attention = [(i + 1, s) for i, s in enumerate(spots)
+                 if s.family == "attention"]
+    total = sum(s.flops for s in spots)
+    print(f"{TRAIN_ARCH}: hotspots of one train step (step {TRAIN_STEPS + 3}, "
+          f"run under the extraction's modes in {prof_s:.2f} s), "
+          f"{len(spots)} products, {total:.4g} FLOPs ("
+          f"{total / (6 * n_params * tokens):.3f} x 6·N·tokens):\n"
+          + extraction.report(spots[:10]), flush=True)
+    print(f"{TRAIN_ARCH}: attention hotspots (rank of {len(spots)}): "
+          + "; ".join(f"#{r} {s.flops:.3e} {s.source}"
+                      f"{' (backward)' if s.backward else ''} -> "
+                      f"'{s.suggested_site}'" for r, s in attention),
+          flush=True)
+    out["hotspots"] = {
+        "seconds": prof_s, "products": len(spots), "flops": total,
+        "top": [{"primitive": s.primitive, "flops": s.flops,
+                 "shapes": s.shapes, "source": s.source, "count": s.count,
+                 "family": s.family, "suggested_site": s.suggested_site,
+                 "backward": s.backward} for s in spots[:10]],
+        "attention": [{"rank": r, "flops": s.flops, "source": s.source,
+                       "backward": s.backward,
+                       "suggested_site": s.suggested_site}
+                      for r, s in attention]}
+    if spots[0].primitive not in extraction.PRODUCTS:
+        fail(f"{TRAIN_ARCH}: the top hotspot is not a product: {spots[0]}")
+    if not any(s.suggested_site == "attention" for _, s in attention):
+        fail(f"{TRAIN_ARCH}: no attention hotspot names the splice point "
+             f"'attention'")
+    del batch, spots
+
+    # ---- (d) a train step through K2 is refused ------------------------------
+    zero_launches(flash)
+    before = params["layers.0.wq"][:4].clone()
+    with ops.use_impl("attention", flash):
+        try:
+            step_fn(params, opt, make_global_batch(data, 0, device="cuda"))
+        except NoBackwardKernelError as e:
+            refusal = str(e)
+        else:
+            fail(f"{TRAIN_ARCH}: a train step with K2 at 'attention' trained")
+    if flash.launches or not torch.equal(params["layers.0.wq"][:4], before) \
+            or any(p.requires_grad for p in params.values()):
+        fail(f"{TRAIN_ARCH}: the refused step launched K2 "
+             f"({flash.launches}) or changed the model")
+    out["refusal"] = refusal
+    print(f"{TRAIN_ARCH}: a train step with K2 at 'attention' raised "
+          f"NoBackwardKernelError before any launch: {refusal}", flush=True)
+    opt = step_fn = None
+    free_card()
+
+    # ---- (c) the trained weights served through K2 ---------------------------
+    rec = FirstCalls(flash)
+    ops.install("attention", rec, kernel="flash_attention", route="cuda")
+    zero_launches(flash)
+    lengths = (32, 64, 100, 128)
+    rows = data.batch(1000)["tokens"]
+    prompts = [rows[i, :n] for i, n in enumerate(lengths)]
+    srv = timed_server(BatchedServer(model, slots=4, max_len=256, aot=False))
+    t = time.perf_counter()
+    served = serve_wave(srv, prompts)
+    wall = time.perf_counter() - t
+    launches, by_path = flash.launches, dict(flash.launches_by_path)
+    need = cfg.n_layers * srv.stats["prefill_calls"]
+    print(f"{TRAIN_ARCH}: the trained weights served by an eager "
+          f"BatchedServer with K2 at 'attention' ({len(prompts)} requests of "
+          f"the training stream, prompt lengths {list(lengths)}, "
+          f"{SERVE_MAX_NEW} new tokens) in {wall:.2f} s: "
+          f"{srv.stats['prefill_calls']} prefills, K2 launched {launches} "
+          f"times ({need} needed), by body {by_path}; decode "
+          f"{len(prompts) * (SERVE_MAX_NEW - 1) / srv.stats['decode_s']:.1f}"
+          f" tokens/s", flush=True)
+    if need == 0 or launches != need:
+        fail(f"{TRAIN_ARCH}: K2 launches {launches}, {need} expected")
+    if by_path["simt"] or cfg.resolved_head_dim != 80:
+        fail(f"{TRAIN_ARCH}: bf16 hd 80 K2 launches off the tensor cores: "
+             f"{by_path}")
+    checks = zoo_k2_checks(f"trained {TRAIN_ARCH}", rec.calls)
+    ops.clear_all()
+    probe = torch.as_tensor(rows[0, :256], device="cuda")[None].long()
+    lk, _ = prefill_with(model, probe, {"attention": flash})
+    plain_logits, _ = prefill_with(model, probe, {"attention": None})
+    rel = rel_err(lk, plain_logits)
+    agree = sum(int(tok[0] == rows[i, n])
+                for i, (n, tok) in enumerate(zip(lengths, served)))
+    out["serve"] = {"prompt_lengths": list(lengths), "wall_s": wall,
+                    "prefill_calls": srv.stats["prefill_calls"],
+                    "k2_launches": launches, "k2_launches_by_path": by_path,
+                    "logits_rel_err": rel, "tokens": served,
+                    "first_token_is_the_streams_next": agree}
+    print(f"{TRAIN_ARCH}: trained weights, last-token prefill logits (S 256)"
+          f" through K2 against the plain version: max rel err {rel:.3g} "
+          f"(tol {LOGITS_RTOL}); the first served token is the stream's next"
+          f" token in {agree}/{len(prompts)} requests", flush=True)
+    if not (torch.isfinite(lk).all() and rel <= LOGITS_RTOL):
+        fail(f"{TRAIN_ARCH}: trained logits through K2 off the plain "
+             f"version: {rel}")
+    params = None
+    del model, srv, rec
+    free_card()
+
+    # ---- (e) the fault-tolerant loop on device tensors -----------------------
+    small = dataclasses.replace(get_config(TRAIN_ARCH).reduced(),
+                                param_dtype="float32")
+    seed_model = get_model(small, device="cpu")
+    seed_model.init_params(torch.Generator().manual_seed(0))
+    state_dict = {k: v.clone() for k, v in seed_model.state_dict().items()}
+    small_data = SyntheticLMData(small, 64, 4, seed=3)
+    small_opt = AdamWConfig(lr=1e-3)
+    with tempfile.TemporaryDirectory() as tmp:
+        p1, r1, f1 = ft_run(f"{tmp}/a", small, state_dict, small_data,
+                            small_opt, {6: 1})
+        p2, r2, f2 = ft_run(f"{tmp}/b", small, state_dict, small_data,
+                            small_opt, {})
+    ft_err = max(float((p1[n] - p2[n]).abs().max()) for n in p1)
+    out["fault_tolerance"] = {"restarts": [r1, r2], "final_step": [f1, f2],
+                              "max_abs_diff": ft_err}
+    print(f"fault-tolerant loop on the card ({small.name}, f32, checkpoint "
+          f"every 4 steps, 10 steps): a failure injected at step 6 "
+          f"({r1} restart) ends at the uninterrupted run's parameters, max "
+          f"abs diff {ft_err:.3g} (tol 1e-6)", flush=True)
+    if (r1, r2, f1, f2) != (1, 0, 10, 10) or ft_err > 1e-6:
+        fail(f"fault-tolerant loop: restarts {r1}/{r2}, steps {f1}/{f2}, "
+             f"diff {ft_err}")
+
+    # ---- (f) the same two train steps on the card and on the CPU -----------
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        m = get_model(small, device=dev)
+        m.load_state_dict(state_dict)
+        first_grads = {}
+        runs[dev] = (first_grads, *train_steps_here(
+            m, small_opt, small_data, 2, dev, record=first_grads))
+    (g0, p0, o0, m0), (g1, p1, o1, m1) = runs["cpu"], runs["cuda"]
+    top = max(float(t.abs().max()) for t in g0.values())
+    grad_ratio = max(float(((g1[n].cpu() - g0[n]).abs()
+                            / (TRAIN_GRAD_TOL[0] * g0[n].abs()
+                               + TRAIN_GRAD_TOL[1] * top)).max()) for n in g0)
+    metric_err = max(abs(b[k] - a[k]) / abs(a[k]) for a, b in zip(m0, m1)
+                     for k in ("loss", "grad_norm", "lr"))
+    moment_ratio = max(
+        float((o1[key][n].cpu() - o0[key][n]).abs().max())
+        / (TRAIN_MOMENT_TOL * max(float(t.abs().max())
+                                  for t in o0[key].values()))
+        for key in ("mu", "nu") for n in o0[key])
+    out["card_vs_cpu"] = {"grad_tol_ratio": grad_ratio,
+                          "metric_rel_err": metric_err,
+                          "moment_tol_ratio": moment_ratio,
+                          "losses": [[r["loss"] for r in m0],
+                                     [r["loss"] for r in m1]]}
+    print(f"train steps of {small.name} (f32, TF32 off) on the card against "
+          f"the CPU: first-step gradients at {grad_ratio:.3f} of their gate "
+          f"(rtol {TRAIN_GRAD_TOL[0]}, {TRAIN_GRAD_TOL[1]} of the largest), "
+          f"loss/grad norm/lr max rel err {metric_err:.3g} (tol "
+          f"{TRAIN_METRIC_RTOL}), moments at {moment_ratio:.3f} of theirs "
+          f"({TRAIN_MOMENT_TOL} of the largest)", flush=True)
+    if grad_ratio > 1 or metric_err > TRAIN_METRIC_RTOL or moment_ratio > 1:
+        fail("train steps on the card disagree with the CPU's")
+
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 19 (training) took {out['seconds']:.1f} s", flush=True)
+    free_card()
+    return {"total": launches, **by_path}, checks
+
+
 def main() -> None:
     import gc
     import torch
@@ -4228,6 +4733,8 @@ def main() -> None:
     lap("decoder-only zoo")
     whisper_launches, whisper_checks, whisper_times = phase_whisper(report)
     lap("whisper-medium")
+    train_launches, train_checks = phase_training(report)
+    lap("training")
     wkv_main, wkv_call = main_recurrent_shape("wkv", rwkv_calls["wkv"])
     wkv_main["host_us_per_call"] = host_us_per_call(
         lambda: kernel_pair("wkv")[0](*wkv_call[0], **wkv_call[1]))
@@ -4264,7 +4771,7 @@ def main() -> None:
               flush=True)
     k2_by_path = {body: sum(report[f"serve_{a}"]["launches_by_path"][
         "flash_attention"][body] for a in ("glm4-9b", "hymba-1.5b"))
-        + zoo_by_path[body] + whisper_launches[body]
+        + zoo_by_path[body] + whisper_launches[body] + train_launches[body]
         for body in ("mma", "simt")}
 
     k7_by_path = {body: report["serve_hymba-1.5b"]["launches_by_path"][
@@ -4284,13 +4791,13 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:82",
         "launches": glm_launches["flash_attention"]
         + hymba_launches["flash_attention"] + zoo_launches
-        + whisper_launches["total"],
+        + whisper_launches["total"] + train_launches["total"],
         "launches_by_path": k2_by_path,
         "main_shape_path": main_shape["path"],
         "max_abs_err": max(r["max_abs_err"] for r in
                            glm_checks["flash_attention"] + k2_pipeline_checks
                            + hymba_checks["flash_attention"] + zoo_checks
-                           + whisper_checks),
+                           + whisper_checks + train_checks),
         "ms": main_shape["ms"], "device_ms": main_shape["kernel_device_ms"],
         "simt_ms": main_shape["simt_ms"],
         "host_us_per_call": main_shape["host_us_per_call"],

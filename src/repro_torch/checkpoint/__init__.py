@@ -1,0 +1,2 @@
+from repro_torch.checkpoint.store import (CheckpointManager, latest_step,
+                                          load_checkpoint, save_checkpoint)

@@ -1,0 +1,58 @@
+"""Deterministic synthetic data pipeline.
+
+Port of ``repro.data.pipeline``.  Every row of a step's global batch is
+drawn from numpy generators keyed by (seed, step, row), so a restart or a
+replay of a step reproduces its batch bit for bit, and the stream equals
+the JAX package's.  ``make_global_batch`` puts the batch on a device as
+int32 tensors.  Not ported: the ``sharding`` argument (each host drawing
+only its slice), which waits for ``sharding/ctx.py``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+
+
+@dataclass
+class SyntheticLMData:
+    cfg: ModelConfig
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+
+    def _row(self, step: int, row: int) -> np.ndarray:
+        # mostly-periodic stream: a motif drawn from a small persistent bank
+        # (stable across steps, so even a reduced model demonstrably learns
+        # — loss drops well below ln(V)) plus per-step noise
+        v = self.cfg.vocab_size
+        bank_rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, 7919, (step + row) % 16]))
+        motif = bank_rng.integers(0, v, 8)
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step, row]))
+        reps = int(np.ceil((self.seq_len + 1) / len(motif)))
+        stream = np.tile(motif, reps)[: self.seq_len + 1]
+        noise = rng.integers(0, v, self.seq_len + 1)
+        return np.where(rng.random(self.seq_len + 1) < 0.9, stream, noise)
+
+    def host_batch(self, step: int, lo: int, hi: int) -> Dict[str, np.ndarray]:
+        rows = np.stack([self._row(step, r) for r in range(lo, hi)])
+        return {"tokens": rows[:, :-1].astype(np.int32),
+                "targets": rows[:, 1:].astype(np.int32)}
+
+    def batch(self, step: int) -> Dict[str, np.ndarray]:
+        return self.host_batch(step, 0, self.global_batch)
+
+
+def make_global_batch(data: SyntheticLMData, step: int,
+                      device="cuda") -> Dict[str, torch.Tensor]:
+    """The global batch of ``step`` as int32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return {name: torch.from_numpy(a).to(dev)
+            for name, a in data.batch(step).items()}

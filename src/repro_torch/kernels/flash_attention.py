@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
+from repro_torch.kernels.no_backward import refuse_grad
 from repro_torch.kernels.ref import attention_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -113,8 +114,10 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0,
     ``device`` names where the caller expects to run (default the GPU) and
     must match the tensors'.  CPU tensors take ``flash_attention_ref``;
     CUDA tensors launch the kernel on the current stream, with no fallback,
-    on the body ``path_for`` names.
+    on the body ``path_for`` names.  Under autograd, on inputs that require
+    grad, it raises ``NoBackwardKernelError`` on either device.
     """
+    refuse_grad("K2 (flash attention)", "attention", q, k, v)
     dev = resolve_device(device)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != dev.type:

@@ -37,6 +37,7 @@ import torch
 from repro_torch import hw
 from repro_torch.device import resolve_device
 from repro_torch.kernels.launch import Entry, names_cuda, raw_stream
+from repro_torch.kernels.no_backward import refuse_grad
 from repro_torch.kernels.ref import wkv_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -153,9 +154,12 @@ def wkv(r, k, v, lw, u, *, chunk: int = 64, device="cuda"):
     ``device`` names where the caller expects to run (default the GPU) and
     must match the tensors'.  CPU tensors take ``wkv_plain``; CUDA tensors
     launch the kernel on the current stream, with no fallback.  r/k/v/lw
-    may be strided views whose last dimension is contiguous.
+    may be strided views whose last dimension is contiguous.  Under
+    autograd, on inputs that require grad, it raises
+    ``NoBackwardKernelError`` on either device.
     """
     tensors = (r, k, v, lw, u)
+    refuse_grad("K6 (WKV6)", "rwkv_wkv", *tensors)
     if not (r.is_cuda and names_cuda(device)):
         dev = resolve_device(device)
         for name, t in zip("r k v lw u".split(), tensors):

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from repro_torch import hw
 from repro_torch.device import resolve_device
 from repro_torch.kernels.launch import Entry, names_cuda, raw_stream
+from repro_torch.kernels.no_backward import refuse_grad
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PATH = {"simt": 0, "mma": 1}
@@ -223,9 +224,11 @@ def ssd(xh, dt, a_log, B_t, C_t, *, chunk: int = 128, device="cuda"):
     launch the kernel on the current stream, with no fallback, on the body
     ``path_for`` names.  xh, dt, B_t and C_t may be strided views whose
     last dimension is contiguous (the model's B_t and C_t are two halves
-    of one projection).
+    of one projection).  Under autograd, on inputs that require grad, it
+    raises ``NoBackwardKernelError`` on either device.
     """
     tensors = (xh, dt, a_log, B_t, C_t)
+    refuse_grad("K7 (Mamba-2 SSD)", "ssm_chunk", *tensors)
     if not (xh.is_cuda and names_cuda(device)):
         dev = resolve_device(device)
         for name, t in zip(("xh", "dt", "a_log", "B_t", "C_t"), tensors):

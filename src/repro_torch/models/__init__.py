@@ -13,8 +13,8 @@ Model = Union[LM, EncDecLM]
 def get_model(cfg: ModelConfig, device="cuda", **kw) -> Model:
     """The port's model for ``cfg`` on ``device`` (parameters allocated,
     not initialised: call ``init_params`` or load a state dict):
-    ``EncDecLM`` for the encdec family, else ``LM`` (``kw``:
-    ``kv_quant``)."""
+    ``EncDecLM`` for the encdec family, else ``LM`` (``kw``: ``loss_chunk``
+    and ``remat`` for either, ``kv_quant`` for ``LM``)."""
     if cfg.family == "encdec":
         return EncDecLM(cfg, device=device, **kw)
     return LM(cfg, device=device, **kw)

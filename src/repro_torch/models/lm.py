@@ -8,6 +8,8 @@ Parameters keep the JAX package's names and ``[in, out]`` layout;
 module's state dict.
 
 Entry points:
+  loss(batch)                         — mean next-token NLL (+ the moe aux
+                                        loss), chunked over the sequence
   forward(tokens)                     — parallel forward → hidden states
   prefill(tokens, max_len, lengths)   — last-token logits + cache: K/V
                                         (every family but ssm; int8 with
@@ -20,14 +22,23 @@ Entry points:
 
 vlm is the dense path (its image tokens are vocabulary entries); a moe
 layer has ``moe_block`` where the others have the MLP.
+
+Parameters are made with ``requires_grad=False``, so serving builds no
+autograd graph; ``train.steps.make_train_step`` switches it on for the
+length of a step.  With ``remat`` (the default, as in the JAX twin) a
+forward under grad runs each layer in ``torch.utils.checkpoint``, the
+counterpart of ``jax.checkpoint``: the layer is recomputed in the backward
+pass instead of keeping its activations.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -86,9 +97,51 @@ class ParamGroup(nn.Module):
         return dict(self.named_parameters(recurse=False))
 
 
+def chunked_nll(logits_fn, hidden, targets, chunk: int):
+    """(summed NLL, count of valid targets), both f32 0-d, of ``hidden``
+    [B, S, d] against ``targets`` [B, S] (``-1`` = padding), taking the
+    logits of ``chunk`` positions at a time, as the JAX twins' ``loss``
+    scans over chunks (the caller checks that ``chunk`` divides S)."""
+    total = hidden.new_zeros((), dtype=torch.float32)
+    count = hidden.new_zeros((), dtype=torch.float32)
+    for start in range(0, hidden.shape[1], chunk):
+        t = targets[:, start:start + chunk].long()
+        logp = torch.log_softmax(logits_fn(hidden[:, start:start + chunk]),
+                                 dim=-1)
+        valid = t >= 0
+        nll = -torch.gather(logp, -1, torch.where(valid, t, 0)[..., None])
+        total = total + (nll[..., 0] * valid).sum()
+        count = count + valid.sum()
+    return total, count
+
+
+def remat_layer(fn, x):
+    """``fn(x)`` through ``torch.utils.checkpoint`` (the layer recomputed in
+    the backward pass) when autograd records ``x``; plainly otherwise, so
+    serving and CUDA-graph capture are unchanged.  The recompute runs under
+    the torch-function modes the forward ran under (the backward pass runs
+    under none), so ``core.extraction`` names its products as it named the
+    forward's."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return fn(x)
+    modes = torch.overrides._get_current_function_mode_stack()
+
+    @contextlib.contextmanager
+    def forward_modes():
+        with contextlib.ExitStack() as scope:
+            for mode in modes:
+                scope.enter_context(mode)
+            yield
+
+    return torch.utils.checkpoint.checkpoint(
+        fn, x, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), forward_modes()))
+
+
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device="cuda",
-                 kv_quant: bool = False):
+                 kv_quant: bool = False, loss_chunk: int = 1024,
+                 remat: bool = True):
         super().__init__()
         if cfg.family not in ("dense", "vlm", "moe", "hybrid", "ssm"):
             raise ValueError(
@@ -99,6 +152,8 @@ class LM(nn.Module):
         # int8 KV cache with per-(position, kv-head) bf16 scales: 130/256
         # of a bf16 cache's bytes at head_dim 128
         self.kv_quant = kv_quant
+        self.loss_chunk = loss_chunk
+        self.remat = remat
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.param_dtype]
         self.layers = nn.ModuleList(
@@ -124,13 +179,15 @@ class LM(nn.Module):
     # blocks
     # ------------------------------------------------------------------
     def _block(self, x, p, positions, cache=None, pos=None,
-               need_state: bool = False):
+               need_state: bool = False, want_aux: bool = False):
         """One block.  With ``cache`` (this layer's slice of the decode
         cache) it decodes one token: K/V are written at ``pos`` in place,
         attention runs over the cache, and the recurrent state continues
         from the cache.  Returns (x, this call's cache entries: k/v of the
         call, the new recurrent state).  ``need_state``: the caller keeps
-        the recurrent state of a parallel call (prefill)."""
+        the recurrent state of a parallel call (prefill).  ``want_aux``: a
+        moe layer adds its load-balancing loss (f32 0-d) as ``new["aux"]``.
+        """
         cfg = self.cfg
         B, S, _ = x.shape
         if cfg.family == "ssm":
@@ -170,6 +227,8 @@ class LM(nn.Module):
         x = x + attn_out
         h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         if cfg.family == "moe":
+            if want_aux:
+                new["aux"] = L.moe_aux_loss(h2, p, cfg)
             return x + L.moe_block(h2, p, cfg), new
         return x + L.mlp(h2, p, cfg), new
 
@@ -200,20 +259,31 @@ class LM(nn.Module):
     def _embed(self, tokens):
         return F.embedding(tokens, self.top.embed).to(self.dtype)
 
-    def forward(self, tokens, *, collect_cache: bool = False):
+    def forward(self, tokens, *, collect_cache: bool = False,
+                want_aux: bool = False):
         """Parallel forward over [B, S].  Returns (hidden, caches) where
         caches is the per-layer list of cache entries with
         ``collect_cache`` (k/v [B, S, KV, hd]; the recurrent state at the
-        end of the row), else None."""
+        end of the row), else None; with ``want_aux`` also the moe
+        load-balancing loss summed over the layers (f32 0-d, 0 outside the
+        moe family) third.  Under grad with ``remat`` each layer runs in
+        ``torch.utils.checkpoint``."""
         x = self._embed(tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
         caches: List[Dict[str, torch.Tensor]] = []
+        aux = x.new_zeros((), dtype=torch.float32)
         for layer in self.layers:
-            x, new = self._block(x, layer.tensors(), positions,
-                                 need_state=collect_cache)
+            def one(x, p=layer.tensors()):
+                return self._block(x, p, positions, need_state=collect_cache,
+                                   want_aux=want_aux)
+            x, new = remat_layer(one, x) if self.remat else one(x)
+            if "aux" in new:
+                aux = aux + new.pop("aux")
             if collect_cache:
                 caches.append(new)
         x = L.rms_norm(x, self.top.final_ln, self.cfg.norm_eps)
+        if want_aux:
+            return x, (caches if collect_cache else None), aux
         return x, (caches if collect_cache else None)
 
     def logits_fn(self, hidden):
@@ -224,6 +294,22 @@ class LM(nn.Module):
         if vp != cfg.vocab_size:
             logits[..., cfg.vocab_size:] = L.NEG_INF
         return logits
+
+    def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {'tokens': [B,S], 'targets': [B,S]} (-1 = padding).
+        Returns (loss, {"nll", "aux"}): the mean NLL over valid targets, to
+        which a moe model adds ``0.01 * aux / n_layers``."""
+        tokens, targets = batch["tokens"], batch["targets"]
+        hidden, _, aux = self.forward(tokens, want_aux=True)
+        Sq = hidden.shape[1]
+        c = min(self.loss_chunk, Sq)
+        assert Sq % c == 0
+        total, count = chunked_nll(self.logits_fn, hidden, targets, c)
+        nll = total / count.clamp(min=1.0)
+        loss = nll
+        if self.cfg.family == "moe":
+            loss = loss + 0.01 * aux / self.cfg.n_layers
+        return loss, {"nll": nll, "aux": aux}
 
     # ------------------------------------------------------------------
     # serving

@@ -10,6 +10,9 @@ loop (the JAX twin scans stacked layers with remat), with the JAX names and
 into this module's state dict.
 
 Entry points:
+  loss(batch)                             — mean next-token NLL of the
+                                            decoder, chunked over the
+                                            sequence
   encode(frames)                          — encoder output [B, F, d]
   decode_parallel(tokens, enc_out, ...)   — decoder hidden states (and the
                                             per-layer self and cross K/V)
@@ -25,10 +28,11 @@ Self-attention in parallel mode (the encoder's non-causal, the decoder's
 causal) and every cross-attention, at prefill and at decode, go through
 ``layers.attention_chunked``, so an impl installed at the ``attention``
 site takes each of them, as in the reference; decode self-attention is
-``layers.attention_decode``.  Not ported yet: ``loss``, ``param_axes``,
-``cache_axes`` and remat, which wait for the training slice, as the port's
-``LM.loss`` does (ROADMAP.md queue 1, "Extraction, training, checkpoints,
-data, runtime and launch").
+``layers.attention_decode``.  With ``remat`` (the default) a forward
+under grad runs each encoder and decoder layer in
+``torch.utils.checkpoint``, as ``LM`` does.  Not ported: ``param_axes`` and
+``cache_axes``, which wait for sharding (ROADMAP.md queue 1, "Extraction,
+training, checkpoints, data, runtime and launch").
 """
 from __future__ import annotations
 
@@ -41,7 +45,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.lm import _DTYPES, ParamGroup
+from repro_torch.models.lm import (_DTYPES, ParamGroup, chunked_nll,
+                                   remat_layer)
 
 MAX_DECODER_POS = 32768  # learned positions table bound (largest assigned shape)
 
@@ -73,13 +78,16 @@ def top_spec(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
 
 
 class EncDecLM(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device="cuda"):
+    def __init__(self, cfg: ModelConfig, *, device="cuda",
+                 loss_chunk: int = 1024, remat: bool = True):
         super().__init__()
         if cfg.family != "encdec" or cfg.encoder is None:
             raise ValueError(f"EncDecLM needs an encdec config with an "
                              f"encoder; {cfg.name} is {cfg.family!r} with "
                              f"encoder {cfg.encoder}")
         self.cfg = cfg
+        self.loss_chunk = loss_chunk
+        self.remat = remat
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.param_dtype]
         self.enc_layers = nn.ModuleList(
@@ -146,12 +154,16 @@ class EncDecLM(nn.Module):
                              f"{tuple(frames.shape)}")
         x = frames.to(self.dtype) + self.top.enc_pos.to(self.dtype)
         for layer in self.enc_layers:
-            p = layer.tensors()
-            a, _ = self._self_attn(self._ln(x, p, "ln1"), p, causal=False)
-            x = x + a
-            x = x + L.mlp(self._ln(x, p, "ln2"), p, cfg)
+            def one(x, p=layer.tensors()):
+                return self._enc_block(x, p)
+            x = remat_layer(one, x) if self.remat else one(x)
         return L.layer_norm(x, self.top.enc_final_ln, self.top.enc_final_ln_b,
                             cfg.norm_eps)
+
+    def _enc_block(self, x, p):
+        a, _ = self._self_attn(self._ln(x, p, "ln1"), p, causal=False)
+        x = x + a
+        return x + L.mlp(self._ln(x, p, "ln2"), p, self.cfg)
 
     def _dec_embed(self, tokens, pos0: int):
         x = F.embedding(tokens, self.top.embed).to(self.dtype)
@@ -185,11 +197,13 @@ class EncDecLM(nn.Module):
         x = self._dec_embed(tokens, 0)
         caches: List[Dict[str, torch.Tensor]] = []
         for layer in self.dec_layers:
-            p = layer.tensors()
-            xk, xv = self._cross_kv(p, enc_out)
-            x, (k, v) = self._dec_block(x, p, xk, xv)
+            def one(x, p=layer.tensors()):
+                xk, xv = self._cross_kv(p, enc_out)
+                x, (k, v) = self._dec_block(x, p, xk, xv)
+                return x, {"k": k, "v": v, "xk": xk, "xv": xv}
+            x, new = remat_layer(one, x) if self.remat else one(x)
             if collect_cache:
-                caches.append({"k": k, "v": v, "xk": xk, "xv": xv})
+                caches.append(new)
         x = L.layer_norm(x, self.top.final_ln, self.top.final_ln_b,
                          self.cfg.norm_eps)
         return x, (caches if collect_cache else None)
@@ -201,6 +215,17 @@ class EncDecLM(nn.Module):
         if cfg.padded_vocab() != cfg.vocab_size:
             logits[..., cfg.vocab_size:] = L.NEG_INF
         return logits
+
+    def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {'frames': [B,F,d], 'tokens': [B,S], 'targets': [B,S]}
+        (-1 = padding).  Returns (loss, {"nll": loss})."""
+        enc_out = self.encode(batch["frames"])
+        hidden, _ = self.decode_parallel(batch["tokens"], enc_out)
+        c = min(self.loss_chunk, hidden.shape[1])
+        assert hidden.shape[1] % c == 0
+        total, count = chunked_nll(self.logits_fn, hidden, batch["targets"], c)
+        loss = total / count.clamp(min=1.0)
+        return loss, {"nll": loss}
 
     # ------------------------------------------------------------------
     def cache_shapes(self, batch: int, max_len: int):

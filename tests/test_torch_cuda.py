@@ -852,3 +852,98 @@ def test_population_campaign_on_the_card_runs_k1_on_the_tensor_cores(cuda):
     assert any(c.status == "ok" for c in cands)
     assert res.best_time_s <= res.baseline_time_s
     assert launched["mma"] > len(cands) and launched["simt"] == 0
+
+
+# ---- training on the card -------------------------------------------------
+@pytest.mark.parametrize("name", ["flash_attention", "wkv", "ssd"])
+def test_kernels_refuse_under_grad_on_the_card(cuda, name):
+    """K2, K6 and K7 on CUDA tensors that require grad raise the named
+    error and launch nothing; without grad the same call launches."""
+    from repro_torch.kernels.no_backward import NoBackwardKernelError
+    g = torch.Generator(device=cuda).manual_seed(0)
+    if name == "flash_attention":
+        fn, shapes = flash_attention, [(1, 64, 4, 64), (1, 64, 2, 64),
+                                       (1, 64, 2, 64)]
+    elif name == "wkv":
+        fn, shapes = wkv, [(1, 64, 2, 64)] * 4 + [(2, 64)]
+    else:
+        fn, shapes = ssd, [(1, 64, 2, 64), (1, 64, 2), (2,), (1, 64, 16),
+                           (1, 64, 16)]
+    args = [torch.randn(s, device=cuda, generator=g) for s in shapes]
+    if name == "wkv":
+        args[3] = -args[3].abs()
+    if name == "ssd":
+        args[1] = args[1].abs()
+    before = fn.launches
+    with pytest.raises(NoBackwardKernelError):
+        fn(*[a.clone().requires_grad_(i == 0) for i, a in enumerate(args)])
+    assert fn.launches == before
+    with torch.no_grad():
+        fn(*[a.clone().requires_grad_(i == 0) for i, a in enumerate(args)])
+    assert fn.launches == before + 1
+
+
+def test_reduced_train_step_on_the_card_matches_the_cpu(cuda):
+    """Two AdamW steps of reduced stablelm-3b in float32 (TF32 off) on the
+    card and on the CPU, from the same weights and batches: the first
+    step's gradients within 1e-4 relative plus 1e-5 of the largest, each
+    step's loss and grad norm within 1e-5 relative, the moments within
+    1e-4 of their largest, and the parameters within 2 lr per step (an
+    Adam step of a gradient near 0 may take either sign)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData, make_global_batch
+    from repro_torch.models import get_model
+    from repro_torch.train import (AdamWConfig, init_state, make_train_step,
+                                   model_params)
+    from repro_torch.train.optim import schedule
+    cfg = dataclasses.replace(get_config("stablelm-3b").reduced(),
+                              param_dtype="float32")
+    opt_cfg = AdamWConfig(lr=1e-3)
+    data = SyntheticLMData(cfg, 64, 4, seed=0)
+    state = None
+    runs = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            model = get_model(cfg, device=dev)
+            if state is None:
+                model.init_params(torch.Generator().manual_seed(0))
+                state = {k: v.clone() for k, v in model.state_dict().items()}
+            else:
+                model.load_state_dict(state)
+            first = {}
+
+            def record(grads, first=first):
+                if not first:
+                    first.update({n: t.clone() for n, t in grads.items()})
+                return grads
+            step = make_train_step(model, opt_cfg, grad_hook=record)
+            params = model_params(model)
+            opt = init_state(params)
+            metrics = []
+            for s in range(2):
+                params, opt, m = step(params, opt,
+                                      make_global_batch(data, s, device=dev))
+                metrics.append({k: float(v) for k, v in m.items()})
+            runs[dev] = (first, params, opt, metrics)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (g0, p0, o0, m0), (g1, p1, o1, m1) = runs["cpu"], runs["cuda"]
+    scale = max(float(t.abs().max()) for t in g0.values())
+    for n in g0:
+        torch.testing.assert_close(g1[n].cpu(), g0[n], rtol=1e-4,
+                                   atol=1e-5 * scale)
+    for a, b in zip(m0, m1):
+        for k in ("loss", "grad_norm", "lr"):
+            assert b[k] == pytest.approx(a[k], rel=1e-5)
+    for key in ("mu", "nu"):
+        top = max(float(t.abs().max()) for t in o0[key].values())
+        for n in o0[key]:
+            torch.testing.assert_close(o1[key][n].cpu(), o0[key][n],
+                                       rtol=0, atol=1e-4 * top)
+    step_lrs = float(schedule(opt_cfg, 1)) + float(schedule(opt_cfg, 2))
+    for n in p0:
+        torch.testing.assert_close(p1[n].cpu(), p0[n], rtol=0,
+                                   atol=2 * step_lrs)

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import H100ModelPlatform, fe, get_case
+from repro_torch.data import SyntheticLMData, make_global_batch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.elementwise import elementwise
@@ -23,6 +24,7 @@ from repro_torch.kernels.moe_gemm import grouped_matmul
 from repro_torch.kernels.reduce_sum import reduce_sum
 from repro_torch.kernels.rwkv_wkv import wkv
 from repro_torch.kernels.ssd_scan import ssd
+from repro_torch.launch import train as launch_train
 from repro_torch.models import get_model
 from repro_torch.models.lm import LM
 from repro_torch.models.whisper import EncDecLM
@@ -68,12 +70,20 @@ def test_guard_sees_every_port_module():
                  "src/repro_torch/models/ssm.py",
                  "src/repro_torch/configs/rwkv6_7b.py",
                  "src/repro_torch/configs/hymba_1_5b.py",
-                 "src/repro_torch/hw.py"):
+                 "src/repro_torch/hw.py",
+                 "src/repro_torch/train/optim.py",
+                 "src/repro_torch/train/steps.py",
+                 "src/repro_torch/data/pipeline.py",
+                 "src/repro_torch/checkpoint/store.py",
+                 "src/repro_torch/runtime/ft.py",
+                 "src/repro_torch/runtime/compress.py",
+                 "src/repro_torch/launch/train.py",
+                 "src/repro_torch/kernels/no_backward.py"):
         assert must in names
     for mod in ("kernelcase", "datagen", "fe", "measure", "evalcache",
                 "profiler", "mep", "aer", "diagnosis", "patterns",
                 "proposer", "optimizer", "workers", "campaign",
-                "integrate"):
+                "integrate", "extraction"):
         assert f"src/repro_torch/core/{mod}.py" in names
 
 
@@ -127,6 +137,11 @@ ENTRY_POINTS = {
     "BatchedServer(hymba)": lambda **kw: BatchedServer(
         _cpu_model(HYMBA), slots=1, max_len=16, **kw),
     "H100ModelPlatform": lambda **kw: H100ModelPlatform(**kw),
+    "make_global_batch": lambda **kw: make_global_batch(
+        SyntheticLMData(CFG, 8, 2), 0, **kw),
+    "launch.train.build": lambda **kw: launch_train.build(
+        "stablelm-3b", smoke=True, batch=2, seq=8, lr=1e-3, accum=1,
+        compress=False, **kw),
     "fe.check": lambda **kw: fe.check(
         get_case("gemm"), get_case("gemm").baseline_variant, 16,
         n_input_sets=1, **kw),

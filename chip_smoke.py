@@ -82,8 +82,10 @@ Phases, each fatal on failure (exit 1, no result line):
    every layer of every prefill, and, in float32 on the served weights, the
    last-token prefill logits and final ``wkv`` state through K6 against its
    plain version (RECURRENT_F32_RTOL, with a control on bf16 operands that
-   must read above it) and the served requests against generate() (a
-   request may differ only from a near-tie on); prints the bf16 figures,
+   must read above it) and the served requests against generate() over
+   their first 8 tokens (a request may differ only from a near-tie on;
+   the bf16 comparison, not gated, over 4; both cut for the run's time,
+   printed); prints the bf16 figures,
    tokens/s, peak memory and where one decode step and one 2x256 prefill
    spend their time.  K6 is held against its plain version at every
    (B, S) of the run.
@@ -95,8 +97,8 @@ Phases, each fatal on failure (exit 1, no result line):
 11. The paper's Table 4 hotspots: a ``Campaign`` on ``h100`` over
    ``rwkv_wkv`` and ``mamba_ssd`` (every candidate FE-checked and timed
    through K6 or K7), then each winner's ``integrated_speedup`` into
-   rwkv6-7b / hymba-1.5b at full width in float32 (rwkv6-7b cut to 8 of
-   its 32 layers, 8.5 GiB, the cut printed; hymba-1.5b whole, 5.9 GiB)
+   rwkv6-7b / hymba-1.5b at full width in float32 (each cut to 8 of its
+   32 layers, 8.5 and 1.6 GiB, the cuts printed)
    over 2x256 tokens against the naive sequential recurrence; ``fe_ok``
    must be true, and every K7 call of the case and the integration must
    take ``mma`` (launches by body).  K6 and K7 are held against their plain
@@ -125,7 +127,9 @@ Phases, each fatal on failure (exit 1, no result line):
 14. Tables 1-3 on the card: a ``Campaign`` on ``h100-torch`` (the torch
    build timed with CUDA events, the counterpart of the JAX ``CPUPlatform``
    on its default device) over every PolyBench and APP SDK case and
-   ``moe_grouped_gemm``, as phase 5; then each winner re-timed against its
+   ``moe_grouped_gemm``, as phase 5 (adi and gramschm cut to one round of
+   R 10, adi's MEP pinned at scale 256, each cut printed); then each
+   winner re-timed against its
    baseline in this process, alternating 5 rounds of 30 calls (a winner
    whose build is the baseline's is marked: it can win only timing
    spread); each case's speedup and the suites' means, campaign and
@@ -174,7 +178,8 @@ Phases, each fatal on failure (exit 1, no result line):
    (K6 at chunk 32) must install with the tokens unchanged, the naive
    sequential build must be rolled back for regression with the registry
    restored, and a build off by x 1e3 refused at ``fe_fail``; (d)
-   hymba-1.5b on graphs against eager (3 rounds).  K2 and K6 must launch
+   hymba-1.5b on graphs against eager (3 rounds; cut to 8 of its 32
+   layers, printed).  K2 and K6 must launch
    on the phase's paths.  The phase's wall time on its own line; the
    journal in chiprun_out/autotune.jsonl.
 17. The rest of the decoder-only models through K2 at ``attention``
@@ -265,6 +270,52 @@ Phases, each fatal on failure (exit 1, no result line):
    the first step's gradients, each step's loss, grad norm and lr, and
    the moments within TRAIN_GRAD_TOL, TRAIN_METRIC_RTOL and
    TRAIN_MOMENT_TOL.  The phase's wall time on its own line.
+20. The campaign fabric (every earlier model freed, phase 5's winners
+   at hand; the phase's processes start side by side): (a) a
+   ``Campaign`` on ``h100`` over gemm, 2mm and syrk (K1) at phase 5's D,
+   N, R and k with PPI record-only (``ppi=False``, as the reference's chaos
+   harness: no winner depends on which concurrent case recorded first) on
+   a ``LocalClusterExecutor`` of two worker processes (``python -m
+   repro_torch.core.worker_main``; their start-up timed), with a
+   file-backed eval cache, pattern store and journal under
+   chiprun_out/fabric/.  K1 must launch only in the workers (the
+   scheduler's counter stays put), each case must reach an ``ok`` winner,
+   no worker launch may fall outside a device-lease hold; each case's
+   winner, speedup, FE and AER counts and K1 launches by body and by hold,
+   each worker's pid and seconds.  The workers' launches and K1 calls come
+   back in the launch log (``REPRO_LAUNCH_LOG``), outside the spec wire;
+   K1 is held against its plain version here at every call they reported,
+   on ``datagen`` inputs in the reported layout (tiles in multiples of 16
+   on ``mma``).  Each winner against phase 5's: equal, or both re-timed in
+   5 alternated rounds and within their spread; the fabric's best time
+   against phase 5's is printed (readings minutes apart drift beyond a
+   CI on this card, so it is not gated; (b)'s alternated one is).  The same campaign again on
+   the same cache: no cache miss, the same winners, no K1 launch in FE or
+   timing (MEP sizing probes are counted apart: the probe memo is each
+   process's own).  (b) Eq. 3 in a worker against eq. 3 here: gemm's
+   baseline at its MEP scale timed by a worker's job (no rounds, no
+   cache) and by this process under the lease, in 5 alternated rounds;
+   their medians must agree within the larger range.  The device-lease
+   holds of (a) from the journal: at least two workers, no two holds
+   overlapping; the interference control:
+   gemm's winner through K1 here, 5 rounds quiet, then 5 while a second
+   process launches K1 at 4096³ in a loop, each round read as the median
+   one-call rep (as the measured platforms time) and as the mean call of a
+   100-call window: the window must read above the quiet rounds' top by
+   more than their spread, the rep off the quiet rounds by more than their
+   spread (above or below).  (c) A job that crashes its
+   worker once: one ``worker_fault`` record, a replacement worker, the
+   result equal to (a)'s, and the card's free memory back within
+   FABRIC_MEM_TOL of its level before the kill; a job stalled past its
+   budget must come back a ``WorkerFault`` of kind ``timeout``.  (d) A
+   ``RemoteExecutor`` over two ``spawn`` loopback hosts (aliases fabricA,
+   fabricB) runs gemm at two seeds on ``h100``: both aliases' holds on the
+   one card's lease, none overlapping, the cache records in both aliases'
+   namespaces, ``fleet_events`` printed.  Closing the cluster's workers and
+   the fleet's servers must each give the card back at least
+   FABRIC_PROCESS_MIN a process.
+   The phase's wall time on its own line; the journals under
+   chiprun_out/fabric/.
 Then the device times at the main shapes (K2, K1 as above, K2 also at
 whisper's encoder and decode-cross shapes; K6, K7 at their
 serving runs' heaviest prefill; K3, K4, K5 as in phase 13) in a fresh
@@ -272,8 +323,9 @@ process (with the wrapper's host µs per call where K2's CUDA-event time
 exceeds 1.5x its device time), K7's ``simt`` body, host µs a call and
 one-pass controls at its main shape (bf16; and f32: K7 on xh, B and C
 rounded to TF32, which must read above the gate), the ``kernels`` JSON
-line (K1-K7; K1, K6 and K7's launches include phase 15's, K2's phases
-17, 18 and 19's, with whisper's two shapes; K1,
+line (K1-K7; K1, K6 and K7's launches include phase 15's, K1's phase
+20's workers' (also apart), K2's phases 17, 18 and 19's, with whisper's
+two shapes; K1,
 K2, K5 and K7 with their launches by body, the main shape's body, the
 device time and the TF32, P-in-bf16 or one-pass controls; K2, K3, K4, K5,
 K6 and K7 with the host µs a call; K4 with phase 12's compiles and cache hits and its vector loads; K5
@@ -811,22 +863,30 @@ def mep_scale(log):
     fail(f"no MEP scale in {log}")
 
 
-def run_case(camp, store, platform, name, proposer=None):
+def run_case(camp, store, platform, name, proposer=None, cfg=None,
+             scale=None):
     """One case through ``camp`` with ``proposer`` (the heuristic one by
-    default): the result and its row (MEP scale, baseline -> best,
-    candidates by status, AER repairs, rounds, timing reps paid and what
-    fixed R would have paid, seconds)."""
-    from repro_torch.core import CaseJob, HeuristicProposer, get_case
+    default) and ``cfg`` (the default ``OptConfig``: D 6, N 3, R 30, k 3),
+    its MEP auto-sized or pinned at ``scale``: the result and its row (MEP
+    scale, baseline -> best, candidates by status, AER repairs, rounds,
+    timing reps paid and what fixed R would have paid, seconds)."""
+    from repro_torch.core import (CaseJob, HeuristicProposer, OptConfig,
+                                  build_mep, get_case)
     t = time.perf_counter()
-    res = camp.run([CaseJob(get_case(name), proposer or HeuristicProposer(
-        0, store, platform.name))])[0]
+    case = get_case(name)
+    mep = build_mep(case, platform, scale=scale) if scale else None
+    res = camp.run([CaseJob(case, proposer or HeuristicProposer(
+        0, store, platform.name), cfg=cfg or OptConfig(), mep=mep)])[0]
     cands = [c for rl in res.rounds for c in rl.candidates]
     status = {st: sum(c.status == st for c in cands)
               for st in ("ok", "fe_fail", "build_error", "run_error")}
+    ci = [c.ci_half_width_s for c in cands if c.status == "ok"
+          and c.variant == res.best_variant and not c.cached]
     return res, {"case": name, "suite": get_case(name).suite,
                  "scale": mep_scale(res.mep_log),
                  "baseline_ms": res.baseline_time_s * 1e3,
                  "best_ms": res.best_time_s * 1e3, "speedup": res.speedup,
+                 "best_ci_ms": ci[0] * 1e3 if ci else 0.0,
                  "best_variant": res.best_variant,
                  "candidates": len(cands), "status": status,
                  "aer_repairs": res.aer_records,
@@ -1123,8 +1183,12 @@ TABLE4_CASES = {"rwkv_wkv": ("wkv", "rwkv6-7b"),
 # Table 4's application cut in depth at full width: rwkv6-7b's naive
 # sequential recurrence took 3.8 s a forward at 32 layers on the H100, 26 s
 # of the phase over its 7 forwards, and its layers are alike, so the
-# Integrated Speedup is close to a per-layer ratio
-TABLE4_CUTS = {"rwkv6-7b": 8}
+# Integrated Speedup is close to a per-layer ratio; hymba-1.5b's likewise,
+# for the run's time cap
+TABLE4_CUTS = {"rwkv6-7b": 8, "hymba-1.5b": 8}
+# phase 16's hymba-1.5b leg (graphs against eager, a replayed decode step)
+# cut in depth at full width, for the run's time cap
+ONLINE_CUTS = {"hymba-1.5b": 8}
 
 
 def kernel_pair(name):
@@ -1484,6 +1548,10 @@ def check_recurrent_f32(model, prompts, probe, kernels, max_len, max_new):
 
 
 SERVE_MAX_NEW = 16
+# new tokens the recurrent models' generate() checks decode (their served
+# requests decode SERVE_MAX_NEW): each generate() step is a host-bound
+# eager decode of 32 layers, so these are cut for the run's time cap
+RECURRENT_CHECK_NEW = {"float32": 8, "bfloat16": 4}
 
 
 def served_model(arch, n_layers=None, param_dtype=None, kv_quant=False):
@@ -1691,17 +1759,25 @@ def phase_serve(report, arch):
               f" and {bf16['kernel'][1]:.3g}, the chunked plain path "
               f"{bf16['chunked'][0]:.3g} and {bf16['chunked'][1]:.3g} (not "
               f"gated), same argmax {same_top}", flush=True)
+        print(f"reduced: {arch}'s generate() checks decode "
+              f"{RECURRENT_CHECK_NEW['float32']} new tokens a request in "
+              f"float32 (gated) and {RECURRENT_CHECK_NEW['bfloat16']} in "
+              f"bf16 (not gated), of the {max_new} served (host-bound "
+              f"decode, for the run's time cap)", flush=True)
         serve.update(check_recurrent_f32(model, prompts, probe, kernels,
-                                         max_len, max_new))
+                                         max_len,
+                                         RECURRENT_CHECK_NEW["float32"]))
 
+    n_ref = RECURRENT_CHECK_NEW["bfloat16"] if recurrent else max_new
     refs = [[int(tok) for tok in generate(model, r.prompt[None],
-                                          max_new=max_new)[0]]
+                                          max_new=n_ref)[0]]
             for r in reqs]
-    agree = sum(r.tokens == ref for r, ref in zip(reqs, refs))
+    agree = sum(r.tokens[:n_ref] == ref for r, ref in zip(reqs, refs))
     first = sum(r.tokens[0] == ref[0] for r, ref in zip(reqs, refs))
-    print(f"{arch}: requests equal to generate() on the card: "
-          f"{agree}/{len(reqs)}, first tokens {first}/{len(reqs)} (bf16 at "
-          "other row counts is not bit-stable; not gated)", flush=True)
+    print(f"{arch}: requests equal to generate() on the card over "
+          f"{n_ref} tokens: {agree}/{len(reqs)}, first tokens "
+          f"{first}/{len(reqs)} (bf16 at other row counts is not "
+          "bit-stable; not gated)", flush=True)
     serve.update(generate_agreement=agree / len(reqs),
                  generate_first_token_agreement=first / len(reqs))
 
@@ -2462,6 +2538,13 @@ def k5_main_shapes():
     return out
 
 
+# Tables 1-3's depth cuts (the run's time cap): the two cases whose torch
+# builds take most of the phase's time run fewer rounds and reps
+TABLES_CUTS = {"adi": {"d_rounds": 1, "r": 10},
+               "gramschm": {"d_rounds": 1, "r": 10}}
+# and adi's MEP pinned at the scale its walk settles on (T_max rejects its
+# larger scales, whose probes took ~8 s)
+TABLES_PINNED = {"adi": 256}
 # the alternated re-timing of phase 14: rounds of REPS calls of the
 # baseline, then of the winner; calls above 10 ms take 5 a round
 RETIME_ROUNDS, RETIME_REPS = 5, 30
@@ -2569,10 +2652,21 @@ def phase_tables(report):
         [c.name for c in cases("appsdk")] + ["moe_grouped_gemm"]
     print(f"Tables 1-3 on {platform.name} ({len(names)} cases, heuristic "
           f"proposer, D=6 N=3 R=30 k=3, as phase 5):", flush=True)
+    for name, cut in TABLES_CUTS.items():
+        print(f"reduced: {name} D 6→{cut['d_rounds']} rounds, R 30→"
+              f"{cut['r']} (its torch build takes 50–230 ms a call on the "
+              f"card)" + (f"; its MEP pinned at scale {TABLES_PINNED[name]},"
+                          " where its walk settles" if name in TABLES_PINNED
+                          else ""), flush=True)
     rows = []
     t0 = time.perf_counter()
+    from repro_torch.core import OptConfig
     for name in names:
-        _, row = run_case(camp, store, platform, name)
+        cut = TABLES_CUTS.get(name)
+        _, row = run_case(camp, store, platform, name,
+                          cfg=OptConfig(**cut) if cut else None,
+                          scale=TABLES_PINNED.get(name))
+        row["reduced"] = cut
         rows.append(row)
         print(f"  {row['suite']:9s} {name:20s} MEP scale {row['scale']}: "
               f"baseline {row['baseline_ms']:.4f} ms -> best "
@@ -3605,7 +3699,9 @@ def phase_online(report):
     torch.cuda.empty_cache()
 
     # ---- (d) hymba-1.5b ------------------------------------------------
-    model = served_model("hymba-1.5b")
+    cut = ONLINE_CUTS.get("hymba-1.5b")
+    model = served_model("hymba-1.5b", n_layers=cut)
+    print(f"hymba-1.5b on graphs: {cut_line('hymba-1.5b', cut)}", flush=True)
     _, prompts, max_len, _ = serve_workload(model.cfg)
     for site, name in SERVE_SITES["hymba-1.5b"].items():
         ops.install(site, site_impl(site, kernel_pair(name)[0]), kernel=name,
@@ -4659,6 +4755,697 @@ def phase_training(report):
     return {"total": launches, **by_path}, checks
 
 
+# --------------------------------------------------------------------------
+# the campaign fabric on the card (phase 20): worker processes under one
+# device lease
+# --------------------------------------------------------------------------
+FABRIC_CASES = ("gemm", "2mm", "syrk")
+FABRIC_DIR = OUT.parent / "fabric"
+# memory after a worker was killed and replaced, against before the kill;
+# a worker's CUDA context alone is ~0.5 GiB, so a context that did not go
+# back to the card reads twice this
+FABRIC_MEM_TOL = 256 * 2**20
+# each worker or server process closed must give the card back at least
+# this (its CUDA context alone is more), read just before and after the
+# close, with no device work here between
+FABRIC_PROCESS_MIN = 256 * 2**20
+# a stalled job's budget: the worker sleeps STALL_S, the executor waits
+# STALL_TIMEOUT_S before it replaces the worker
+STALL_TIMEOUT_S, STALL_S = 4.0, 60.0
+# the interference control's window: calls back to back between two
+# events, ~13 ms quiet, so it spans several of the card's time slices
+WINDOW_CALLS = 100
+# the interference control's second context: K1 at 4096^3 f32 in a loop
+# (~8 ms a launch), until told to stop or this many seconds have passed
+INTERFERER = """
+import sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.core.measure import card_key, get_device_lease
+from repro_torch.kernels.matmul import matmul
+# start-up under the card's lease: it must not land in a worker's timing
+with get_device_lease(card_key("cuda"), device="cuda").hold("control"):
+    a = torch.randn(4096, 4096, device="cuda")
+    b = torch.randn(4096, 4096, device="cuda")
+    matmul(a, b)
+print("READY", flush=True)
+if sys.stdin.readline().strip() != "GO":
+    sys.exit(0)
+print("LOOPING", flush=True)
+end = time.monotonic() + float(sys.argv[2])
+while time.monotonic() < end:
+    for _ in range(4):
+        matmul(a, b)
+    torch.cuda.synchronize()
+"""
+
+
+def fabric_lines(path):
+    """The launch log's lines (one a worker job)."""
+    if not path.exists():
+        return []
+    return [json.loads(ln) for ln in path.read_text().splitlines()
+            if ln.strip()]
+
+
+def fabric_k1_call(sig, seed=0):
+    """A K1 call a worker reported (shapes, strides, dtypes, keywords) as
+    arguments on the card: each operand from ``datagen`` (normal, seed
+    ``seed``), laid out with the reported strides."""
+    import torch
+    from repro_torch.core import datagen
+    from repro_torch.core.kernelcase import ArraySpec
+    args = []
+    for i, a in enumerate(sig["args"]):
+        if not isinstance(a, dict):
+            args.append(a)
+            continue
+        n = 1 + sum((d - 1) * st for d, st in zip(a["shape"], a["stride"]))
+        (base,) = datagen.generate([ArraySpec((n,), "float32")], seed + i)
+        flat = torch.from_numpy(base).to("cuda", getattr(torch, a["dtype"]))
+        args.append(torch.as_strided(flat, a["shape"], a["stride"]))
+    while args and args[-1] is None:
+        args.pop()
+    return tuple(args), dict(sig["kw"])
+
+
+def k1_expected_path(args, kw):
+    """The body K1 must take for a call (``matmul.path_for``)."""
+    from repro_torch.kernels.matmul import fit, path_for
+    a, b = args[:2]
+    M, K = a.shape
+    N = b.shape[1]
+    return path_for(a.dtype, fit(kw.get("block_m", 128), M),
+                    fit(kw.get("block_n", 128), N),
+                    fit(kw.get("block_k", 128), K),
+                    (*a.stride(), *b.stride()),
+                    (a.data_ptr(), b.data_ptr()))
+
+
+def lease_holds(db, campaign=None):
+    """The device-lease holds a ResultsDB journaled (optionally of one
+    campaign), in start order, and whether any two overlapped."""
+    holds = sorted((r for r in db.records("device_lease")
+                    if campaign is None or r.get("campaign") == campaign),
+                   key=lambda r: r["t0"])
+    overlaps = [(a["pid"], b["pid"]) for a, b in zip(holds, holds[1:])
+                if b["t0"] < a["t1"]]
+    return holds, overlaps
+
+
+def summarize_holds(holds):
+    """Per worker (pid, host alias): holds, held and waited seconds."""
+    out = {}
+    for h in holds:
+        s = out.setdefault(f"{h['pid']}@{h['host']}", {
+            "holds": 0, "held_s": 0.0, "wait_s": 0.0, "what": {}})
+        s["holds"] += 1
+        s["held_s"] += h["t1"] - h["t0"]
+        s["wait_s"] += h["t0"] - h["t_req"]
+        s["what"][h["what"]] = s["what"].get(h["what"], 0) + 1
+    return out
+
+
+def case_row(res):
+    cands = [c for rl in res.rounds for c in rl.candidates]
+    ci = [c.ci_half_width_s for c in cands if c.status == "ok"
+          and c.variant == res.best_variant and not c.cached]
+    return {"case": res.case_name, "scale": mep_scale(res.mep_log),
+            "best_variant": res.best_variant, "speedup": res.speedup,
+            "baseline_ms": res.baseline_time_s * 1e3,
+            "best_ms": res.best_time_s * 1e3,
+            "best_ci_ms": ci[0] * 1e3 if ci else 0.0,
+            "fe_checked": len(cands),
+            "ok": sum(c.status == "ok" for c in cands),
+            "fe_fail": sum(c.status == "fe_fail" for c in cands),
+            "aer_repairs": res.aer_records,
+            "cache_hits": res.cache_hits, "cache_misses": res.cache_misses}
+
+
+def fabric_launch_totals(lines):
+    """K1 launches of the given log lines: total and by body, and by the
+    device-lease hold they fell in (``outside``: in none)."""
+    total = {"total": 0, "mma": 0, "simt": 0}
+    by_hold = {}
+    for ln in lines:
+        for key, n in ln["launches"].get("matmul", {}).items():
+            total[key] = total.get(key, 0) + n
+        for what, counts in ln.get("launches_by_hold", {}).items():
+            by_hold[what] = by_hold.get(what, 0) + counts.get("matmul", 0)
+    by_hold["outside"] = total["total"] - sum(by_hold.values())
+    return total, by_hold
+
+
+def interference_control(case, variant, scale, child):
+    """gemm's winner through K1 in this process, 5 rounds quiet, then 5
+    while ``child`` (another process, its own CUDA context) launches K1 in
+    a loop.  Each round reads two ways: the median of RETIME_REPS reps,
+    each one call between CUDA events on an idle stream (as the measured
+    platforms time a rep), and the mean call of one window of WINDOW_CALLS
+    calls back to back between two events (``cuda_ms``).  Returns
+    {"rep": (quiet, loaded), "window": (quiet, loaded)}, ms a call."""
+    import torch
+    from repro_torch.core import datagen
+    from repro_torch.core.fe import as_tensors
+    inputs = as_tensors(datagen.generate(case.input_specs(scale), 0), "cuda")
+    fn = case.build(variant, impl="cuda")
+
+    def rounds():
+        rep, window = [], []
+        for _ in range(RETIME_ROUNDS):
+            rep.append(float(np.median(call_times_ms(fn, inputs,
+                                                     RETIME_REPS))))
+            window.append(cuda_ms(lambda: fn(*inputs), reps=WINDOW_CALLS,
+                                  warmup=1))
+        return rep, window
+
+    with torch.no_grad():
+        fn(*inputs)
+        quiet = rounds()
+        child.stdin.write("GO\n")
+        child.stdin.flush()
+        if child.stdout.readline().strip() != "LOOPING":
+            fail("the interference control's second process did not start "
+                 "its loop")
+        time.sleep(0.5)
+        loaded = rounds()
+    return {"rep": (quiet[0], loaded[0]), "window": (quiet[1], loaded[1])}
+
+
+def fabric_against_here(ex, platform, case, scale, cfg):
+    """The case's baseline timed by eq. 3 (the campaign's R and k, the
+    adaptive engine) in a worker of ``ex`` (a job of no rounds, with no
+    cache) and in this process under the card's lease, alternating
+    RETIME_ROUNDS rounds: both sides' readings (ms), their medians and
+    whether the medians agree within the larger of their ranges."""
+    from repro_torch.core import CaseJob, HeuristicProposer, MeasureConfig
+    from repro_torch.core import datagen
+    from repro_torch.core.measure import device_work
+    from repro_torch.core.workers import WorkerContext
+    import dataclasses
+    job = CaseJob(case, HeuristicProposer(0, platform=platform.name),
+                  cfg=dataclasses.replace(cfg, d_rounds=0))
+    ctx = WorkerContext(platform=platform)
+    inputs = datagen.generate(case.input_specs(scale), 0)
+    base = dict(case.baseline_variant)
+    worker, here = [], []
+    for i in range(RETIME_ROUNDS):
+        (res,) = ex.run([job], ctx, campaign_id=f"eq3-{i}")
+        if not hasattr(res, "baseline_time_s") \
+                or mep_scale(res.mep_log) != scale:
+            fail(f"the worker's eq. 3 job failed or sized its MEP off "
+                 f"scale {scale}: {res}")
+        worker.append(res.baseline_time_s * 1e3)
+        with device_work(platform, "time"):
+            t = platform.time_variant(case, base, scale, inputs, r=cfg.r,
+                                      k=cfg.k, budget=MeasureConfig())
+        here.append(t.trimmed_mean_s * 1e3)
+    spread = max(max(worker) - min(worker), max(here) - min(here))
+    mw, mh = float(np.median(worker)), float(np.median(here))
+    return {"worker_ms": worker, "here_ms": here, "worker_median": mw,
+            "here_median": mh, "spread": spread,
+            "agree": abs(mw - mh) <= spread}
+
+
+def stop_child(child):
+    try:
+        child.kill()
+        child.wait(timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        pass
+
+
+def wait_exit(pids, timeout_s=30.0):
+    """Wait until none of ``pids`` is a live process (reaped or gone)."""
+    import os
+    deadline = time.monotonic() + timeout_s
+    for pid in pids:
+        while time.monotonic() < deadline:
+            try:
+                os.kill(pid, 0)
+            except OSError:
+                break
+            time.sleep(0.05)
+
+
+def close_and_measure(executor, pids):
+    """Close ``executor`` (its processes ``pids``) and read the card's free
+    memory just before and after, once every process has exited."""
+    before = free_bytes()
+    executor.close()
+    wait_exit(pids)
+    deadline = time.monotonic() + 5.0     # the memory comes back soon after
+    while True:
+        after = free_bytes()
+        if after - before >= len(pids) * FABRIC_PROCESS_MIN \
+                or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    return {"processes": len(pids), "free_before": before,
+            "free_after": after, "returned": after - before}
+
+
+def free_bytes():
+    """The card's free bytes, this process's cached blocks handed back
+    first: what other processes hold is what moves it."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0]
+
+
+def phase_fabric(report):
+    """Phase 20: the campaign fabric on the card.  (a) A Campaign on h100
+    over gemm, 2mm and syrk (K1) on a LocalClusterExecutor of two worker
+    processes, at phase 5's D, N, R, k with PPI record-only, with a
+    file-backed eval cache and pattern store; K1 launched only in the workers (each worker's launches
+    and calls come back through its launch log, outside the wire), then
+    held against its plain version here at every call they reported, on
+    ``datagen`` inputs; the winners against phase 5's; then the same
+    campaign again on the same cache.  (b) Eq. 3 in a worker against eq.
+    3 here (alternated), the device-lease holds of (a) (no two overlap)
+    and the interference control.  (c) Faults: a worker crash retried on a
+    replacement, the card's memory back, and a stalled job a timeout.
+    (d) A RemoteExecutor over two spawned loopback hosts under distinct
+    aliases, both on the card's one device lease."""
+    import os
+    import shutil
+    from repro_torch.core import (Campaign, CaseJob, EvalCache,
+                                  H100Platform, HeuristicProposer,
+                                  LocalClusterExecutor, OptConfig,
+                                  OptResult, PatternStore, RemoteExecutor,
+                                  ResultsDB, WorkerFault, get_case)
+    from repro_torch.core.measure import card_key, device_lease_path
+    from repro_torch.core.workers import LAUNCH_LOG_ENV
+    from repro_torch.kernels.matmul import matmul, matmul_ref
+
+    import threading
+    t_phase = time.perf_counter()
+    out = report["fabric"] = {}
+    shutil.rmtree(FABRIC_DIR, ignore_errors=True)
+    FABRIC_DIR.mkdir(parents=True)
+    log_path = FABRIC_DIR / "launches.jsonl"
+    os.environ[LAUNCH_LOG_ENV] = str(log_path)
+    free0 = free_bytes()
+    platform = H100Platform()
+    card = card_key("cuda")
+    print(f"fabric on {platform.name}: the card's device lease "
+          f"{device_lease_path(card)}", flush=True)
+    # every process the phase needs starts now, side by side: the two
+    # workers of (a), the control's second context of (b) and the two
+    # fleet servers of (d); none touches the card before its turn but
+    # under the lease
+    child = subprocess.Popen(
+        [sys.executable, "-c", INTERFERER, str(ROOT / "src"), "60"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    ex = LocalClusterExecutor(2)
+    rex = RemoteExecutor([{"name": "fabricA"}, {"name": "fabricB"}])
+    t_start = time.perf_counter()
+    ex._start_all([0, 1])
+    fleet_ready = []
+
+    def start_fleet():
+        rex._start_all(rex._all_slots())
+        fleet_ready.append(time.perf_counter() - t_start)
+    fleet_up = threading.Thread(target=start_fleet, daemon=True)
+    fleet_up.start()
+    # PPI record-only (the reference chaos harness's setting): a case's
+    # winner must not depend on which concurrent case recorded first, so
+    # the replay below is exact; D, N, R, k as phase 5
+    cfg = OptConfig(ppi=False)
+    procs = []
+    try:
+        # ---- (a) the local cluster ---------------------------------------
+        ex.warm(timeout_s=120)
+        warm_s = time.perf_counter() - t_start
+        out["worker_start_s"] = warm_s
+        print(f"(a) two workers started and answered a ping in "
+              f"{warm_s:.1f} s (pids "
+              f"{sorted(w.proc.pid for w in ex._procs.values())}; "
+              f"started beside the control's process and the two fleet "
+              f"servers)", flush=True)
+        cache = EvalCache(str(FABRIC_DIR / "evalcache.jsonl"))
+        store = PatternStore(str(FABRIC_DIR / "patterns.jsonl"))
+        db = ResultsDB(str(FABRIC_DIR / "campaign_fabric.jsonl"))
+        camp = Campaign(platform, patterns=store, cache=cache, db=db,
+                        executor=ex)
+
+        def jobs():
+            return [CaseJob(get_case(n), HeuristicProposer(
+                0, platform=platform.name), cfg=cfg)
+                for n in FABRIC_CASES]
+
+        before = matmul.launches
+        t = time.perf_counter()
+        results = camp.run(jobs())
+        out["campaign_s"] = time.perf_counter() - t
+        if matmul.launches != before:
+            fail(f"the scheduler launched K1 {matmul.launches - before} "
+                 "times during the fabric's campaign")
+        lines = fabric_lines(log_path)
+        cid = next(db.records("campaign_start"))["id"]
+        rows = []
+        for res in results:
+            if not isinstance(res, OptResult):
+                fail(f"fabric job failed: {res}")
+            row = case_row(res)
+            mine = [ln for ln in lines if ln["case"] == res.case_name
+                    and ln["campaign"] == cid]
+            row["launches"], row["launches_by_hold"] = \
+                fabric_launch_totals(mine)
+            row["workers"] = sorted({ln["pid"] for ln in mine})
+            rows.append(row)
+            print(f"  {res.case_name:5s} MEP scale {row['scale']}: "
+                  f"{row['baseline_ms']:.4f} ms -> {row['best_ms']:.4f} ms "
+                  f"({row['speedup']:.3f}x, {row['best_variant']}); "
+                  f"{row['fe_checked']} FE-checked ({row['ok']} ok, "
+                  f"{row['fe_fail']} FE fails), AER repairs "
+                  f"{row['aer_repairs']}; K1 launches {row['launches']} "
+                  f"in worker {row['workers']}, by hold "
+                  f"{row['launches_by_hold']}", flush=True)
+            if row["launches"]["total"] == 0 or row["ok"] == 0:
+                fail(f"{res.case_name}: no K1 launch in a worker or no ok "
+                     f"candidate: {row}")
+            if row["launches_by_hold"]["outside"]:
+                fail(f"{res.case_name}: K1 launched outside the device "
+                     f"lease: {row['launches_by_hold']}")
+        workers = {}
+        for ln in lines:
+            w = workers.setdefault(str(ln["pid"]), {"jobs": [],
+                                                    "seconds": 0.0})
+            w["jobs"].append(ln["case"])
+            w["seconds"] += ln["seconds"]
+        print(f"  workers: " + "; ".join(
+            f"pid {p}: {w['jobs']} in {w['seconds']:.2f} s"
+            for p, w in workers.items()) + f"; campaign "
+            f"{out['campaign_s']:.1f} s", flush=True)
+        out.update(cases=rows, workers=workers)
+
+        # K1 against its plain version at every call the workers reported
+        sigs = {}
+        for ln in lines:
+            for sig in ln["calls"].get("matmul", []):
+                args, kw = fabric_k1_call(sig)
+                sigs.setdefault(k1_key(*args, **kw), (args, kw))
+        checks = []
+        for key, (args, kw) in sorted(sigs.items(), key=lambda kv: str(
+                kv[0])):
+            r = compare_k1(key, args, kw, timed=False)
+            r["key"] = list(key)
+            want = k1_expected_path(args, kw)
+            checks.append(r)
+            if not agrees(r) or r["path"] != want:
+                fail(f"K1 at a worker's call {key}: {r} (body must be "
+                     f"{want})")
+        k1_bodies = {b: sum(r["path"] == b for r in checks)
+                     for b in ("mma", "simt")}
+        print(f"  K1 vs plain here at the workers' {len(checks)} calls "
+              f"(datagen inputs, seed 0): largest error of the gate "
+              f"{max(r['tol_ratio'] for r in checks):.3f}; bodies "
+              f"{k1_bodies}", flush=True)
+        if any(r["path"] != "mma" for r in checks
+               if all(t % 16 == 0 for t in r["tile"])):
+            fail("a worker's K1 call on a tile in multiples of 16 took the "
+                 "CUDA cores")
+        out["k1_checks"] = checks
+
+        # the winners against phase 5's, re-timed in alternated rounds
+        p5 = {r["case"]: r for r in report["campaign"]["cases"]}
+        for row in rows:
+            ref = p5[row["case"]]
+            if row["scale"] != ref["scale"]:
+                fail(f"{row['case']}: MEP scale {row['scale']} against "
+                     f"phase 5's {ref['scale']}")
+            case = get_case(row["case"])
+            builds = {"phase 5": case.build(ref["best_variant"],
+                                            impl="cuda")}
+            if row["best_variant"] != ref["best_variant"]:
+                builds["phase 20"] = case.build(row["best_variant"],
+                                                impl="cuda")
+            _, rounds = alternate_builds(case, ref["scale"], builds)
+            spread = {k: max(v) - min(v) for k, v in rounds.items()}
+            med = {k: float(np.median(v)) for k, v in rounds.items()}
+            same = "phase 20" not in builds
+            agree = same or abs(med["phase 5"] - med["phase 20"]) \
+                <= max(spread.values())
+            row.update(phase5_variant=ref["best_variant"],
+                       phase5_best_ms=ref["best_ms"],
+                       phase5_best_ci_ms=ref.get("best_ci_ms", 0.0),
+                       retimed=rounds, winner_agrees=agree,
+                       best_over_phase5=row["best_ms"] / ref["best_ms"])
+            print(f"  {row['case']:5s} winner "
+                  + ("= phase 5's" if same else
+                     f"{row['best_variant']} vs phase 5's "
+                     f"{ref['best_variant']}")
+                  + "; re-timed medians " + ", ".join(
+                      f"{k} {med[k]:.4f} ms (spread {spread[k]:.4f})"
+                      for k in rounds)
+                  + f"; fabric best {row['best_ms']:.4f} ms (CI "
+                  f"{row['best_ci_ms']:.4f}) against phase 5's "
+                  f"{ref['best_ms']:.4f} (CI {ref.get('best_ci_ms', 0):.4f})"
+                  f", {row['best_over_phase5']:.3f}x (minutes apart: not "
+                  f"gated; the alternated eq. 3 comparison below is)",
+                  flush=True)
+            if not agree:
+                fail(f"{row['case']}: the fabric's winner and phase 5's "
+                     "differ beyond their spread")
+
+        # the same campaign again on the same cache
+        t = time.perf_counter()
+        again = camp.run(jobs())
+        replay_s = time.perf_counter() - t
+        cid2 = list(db.records("campaign_start"))[-1]["id"]
+        replay_lines = [ln for ln in fabric_lines(log_path)
+                        if ln["campaign"] == cid2]
+        total, by_hold = fabric_launch_totals(replay_lines)
+        holds2, _ = lease_holds(db, cid2)
+        what2 = sorted({h["what"] for h in holds2})
+        misses = sum(r.cache_misses for r in again)
+        winners_same = all(a.best_variant == b.best_variant
+                           and a.best_time_s == b.best_time_s
+                           for a, b in zip(results, again))
+        evaluated = sum(n for what, n in by_hold.items()
+                        if what != "probe")
+        out["replay"] = {"seconds": replay_s, "cache_misses": misses,
+                         "cache_hits": sum(r.cache_hits for r in again),
+                         "k1_launches": total, "by_hold": by_hold,
+                         "holds": what2, "winners_same": winners_same,
+                         "k1_launches_evaluating": evaluated}
+        print(f"  replay on the same cache: {replay_s:.1f} s, cache hits "
+              f"{out['replay']['cache_hits']}, misses {misses}; K1 "
+              f"launches in the workers' FE and timing {evaluated}; in "
+              f"MEP sizing probes {by_hold.get('probe', 0)} (the probe memo "
+              f"is a worker's own: a case that lands on the other worker "
+              f"is probed again); lease holds {what2}; winners equal: "
+              f"{winners_same}", flush=True)
+        if misses or not winners_same or evaluated:
+            fail("the replay re-evaluated or launched K1 outside MEP "
+                 f"sizing: {out['replay']}")
+
+        # ---- (b) interference, and the lease that prevents it -----------
+        # eq. 3 in a worker against eq. 3 here, alternated (readings taken
+        # minutes apart drift by more than a CI on this card): gemm's
+        # baseline at phase 5's scale, timed by a worker's job (no cache:
+        # measured afresh) and by this process, under the card's lease
+        ab = fabric_against_here(ex, platform, get_case("gemm"),
+                                 rows[0]["scale"], cfg)
+        out["eq3_against_here"] = ab
+        print(f"(b) eq. 3 of gemm's baseline (R 30 k 3, scale "
+              f"{rows[0]['scale']}), 5 alternated rounds: in a worker "
+              + ", ".join(f"{t:.4f}" for t in ab["worker_ms"])
+              + " ms; here " + ", ".join(f"{t:.4f}" for t in ab["here_ms"])
+              + f" ms: medians {ab['worker_median']:.4f} and "
+              f"{ab['here_median']:.4f}, within the larger spread "
+              f"{ab['spread']:.4f}: {ab['agree']}", flush=True)
+        if not ab["agree"]:
+            fail(f"eq. 3 in a worker reads unlike eq. 3 here: {ab}")
+        holds, overlaps = lease_holds(db, cid)
+        per = summarize_holds(holds)
+        out["lease"] = {"card": card, "holds": len(holds),
+                        "overlaps": overlaps, "workers": per}
+        print(f"(b) device-lease holds of (a): {len(holds)} by "
+              f"{len(per)} workers, overlapping pairs {len(overlaps)}; "
+              + "; ".join(f"{w}: {s['holds']} holds {s['what']}, held "
+                          f"{s['held_s']:.2f} s, waited {s['wait_s']:.2f} s"
+                          for w, s in per.items()), flush=True)
+        if overlaps or len(per) < 2:
+            fail(f"device-lease holds overlap or come from one worker: "
+                 f"{out['lease']}")
+        if child.stdout.readline().strip() != "READY":
+            fail("the interference control's second process did not start")
+        gemm = rows[0]
+        control = interference_control(
+            get_case("gemm"), gemm["best_variant"], gemm["scale"], child)
+        stop_child(child)
+        out["interference"] = {}
+        for how, (quiet, loaded) in control.items():
+            spread = max(quiet) - min(quiet)
+            out["interference"][how] = {
+                "quiet_ms": quiet, "loaded_ms": loaded,
+                "above": min(loaded) > max(quiet) + spread,
+                "below": max(loaded) < min(quiet) - spread}
+            calls = WINDOW_CALLS if how == "window" else RETIME_REPS
+            print(f"  interference control, {how} (gemm's winner through "
+                  f"K1 here, 5 rounds of {calls} calls): quiet "
+                  f"{float(np.median(quiet)):.4f} ms a call (rounds "
+                  f"{min(quiet):.4f}-{max(quiet):.4f}), while a second "
+                  f"process launches K1 in a loop "
+                  f"{float(np.median(loaded)):.4f} (rounds "
+                  f"{min(loaded):.4f}-{max(loaded):.4f})", flush=True)
+        # a window of calls spans the card's time slices: the other
+        # context's launches land inside it; a one-call rep moves too
+        # (either way: it is timed inside one slice or across two)
+        w, r = out["interference"]["window"], out["interference"]["rep"]
+        if not w["above"] or not (r["above"] or r["below"]):
+            fail("the loaded readings do not move beyond the quiet ones' "
+                 f"spread: {out['interference']}")
+
+        # ---- (c) faults ------------------------------------------------
+        pids = {s: w.proc.pid for s, w in ex._procs.items()}
+        free_warm = free_bytes()
+        crash = CaseJob(get_case("syrk"), HeuristicProposer(
+            0, platform=platform.name), cfg=cfg, label="syrk#crash")
+        crash.inject = {"crash_once_flag": str(FABRIC_DIR / "crash.flag")}
+        t = time.perf_counter()
+        (retried,) = camp.run([crash])
+        crash_s = time.perf_counter() - t
+        faults = [r for r in db.records("worker_fault")
+                  if r["job"] == "syrk#crash"]
+        new_pids = {s: w.proc.pid for s, w in ex._procs.items()}
+        replaced = sorted(set(new_pids.values()) - set(pids.values()))
+        dead = sorted(set(pids.values()) - set(new_pids.values()))
+        wait_exit(dead)
+        free_after = free_bytes()
+        ref = next(r for r in results if r.case_name == "syrk")
+        same = retried.best_variant == ref.best_variant \
+            and retried.best_time_s == ref.best_time_s
+        out["crash"] = {"faults": faults, "replacement_pids": replaced,
+                        "killed_pids": dead, "seconds": crash_s,
+                        "result_equal": same, "free_warm": free_warm,
+                        "free_after": free_after}
+        print(f"(c) a crashed worker (pid {dead}) replaced by pid "
+              f"{replaced} in {crash_s:.1f} s: {len(faults)} worker_fault "
+              f"record(s) ({[f['fault'] for f in faults]}); retried result "
+              f"equal to (a)'s: {same}; free memory before the kill "
+              f"{free_warm / 2**30:.3f} GiB, after the replacement "
+              f"{free_after / 2**30:.3f} GiB (tolerance "
+              f"{FABRIC_MEM_TOL / 2**20:.0f} MiB)", flush=True)
+        if len(faults) != 1 or faults[0]["fault"] != "crash" \
+                or len(replaced) != 1 or not same:
+            fail(f"the crash was not retried on a replacement to the same "
+                 f"result: {out['crash']}")
+        if abs(free_after - free_warm) > FABRIC_MEM_TOL:
+            fail("the killed worker's memory did not return to the card")
+        stall = CaseJob(get_case("gemm"), HeuristicProposer(
+            0, platform=platform.name), cfg=cfg, label="gemm#stall")
+        stall.inject = {"sleep_s": STALL_S}
+        ex.timeout_s, ex.retries = STALL_TIMEOUT_S, 0
+        t = time.perf_counter()
+        (stalled,) = ex.run([stall], camp_ctx(camp), campaign_id="stall")
+        print(f"  a job stalled {STALL_S:.0f} s under a "
+              f"{STALL_TIMEOUT_S:.0f} s budget: {type(stalled).__name__} "
+              f"kind {getattr(stalled, 'kind', None)} after "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        if not (isinstance(stalled, WorkerFault)
+                and stalled.kind == "timeout"):
+            fail(f"the stalled job came back as {stalled!r}")
+        out["stall"] = {"outcome": type(stalled).__name__,
+                        "kind": getattr(stalled, "kind", None)}
+        out["cluster_close"] = close_and_measure(
+            ex, [w.proc.pid for w in ex._procs.values()])
+
+        # ---- (d) the fleet: two spawned loopback hosts on one card ------
+        fleet_db = ResultsDB(str(FABRIC_DIR / "campaign_fleet.jsonl"))
+        fleet_cache = EvalCache(str(FABRIC_DIR / "evalcache_fleet.jsonl"))
+        fleet_up.join()
+        rex.warm(timeout_s=120)
+        fleet_start = fleet_ready[0] if fleet_ready else float("nan")
+        fcamp = Campaign(platform, cache=fleet_cache, db=fleet_db,
+                         executor=rex)
+        t = time.perf_counter()
+        fres = fcamp.run([CaseJob(get_case("gemm"), HeuristicProposer(
+            seed, platform=platform.name), cfg=cfg, seed=seed,
+            label=f"gemm#{seed}") for seed in (0, 1)])
+        fleet_s = time.perf_counter() - t
+        events = rex.fleet_events()
+        out["fleet_close"] = close_and_measure(
+            rex, [srv.proc.pid for srv in rex._servers.values()])
+    finally:
+        stop_child(child)
+        procs = [w.proc.pid for w in ex._procs.values()] + [
+            s.proc.pid for s in rex._servers.values()]
+        ex.close()
+        fleet_up.join()
+        rex.close()
+    wait_exit(procs)
+    fholds, foverlaps = lease_holds(fleet_db)
+    fper = summarize_holds(fholds)
+    aliases = {h["host"] for h in fholds}
+    cards = {h["card"] for h in fholds}
+    ns = {json.loads(ln).get("ns") for ln in
+          Path(fleet_cache.path).read_text().splitlines() if ln.strip()}
+    hosts = {r.get("host") for r in fleet_db.records("case_result")}
+    flines = [ln for ln in fabric_lines(log_path)
+              if ln["host"] in ("fabricA", "fabricB")]
+    ftotal, fby_hold = fabric_launch_totals(flines)
+    out["fleet"] = {"start_s": fleet_start, "seconds": fleet_s,
+                    "fleet_events": events, "case_hosts": sorted(hosts),
+                    "lease_aliases": sorted(aliases), "cards": sorted(cards),
+                    "overlaps": foverlaps, "holds": fper,
+                    "namespaces": sorted(n for n in ns if n),
+                    "k1_launches": ftotal, "by_hold": fby_hold,
+                    "winners": [r.best_variant for r in fres]}
+    print(f"(d) RemoteExecutor over spawned loopback hosts fabricA and "
+          f"fabricB: both servers READY {fleet_start:.1f} s after the "
+          f"phase's processes started, gemm (seeds 0, 1) "
+          f"in {fleet_s:.1f} s on hosts {sorted(hosts)}; fleet_events "
+          f"{events}; device-lease holds by {sorted(aliases)} on card(s) "
+          f"{sorted(cards)}, overlapping pairs {len(foverlaps)}; "
+          + "; ".join(f"{w}: {s['holds']} holds, waited {s['wait_s']:.2f} s"
+                      for w, s in fper.items())
+          + f"; cache namespaces {out['fleet']['namespaces']}; K1 launches "
+          f"{ftotal} (by hold {fby_hold})", flush=True)
+    if aliases != {"fabricA", "fabricB"} or len(cards) != 1 or foverlaps:
+        fail(f"the two hosts did not share the card's one lease: "
+             f"{out['fleet']}")
+    if not all(any(a in n for n in ns if n) for a in ("fabricA",
+                                                        "fabricB")):
+        fail(f"the cache records lack an alias's namespace: {ns}")
+    if fby_hold["outside"] or not ftotal["total"]:
+        fail(f"the fleet's K1 launches: {ftotal}, by hold {fby_hold}")
+
+    os.environ.pop(LAUNCH_LOG_ENV, None)
+    out["free_before"], out["free_after"] = free0, free_bytes()
+    for what, c in (("the cluster's live workers", out["cluster_close"]),
+                    ("the fleet's servers", out["fleet_close"])):
+        print(f"  closing {what} ({c['processes']}) gave the card back "
+              f"{c['returned'] / 2**20:.0f} MiB (at least "
+              f"{FABRIC_PROCESS_MIN / 2**20:.0f} MiB a process)",
+              flush=True)
+        if c["returned"] < c["processes"] * FABRIC_PROCESS_MIN:
+            fail(f"closing {what} did not give the card its memory back: "
+                 f"{c}")
+    print(f"  free memory {out['free_after'] / 2**30:.3f} GiB at the "
+          f"phase's end, {free0 / 2**30:.3f} GiB at its start (this "
+          f"process's own modules and cuBLAS state grew between)",
+          flush=True)
+    all_lines = fabric_lines(log_path)
+    out["worker_launches"], _ = fabric_launch_totals(all_lines)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 20 wall time: {out['seconds']:.1f} s", flush=True)
+    return out["worker_launches"], out["k1_checks"]
+
+
+def camp_ctx(camp):
+    """A campaign's WorkerContext, for running jobs on its executor
+    directly."""
+    from repro_torch.core.workers import WorkerContext
+    return WorkerContext(platform=camp.platform, cache=camp.cache,
+                         patterns=camp.patterns, db=camp.db,
+                         measure=camp.measure, lease_path=camp.lease_path,
+                         lease_scope=camp.lease_scope)
+
+
 def main() -> None:
     import gc
     import torch
@@ -4735,6 +5522,8 @@ def main() -> None:
     lap("whisper-medium")
     train_launches, train_checks = phase_training(report)
     lap("training")
+    fabric_launches, fabric_checks = phase_fabric(report)
+    lap("fabric")
     wkv_main, wkv_call = main_recurrent_shape("wkv", rwkv_calls["wkv"])
     wkv_main["host_us_per_call"] = host_us_per_call(
         lambda: kernel_pair("wkv")[0](*wkv_call[0], **wkv_call[1]))
@@ -4819,14 +5608,16 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/matmul.cu",
         "replaces": "src/repro/kernels/suites/pallas_lib.py:70",
         "launches": k1_launches["total"] + suite_launches["matmul"]
-        + pop_launches["matmul"]["total"],
+        + pop_launches["matmul"]["total"] + fabric_launches["total"],
         "launches_by_path": {
             path: k1_launches[path] + suite_launches["matmul_by_path"][path]
-            + pop_launches["matmul"][path] for path in ("mma", "simt")},
+            + pop_launches["matmul"][path] + fabric_launches[path]
+            for path in ("mma", "simt")},
+        "launches_in_workers": fabric_launches,
         "main_shape_path": k1_main["path"],
         "max_abs_err": max(r["max_abs_err"] for r in
                            k1_rows + suite_checks["matmul"]
-                           + pop_checks["matmul"]),
+                           + pop_checks["matmul"] + fabric_checks),
         "ms": k1_main["ms"], "device_ms": k1_main["kernel_device_ms"],
         "plain_ms": k1_main["plain_ms"],
         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],

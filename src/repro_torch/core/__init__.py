@@ -7,9 +7,10 @@ Port of ``repro.core``.  Pipeline:  extract (KernelCase) → complete
 from repro_torch.core.kernelcase import (ArraySpec, KernelCase, Variant,
                                          cases, get_case, register)
 from repro_torch.core.datagen import DataBudget, generate
-from repro_torch.core.measure import (MeasureConfig, TimingLease, get_lease,
-                                      measure_callable, measure_fn,
-                                      trimmed_stats)
+from repro_torch.core.measure import (DeviceLease, MeasureConfig,
+                                      TimingLease, get_device_lease,
+                                      get_lease, measure_callable,
+                                      measure_fn, trimmed_stats)
 from repro_torch.core.mep import MEP, MEPConstraints, build_mep, emit_script
 from repro_torch.core.profiler import (H100ModelPlatform, H100Platform,
                                        H100TorchPlatform, Platform,
@@ -17,7 +18,7 @@ from repro_torch.core.profiler import (H100ModelPlatform, H100Platform,
                                        TorchCPUPlatform, platform_from_name,
                                        register_platform, trimmed_mean)
 from repro_torch.core.fe import FEResult, check as fe_check, outputs_match
-from repro_torch.core.aer import AER, RepairRecord
+from repro_torch.core.aer import AER, RepairRecord, WorkerFault
 from repro_torch.core.patterns import Pattern, PatternStore
 from repro_torch.core.proposer import (DirectProposer, HeuristicProposer,
                                        LLMBatcher, LLMProposer, OfflineError,
@@ -32,7 +33,14 @@ from repro_torch.core.evalcache import (EvalCache, EvalRecord, ResultsDB,
                                         spec_key, this_host)
 from repro_torch.core.optimizer import (CandidateLog, Evaluator, OptConfig,
                                         OptResult, RoundLog, optimize)
-from repro_torch.core.workers import (CaseJob, Executor, InProcessExecutor,
-                                      WorkerContext, run_case_job)
+from repro_torch.core.chaos import ChaosInjector, Fault, FaultPlan
+from repro_torch.core.workers import (CaseJob, Executor, FleetHost,
+                                      InProcessExecutor,
+                                      LocalClusterExecutor, RemoteExecutor,
+                                      SubprocessExecutor, WorkerContext,
+                                      backoff_schedule, make_executor,
+                                      run_case_job)
+from repro_torch.core.replicate import (JournalLink, Replicator,
+                                        drain_endpoint)
 from repro_torch.core.campaign import Campaign
 from repro_torch.core import integrate

@@ -13,8 +13,10 @@ package's, but for one: VMEM overflow becomes shared-memory overflow.  K1's
 and K5's wrappers refuse a tile whose shared memory exceeds what an H100
 block may use, with a message naming "shared memory" and the bytes, and the
 ``_smem_overflow`` rule halves the largest block, as ``_vmem_overflow`` did.
-Process-level faults (``WorkerFault``) arrive with the worker fabric
-(ROADMAP queue 1, "The campaign fabric").
+A worker process that cannot build or launch a kernel returns that error
+as a variant-level record; only a worker that dies, stalls or cannot be
+reached becomes a ``WorkerFault`` (journaled by the executor as a
+``worker_fault`` record).
 """
 from __future__ import annotations
 
@@ -33,6 +35,32 @@ class RepairRecord:
     rule: str
     before: Variant
     after: Variant
+
+
+class WorkerFault(RuntimeError):
+    """Process-level evaluation fault — the AER taxonomy's fourth class,
+    beside build/fe/run failures: the *worker* evaluating the MEP died
+    (``kind="crash"``), exceeded its wall-clock budget
+    (``kind="timeout"``), or could not be reached at all
+    (``kind="connect"`` — the fleet transport's bounded connect failed
+    even after the reconnect/backoff schedule).  Unlike the
+    variant-level classes there is no variant to repair; the automatic
+    remedy is worker replacement — the executor respawns the process
+    (or re-establishes the connection) and retries the job on a fresh
+    worker, raising this fault only once the retry budget is spent.
+    Repeated faults against one fleet host additionally feed
+    ``RemoteExecutor``'s quarantine logic."""
+
+    def __init__(self, kind: str, job: str, detail: str = "",
+                 attempts: int = 1):
+        self.kind = kind              # crash | timeout | connect
+        self.job = job
+        self.detail = detail
+        self.attempts = attempts
+        super().__init__(
+            f"worker {kind} evaluating job {job!r} "
+            f"(after {attempts} attempt{'s' if attempts != 1 else ''})"
+            + (f": {detail}" if detail else ""))
 
 
 def _largest_divisor_leq(n: int, b: int) -> int:

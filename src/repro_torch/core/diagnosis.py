@@ -83,6 +83,22 @@ class Diagnosis:
             "confidence": self.confidence,
         }
 
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "Diagnosis":
+        return cls(
+            bottleneck=str(d.get("bottleneck", "balanced")),
+            compute_fraction=float(d.get("compute_fraction", 0.0)),
+            memory_fraction=float(d.get("memory_fraction", 0.0)),
+            latency_fraction=float(d.get("latency_fraction", 0.0)),
+            collective_fraction=float(d.get("collective_fraction", 0.0)),
+            arithmetic_intensity=float(d.get("arithmetic_intensity", 0.0)),
+            ridge_flop_per_byte=float(d.get("ridge_flop_per_byte", 0.0)),
+            mxu_utilization=float(d.get("mxu_utilization", 1.0)),
+            vmem_fraction=float(d.get("vmem_fraction", 0.0)),
+            ci_rel=float(d.get("ci_rel", 0.0)),
+            confidence=float(d.get("confidence", 1.0)),
+        )
+
     def summary(self) -> str:
         """One line for the LLM prompt / journal readers."""
         return (

@@ -1,10 +1,8 @@
 """Shared evaluation cache + persistent campaign results database.
 
 Port of ``repro.core.evalcache`` (pure Python), with byte-compatible JSONL:
-a journal written by either package replays through the other's reader.
-The port has no journal replicator yet (ROADMAP queue 1, "The campaign
-fabric"), so
-compaction has no replica to drain first.
+a journal written by either package replays through the other's reader,
+compaction-epoch markers included.
 
 The paper's framework amortizes optimization cost by never paying the
 full-application build per candidate; the campaign engine extends the
@@ -25,7 +23,8 @@ Two layers live here:
   survives restarts and backs the BENCH_* trajectory across PRs.
 
 Both are safe to share between *processes*, not just threads — the
-substrate an out-of-process worker fabric runs on:
+substrate the out-of-process worker fabric (``repro_torch.core.workers``)
+runs on:
 
 * Every JSONL append is a single ``write()`` on an ``O_APPEND`` fd, so
   concurrent writers never interleave partial lines.
@@ -65,8 +64,10 @@ from repro_torch.core.kernelcase import Variant
 def this_host() -> str:
     """The host identity every per-host resolution rule keys on: the
     measured-cache namespace, the timing-lease host scope, and the
-    journals' host provenance: the machine's hostname."""
-    return socket.gethostname()
+    journals' host provenance.  ``REPRO_HOST_ALIAS`` overrides the real
+    hostname so a simulated fleet (N worker servers on one machine,
+    loopback sockets) exercises the exact cross-host code paths."""
+    return os.environ.get("REPRO_HOST_ALIAS") or socket.gethostname()
 
 
 def default_namespace() -> str:
@@ -126,12 +127,62 @@ def append_jsonl(path: str, rec: Dict[str, Any]) -> int:
     return len(data)
 
 
-# Journals written by the JAX package's replicating writers end each
-# compaction with a marker line of this event kind; replay skips it.  The
-# port writes no markers: it has no offset-tracking replica to tell a
-# compacted journal from a truncated one (ROADMAP queue 1, "The campaign
-# fabric").
+# ---------------------------------------------------------------------------
+# compaction-epoch markers (replication coordination)
+# ---------------------------------------------------------------------------
+# Compacting a journal rewrites it through ``os.replace`` — an inode
+# swap that invalidates every byte offset other readers hold, including
+# the ``repro_torch.core.replicate`` tail-ship loop's.  Every compaction
+# therefore (1) first drains any live Replicator whose link ends at
+# this journal, so nothing appended-but-not-yet-shipped is folded away,
+# and (2) writes a **compaction-epoch marker** as the rewritten file's
+# last line.  A resyncing tail finds the last marker and resumes just
+# past it: everything before the marker is the compacted snapshot
+# (replayed through the shipped-digest filter, so nothing re-ships),
+# everything after is fresh appends.  Markers are per-file coordination
+# state and are never shipped across a link.
+
 COMPACT_EV = "compact"
+
+
+def compaction_marker(epoch: int) -> Dict[str, Any]:
+    """The journal line a compaction writes last: names the rewrite so
+    offset-tracking readers can distinguish 'compacted' from
+    'truncated/rotated' and resume precisely."""
+    return {"ev": COMPACT_EV, "epoch": int(epoch), "host": this_host(),
+            "pid": os.getpid(), "ts": time.time()}
+
+
+def marker_epoch(line: bytes) -> Optional[int]:
+    """The epoch if ``line`` is a compaction marker, else None."""
+    if b'"ev"' not in line:
+        return None
+    try:
+        obj = json.loads(line.decode("utf-8", errors="replace"))
+    except ValueError:
+        return None
+    if isinstance(obj, dict) and obj.get("ev") == COMPACT_EV:
+        try:
+            return int(obj.get("epoch", 0))
+        except (TypeError, ValueError):
+            return 0
+    return None
+
+
+def drain_replicas(path: str) -> int:
+    """Pre-compaction coordination: synchronously pump every live
+    Replicator with ``path`` as a link endpoint, so lines appended since
+    the last sweep ship verbatim before the rewrite folds them into the
+    snapshot.  Must be called *before* taking the store flock (the pump
+    appends under the destination's flock).  A no-op when
+    ``repro_torch.core.replicate`` was never imported."""
+    if not path:
+        return 0
+    import sys
+    mod = sys.modules.get("repro_torch.core.replicate")
+    if mod is None:
+        return 0
+    return mod.drain_endpoint(path)
 
 
 @dataclass
@@ -220,6 +271,12 @@ class EvalCache:
                  namespace: Optional[str] = None,
                  ttl_s: Optional[float] = None):
         self.path = path
+        # ns_explicit distinguishes a caller-pinned namespace (shipped
+        # verbatim over the spec wire) from the host-derived default —
+        # a worker on ANOTHER host must re-derive the default locally,
+        # or its measured records would be stamped with the scheduler's
+        # host and wrongly replay there (see workers.job_to_spec)
+        self.ns_explicit = namespace is not None
         self.namespace = namespace if namespace is not None \
             else default_namespace()
         if ttl_s is None:
@@ -232,6 +289,7 @@ class EvalCache:
         self._offset = 0             # how far into the file we have read
         self._ino: Optional[int] = None
         self._lines = 0              # journal lines behind the view
+        self._epoch = 0              # last compaction epoch replayed
         self.hits = 0
         self.misses = 0
         self.waits = 0        # in-flight dedup: waited on another worker
@@ -276,6 +334,8 @@ class EvalCache:
             try:
                 obj = json.loads(line.decode())
                 if isinstance(obj, dict) and obj.get("ev") == COMPACT_EV:
+                    self._epoch = max(self._epoch,
+                                      int(obj.get("epoch", 0) or 0))
                     continue
                 rec = EvalRecord.from_dict(obj)
             except (ValueError, TypeError, KeyError, UnicodeDecodeError):
@@ -374,6 +434,12 @@ class EvalCache:
             self._append_locked(rec)
         return rec
 
+    def reload(self) -> None:
+        """Fold records appended by other processes (the worker fabric)
+        into this process's in-memory view."""
+        with self._lock:
+            self._reload_locked()
+
     def stats(self) -> Dict[str, int]:
         with self._lock:
             return {"hits": self.hits, "misses": self.misses,
@@ -408,23 +474,37 @@ class EvalCache:
             return
         self._compact_locked()
 
+    def compact(self) -> None:
+        """Force a journal compaction: rewrite the file as one line per
+        distinct key (all namespaces preserved — a measured record from
+        another host must survive the rewrite even though *this* cache
+        would reject it on lookup), ending with a compaction-epoch
+        marker so replication tails resync instead of re-shipping."""
+        with self._lock:
+            self._compact_locked()
+
     def _compact_locked(self) -> None:
-        """Caller holds self._lock (and not the store flock)."""
+        """Caller holds self._lock (and must NOT hold the store flock:
+        the pre-compaction replica drain appends under it)."""
         if not self.path:
             return
         d = os.path.dirname(self.path)
         if d:
             os.makedirs(d, exist_ok=True)
+        drain_replicas(self.path)
         with FileLock(self.path + ".lock"):
             self._reload_locked()
+            self._epoch += 1
             tmp = f"{self.path}.tmp{os.getpid()}"
             with open(tmp, "w") as f:
                 for rec in self._records.values():
                     f.write(json.dumps(rec.to_dict(), default=str) + "\n")
+                f.write(json.dumps(compaction_marker(self._epoch),
+                                   default=str) + "\n")
             os.replace(tmp, self.path)
             st = os.stat(self.path)
             self._offset, self._ino = st.st_size, st.st_ino
-            self._lines = len(self._records)
+            self._lines = len(self._records) + 1
 
 
 class ResultsDB:

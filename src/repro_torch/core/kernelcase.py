@@ -105,6 +105,31 @@ class KernelCase:
             self._digest = hashlib.sha256(blob.encode()).hexdigest()[:12]
         return self._digest
 
+    def to_dict(self) -> Dict[str, Any]:
+        """Wire form of a case.  A case's behavior lives in its callables,
+        which cannot cross a process boundary — what travels is the
+        *reference*: registry name plus the source digest, so the
+        receiving worker can prove it reconstructed the same kernel code
+        the scheduler shipped (see ``from_dict``)."""
+        return {"name": self.name, "suite": self.suite,
+                "family": self.family, "digest": self.source_digest()}
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "KernelCase":
+        """Resolve a wire-form case from the registry, refusing to proceed
+        if the local kernel source differs from what the scheduler
+        serialized — a silent digest mismatch would evaluate different
+        code under the sender's cache keys."""
+        case = get_case(d["name"])
+        want = d.get("digest")
+        if want and case.source_digest() != want:
+            raise ValueError(
+                f"kernel case {d['name']!r} source digest mismatch: "
+                f"scheduler sent {want}, this process has "
+                f"{case.source_digest()} — scheduler and worker must run "
+                f"the same code")
+        return case
+
     def data_bytes(self, scale: int) -> int:
         return sum(s.nbytes for s in self.input_specs(scale))
 

@@ -31,6 +31,20 @@ while spending only the repetitions a measurement actually needs:
   without corrupting eq. 3 (this replaces the one-exclusive-worker
   pinning the local-cluster executor used to apply).
 
+* **Device lease** (the port's own) — on one GPU, worker processes run
+  in separate CUDA contexts that the card time-slices, so another
+  worker's FE launches could land inside a timed CUDA-event window, and
+  the timing lease above (host-scoped, timed slices only) cannot see
+  them.  A measured platform on the card therefore holds a cross-process
+  lease on the *physical card* (keyed by its UUID, one file in the temp
+  dir, shared by every host alias and worker on the machine) over every
+  stretch of device work a worker does: the MEP's probes, FE through the
+  kernel, warm-up and every timed slice.  CPU work (proposals, spec
+  decoding, the MEP's host-side data, the LLM batcher) still overlaps.
+  Each hold ends with a device synchronise, so no launch outlives it, and
+  is journaled (pid, host alias, monotonic start and end) into the
+  campaign's ``ResultsDB`` as a ``device_lease`` record.
+
 The engine is also the home of the MEP auto-sizing **probe memo**: rough
 baseline probes (r=3, k=0) are memoized per (case, variant, platform,
 scale, seed), so MEP construction never times the same coordinates
@@ -178,6 +192,150 @@ def get_lease(path: Optional[str]) -> TimingLease:
         if lease is None:
             lease = _LEASES[path] = TimingLease(path)
         return lease
+
+
+# ---------------------------------------------------------------------------
+# device lease: one physical card, every process on the machine
+# ---------------------------------------------------------------------------
+def card_key(device) -> str:
+    """The physical card behind ``device``: its UUID (the same for every
+    process, context and host alias on the machine), as a file-name-safe
+    string."""
+    import torch
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    raw = str(torch.cuda.get_device_properties(idx).uuid)
+    return "".join(c if c.isalnum() or c in "-_" else "-" for c in raw)
+
+
+def device_lease_path(key: str) -> str:
+    """Where the lease on card ``key`` lives: one file in the temp dir,
+    so every worker and every host alias on the machine contends for
+    it."""
+    return os.path.join(tempfile.gettempdir(),
+                        f"repro-devicelease-{key}.lock")
+
+
+class DeviceLease:
+    """Cross-process lease on one physical card.  ``hold(what)`` grants
+    the card for one stretch of device work: a per-card mutex (threads
+    of this process) plus an ``flock`` on the card's lease file (every
+    other process).  Holds nest within a thread (only the outermost one
+    locks); the outermost hold synchronises ``device`` before it lets go
+    and journals itself to the thread's sink (``lease_journal``)."""
+
+    def __init__(self, key: str, path: Optional[str] = None, device=None):
+        self.key = key
+        self.path = path or device_lease_path(key)
+        self.device = device
+        self._mutex = threading.Lock()
+        self._local = threading.local()
+        self.holds = 0            # observability (tests)
+
+    def held(self) -> bool:
+        """Whether the calling thread holds the card."""
+        return getattr(self._local, "depth", 0) > 0
+
+    @contextmanager
+    def hold(self, what: str = ""):
+        if self.held():
+            self._local.depth += 1
+            try:
+                yield
+            finally:
+                self._local.depth -= 1
+            return
+        from repro_torch.core.evalcache import FileLock, this_host
+        t_req = time.monotonic()
+        with self._mutex:
+            d = os.path.dirname(self.path)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            with FileLock(self.path):
+                t0 = time.monotonic()
+                self._local.depth = 1
+                for listen in HOLD_LISTENERS:
+                    listen(what, True)
+                try:
+                    yield
+                finally:
+                    try:
+                        if self.device is not None:
+                            import torch
+                            torch.cuda.synchronize(self.device)
+                    finally:
+                        self._local.depth = 0
+                        t1 = time.monotonic()
+                        for listen in HOLD_LISTENERS:
+                            listen(what, False)
+        self.holds += 1
+        sink = getattr(_JOURNAL, "sink", None)
+        if sink is not None:
+            db, fields = sink
+            try:
+                db.append("device_lease", card=self.key, what=what,
+                          pid=os.getpid(), host=this_host(),
+                          t_req=t_req, t0=t0, t1=t1, **fields)
+            except OSError:
+                pass      # a full disk must not fail the measurement
+
+
+_DEVICE_LEASES: Dict[str, DeviceLease] = {}
+# called as listen(what, entering) at the start and the end of every
+# outermost hold, by the holding thread, while it holds the card
+HOLD_LISTENERS: List[Callable[[str, bool], None]] = []
+_JOURNAL = threading.local()
+
+
+def get_device_lease(key: str, device=None) -> DeviceLease:
+    """The process's one ``DeviceLease`` for card ``key``."""
+    with _LEASES_LOCK:
+        lease = _DEVICE_LEASES.get(key)
+        if lease is None:
+            lease = _DEVICE_LEASES[key] = DeviceLease(key, device=device)
+        return lease
+
+
+def platform_lease(platform) -> Optional[DeviceLease]:
+    """The device lease a platform's device work is held under: the
+    card's for a measured platform that launches on it (``h100``,
+    ``h100-torch``); None for analytic platforms and the CPU, which fan
+    out as before (the host's timing lease still serialises CPU timing).
+    A platform may name its own lease through a ``device_lease()``
+    method."""
+    own = getattr(platform, "device_lease", None)
+    if callable(own):
+        return own()
+    if getattr(platform, "concurrency_safe", False):
+        return None
+    device = str(getattr(platform, "device", "cpu"))
+    if not device.startswith("cuda"):
+        return None
+    return get_device_lease(card_key(device), device=device)
+
+
+@contextmanager
+def device_work(platform, what: str = ""):
+    """Hold ``platform``'s device lease (if it has one) over a stretch of
+    device work."""
+    lease = platform_lease(platform)
+    if lease is None:
+        yield
+    else:
+        with lease.hold(what):
+            yield
+
+
+@contextmanager
+def lease_journal(db, **fields):
+    """Journal this thread's device-lease holds into ``db`` (a
+    ``ResultsDB``) as ``device_lease`` records carrying ``fields``."""
+    prev = getattr(_JOURNAL, "sink", None)
+    _JOURNAL.sink = (db, fields) if db is not None else None
+    try:
+        yield
+    finally:
+        _JOURNAL.sink = prev
 
 
 # ---------------------------------------------------------------------------
@@ -393,8 +551,9 @@ def probe_time(platform, case, variant, scale: int, inputs, *,
                                 time.time() - hit[1] <= _probe_ttl_s()):
             probe_hits += 1
             return hit[0]
-    t = platform.time_variant(case, variant, scale, inputs,
-                              r=r, k=k, budget=budget).trimmed_mean_s
+    with device_work(platform, "probe"):
+        t = platform.time_variant(case, variant, scale, inputs,
+                                  r=r, k=k, budget=budget).trimmed_mean_s
     with _PROBE_LOCK:
         memo = _PROBE_MEMO.setdefault(platform, {})
         if len(memo) >= _PROBE_MAX:

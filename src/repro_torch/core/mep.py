@@ -19,14 +19,14 @@ from __future__ import annotations
 import dataclasses
 import textwrap
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from repro_torch.core import datagen
 from repro_torch.core.datagen import DataBudget
 from repro_torch.core.kernelcase import KernelCase, Variant
-from repro_torch.core.measure import MeasureConfig, probe_time
+from repro_torch.core.measure import MeasureConfig, device_work, probe_time
 from repro_torch.core.profiler import Platform, TimingResult
 
 
@@ -37,6 +37,14 @@ class MEPConstraints:
     s_max_bytes: int = 256 * 1024 * 1024   # S_max
     r: int = 30                  # repeated runs (paper: R=30)
     k: int = 3                   # trim count  (paper: k=3)
+
+    def to_dict(self) -> Dict[str, Any]:
+        from dataclasses import asdict
+        return asdict(self)
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "MEPConstraints":
+        return MEPConstraints(**d)
 
 
 @dataclass
@@ -62,10 +70,11 @@ class MEP:
         """Eq. 3 timing of one variant at the MEP's scale.  ``budget``
         selects the adaptive engine's stopping policy (and timing
         lease); ``incumbent_s`` arms incumbent racing."""
-        return self.platform.time_variant(
-            self.case, variant, self.scale, self.inputs,
-            r=r or self.reps, k=self.constraints.k if k is None else k,
-            budget=budget, incumbent_s=incumbent_s)
+        with device_work(self.platform, "time"):
+            return self.platform.time_variant(
+                self.case, variant, self.scale, self.inputs,
+                r=r or self.reps, k=self.constraints.k if k is None else k,
+                budget=budget, incumbent_s=incumbent_s)
 
     def reference_outputs(self):
         """The oracle's outputs on the MEP's inputs, on the platform's
@@ -73,7 +82,7 @@ class MEP:
         import torch
 
         from repro_torch.core.fe import as_tensors
-        with torch.no_grad():
+        with torch.no_grad(), device_work(self.platform, "ref"):
             return self.case.ref(*as_tensors(self.inputs,
                                              self.platform.device))
 

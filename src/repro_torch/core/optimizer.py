@@ -21,7 +21,8 @@ Port of ``repro.core.optimizer``.  The JAX ``Evaluator`` FE-checks the
 the flag is ``check_kernel``: FE of the ``cuda`` build, on the platform's
 device.  A platform that times the kernel (``h100``) forces it, so no
 candidate is timed through the kernel without passing FE through it.
-``OptConfig.ppi`` waits for ROADMAP queue 1, "The campaign fabric".
+``OptConfig.from_dict`` also reads a JAX wire dict's ``check_pallas`` as
+``check_kernel``.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from repro_torch.core.aer import AER
 from repro_torch.core import fe as fe_mod
 from repro_torch.core.evalcache import EvalCache, EvalRecord, canonical_spec
 from repro_torch.core.kernelcase import KernelCase, Variant
-from repro_torch.core.measure import MeasureConfig
+from repro_torch.core.measure import MeasureConfig, device_work
 from repro_torch.core.mep import MEP, MEPConstraints
 from repro_torch.core.patterns import PatternStore
 from repro_torch.core.profiler import Platform, TimingResult
@@ -57,6 +58,12 @@ class OptConfig:
     # the greedy one-variant-per-round loop.  The campaign-level default
     # (WorkerContext.population) applies when this is None.
     population: Optional[Any] = None
+    # ppi=False runs the PatternStore record-only: wins are journaled
+    # (and replicate across the fleet) but rounds don't *consume* hints.
+    # Chaos/equivalence harnesses use it to keep winner identity
+    # independent of cross-case hint timing while still exercising the
+    # shared journal machinery.
+    ppi: bool = True
 
     def to_dict(self) -> Dict[str, Any]:
         return asdict(self)            # nested dataclasses → plain dicts
@@ -64,12 +71,20 @@ class OptConfig:
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "OptConfig":
         d = dict(d)
+        if "check_pallas" in d:        # a JAX package's spec
+            d["check_kernel"] = bool(d.pop("check_pallas")) \
+                or bool(d.get("check_kernel", False))
         if isinstance(d.get("measure"), dict):
             d["measure"] = MeasureConfig.from_dict(d["measure"])
         if isinstance(d.get("population"), dict):
             from repro_torch.core.population import PopulationConfig
             d["population"] = PopulationConfig.from_dict(d["population"])
         return OptConfig(**d)
+
+
+def _de_none(t: Optional[float]) -> float:
+    """json_safe writes inf as None; restore it on the way back in."""
+    return float("inf") if t is None else t
 
 
 @dataclass
@@ -92,6 +107,15 @@ class CandidateLog:
     # population search: which expert persona (or "seed" / "migrant")
     # proposed this candidate; "" → greedy loop
     persona: str = ""
+
+    def to_dict(self) -> Dict[str, Any]:
+        return asdict(self)
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "CandidateLog":
+        d = {k: v for k, v in d.items() if v is not None}
+        d["time_s"] = _de_none(d.get("time_s", float("inf")))
+        return CandidateLog(**d)
 
 
 @dataclass
@@ -117,6 +141,24 @@ class RoundLog:
     personae: Dict[str, Dict[str, int]] = field(default_factory=dict)
     raced_kills: int = 0
     migrations: List[Dict[str, Any]] = field(default_factory=list)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return asdict(self)
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "RoundLog":
+        d = dict(d)
+        d["candidates"] = [CandidateLog.from_dict(c)
+                           for c in d.get("candidates", [])]
+        d["best_time_s"] = _de_none(d.get("best_time_s", float("inf")))
+        if d.get("diagnosis") is not None:
+            d["diagnosis"] = dict(d["diagnosis"])
+        d["hints"] = [dict(h) for h in d.get("hints", []) or []]
+        d["personae"] = {k: dict(v)
+                         for k, v in (d.get("personae") or {}).items()}
+        d["raced_kills"] = int(d.get("raced_kills", 0))
+        d["migrations"] = [dict(m) for m in d.get("migrations", []) or []]
+        return RoundLog(**d)
 
 
 @dataclass
@@ -165,9 +207,11 @@ class OptResult:
         return self.timing_reps_fixed / self.timing_reps \
             if self.timing_reps else 1.0
 
-    def to_dict(self) -> Dict[str, Any]:
-        """Summary record for the journals."""
-        return {
+    def to_dict(self, *, full: bool = False) -> Dict[str, Any]:
+        """Summary record for journals (default), or — with ``full`` — the
+        complete wire form an out-of-process worker ships back to the
+        scheduler (``from_dict`` restores it losslessly)."""
+        d = {
             "case": self.case_name, "platform": self.platform,
             "proposer": self.proposer, "speedup": self.speedup,
             "baseline_time_s": self.baseline_time_s,
@@ -187,6 +231,41 @@ class OptResult:
             "migrations_joined": self.migrations_joined,
             "migrations_out": self.migrations_out,
         }
+        if full:
+            d["baseline_variant"] = self.baseline_variant
+            d["rounds"] = [r.to_dict() for r in self.rounds]
+            d["mep_log"] = list(self.mep_log)
+        return d
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "OptResult":
+        """Inverse of ``to_dict(full=True)``."""
+        res = OptResult(
+            case_name=d["case"], platform=d["platform"],
+            proposer=d["proposer"],
+            baseline_variant=dict(d["baseline_variant"]),
+            baseline_time_s=_de_none(d["baseline_time_s"]),
+            best_variant=dict(d["best_variant"]),
+            best_time_s=_de_none(d["best_time_s"]),
+            rounds=[RoundLog.from_dict(r) for r in d.get("rounds", [])],
+            mep_log=list(d.get("mep_log", [])),
+            aer_records=int(d.get("aer_records", 0)),
+            wall_s=float(d.get("wall_s", 0.0)),
+            stop_reason=d.get("stop_reason", ""),
+            cache_hits=int(d.get("cache_hits", 0)),
+            cache_misses=int(d.get("cache_misses", 0)),
+            timing_reps=int(d.get("timing_reps", 0)),
+            timing_reps_fixed=int(d.get("timing_reps_fixed", 0)),
+            raced_out=int(d.get("raced_out", 0)),
+            hints_suggested=int(d.get("hints_suggested", 0)),
+            hints_accepted=int(d.get("hints_accepted", 0)),
+            persona_stats={k: dict(v) for k, v in
+                           (d.get("persona_stats") or {}).items()},
+            raced_kills=int(d.get("raced_kills", 0)),
+            migrations_in=int(d.get("migrations_in", 0)),
+            migrations_joined=int(d.get("migrations_joined", 0)),
+            migrations_out=int(d.get("migrations_out", 0)))
+        return res
 
 
 class Evaluator:
@@ -355,18 +434,22 @@ class Evaluator:
                 stage = "fe"
                 rtol_scale = 200.0 if v.get("compute_dtype") == "bf16" else 1.0
                 device = mep.platform.device
-                r = fe_mod.check(case, v, fe_scale, impl="torch",
-                                 n_input_sets=cfg.fe_input_sets,
-                                 rtol_scale=rtol_scale, device=device)
-                if not r.ok:
-                    raise FloatingPointError(f"FE violation: {r.detail}")
-                if self._check_kernel:
-                    rp = fe_mod.check(case, v, fe_scale, impl="cuda",
-                                      n_input_sets=1, rtol_scale=4.0,
-                                      device=device)
-                    if not rp.ok:
+                # FE runs both builds on the platform's device: on the
+                # card it is device work under the card's lease
+                with device_work(mep.platform, "fe"):
+                    r = fe_mod.check(case, v, fe_scale, impl="torch",
+                                     n_input_sets=cfg.fe_input_sets,
+                                     rtol_scale=rtol_scale, device=device)
+                    if not r.ok:
                         raise FloatingPointError(
-                            f"FE(kernel) violation: {rp.detail}")
+                            f"FE violation: {r.detail}")
+                    if self._check_kernel:
+                        rp = fe_mod.check(case, v, fe_scale, impl="cuda",
+                                          n_input_sets=1, rtol_scale=4.0,
+                                          device=device)
+                        if not rp.ok:
+                            raise FloatingPointError(
+                                f"FE(kernel) violation: {rp.detail}")
                 stage = "run"
                 t = self._time(v, incumbent_s)
                 return CandidateLog(v, "ok", t.trimmed_mean_s,

@@ -1,8 +1,8 @@
 """Performance Pattern Inheritance (paper §3.2), cross-process.
 
-Port of ``repro.core.patterns`` (pure Python), with the same journal format:
-a store written by either package replays through the other's reader.  The
-subprocess wire form waits for ROADMAP queue 1, "The campaign fabric".
+Port of ``repro.core.patterns`` (pure Python), with the same journal format
+(compaction-epoch markers included): a store written by either package
+replays through the other's reader.
 
 Effective optimization patterns (tiling choices, memory strategies,
 algorithmic restructurings) discovered while optimizing one kernel are
@@ -11,7 +11,7 @@ same family*, and *other platforms* — this is what let the paper transfer
 NVIDIA-discovered strategies to the DCU.
 
 The store is an **append-only JSONL journal** sharing the EvalCache's
-multi-process recipe (``repro.core.evalcache``):
+multi-process recipe (``repro_torch.core.evalcache``):
 
 * Every observation is one ``O_APPEND`` single-``write()`` line, so
   concurrent recorders — campaign worker threads or *worker processes*
@@ -61,9 +61,9 @@ import warnings
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
-from repro_torch.core.evalcache import (COMPACT_EV, FileLock,
-                                        append_jsonl,
-                                        default_namespace, json_safe)
+from repro_torch.core.evalcache import (COMPACT_EV, FileLock, append_jsonl,
+                                  compaction_marker, default_namespace,
+                                  drain_replicas, json_safe)
 from repro_torch.core.kernelcase import KernelCase, Variant
 
 
@@ -139,6 +139,11 @@ class PatternStore:
     def __init__(self, path: Optional[str] = None, *,
                  namespace: Optional[str] = None):
         self.path = path
+        # like EvalCache: a host-derived default namespace must be
+        # re-derived by workers on other hosts (the wire form ships
+        # None), so pattern provenance names the host that actually
+        # recorded the win — patterns still cross namespaces freely
+        self.ns_explicit = namespace is not None
         self.namespace = namespace if namespace is not None \
             else default_namespace()
         self._lock = threading.Lock()
@@ -150,11 +155,28 @@ class PatternStore:
         self._offset = 0         # how far into the journal we have read
         self._ino: Optional[int] = None
         self._lines = 0          # journal lines behind the merged view
+        self._epoch = 0          # last compaction epoch seen (monotonic)
         self._dirty = False      # journal holds quarantined (bad) lines
         self.quarantined = 0     # corrupt lines shunted aside, cumulative
         if path and os.path.exists(path):
             with self._lock:
                 self._reload_locked()
+
+    # -------------------------------------------------------- wire form --
+    def to_spec(self) -> Dict[str, Any]:
+        """Shared-state coordinates a worker process rebuilds the store
+        from (the EvalCache wire convention: path + namespace)."""
+        if not self.path:
+            raise ValueError(
+                "subprocess executors need a file-backed PatternStore "
+                "(or none): an in-memory store cannot be shared across "
+                "processes")
+        return {"path": self.path,
+                "ns": self.namespace if self.ns_explicit else None}
+
+    @staticmethod
+    def from_spec(spec: Dict[str, Any]) -> "PatternStore":
+        return PatternStore(spec["path"], namespace=spec.get("ns"))
 
     # ------------------------------------------------------------------
     @property
@@ -165,6 +187,12 @@ class PatternStore:
     def __len__(self) -> int:
         with self._lock:
             return len(self._merged)
+
+    def reload(self) -> None:
+        """Fold journal lines appended by other processes (the worker
+        fabric) into this process's merged view."""
+        with self._lock:
+            self._reload_locked()
 
     # ------------------------------------------------------------------
     def record(self, case: KernelCase, platform: str, baseline: Variant,
@@ -293,7 +321,7 @@ class PatternStore:
         so re-importing them would burn paid evals on known variants.
         Same acceptance/bottleneck ranking as ``suggest_patterns``; the
         journal tail re-read there is what makes deltas recorded by
-        concurrent cases visible mid-campaign."""
+        concurrent cases' worker processes visible mid-campaign."""
         pool = self.suggest_patterns(case, platform,
                                      max_hints=max_hints * 2 + 2,
                                      bottleneck=bottleneck)
@@ -311,7 +339,11 @@ class PatternStore:
         aggregate (n suggestions, w wins).  Caller holds self._lock."""
         ev = obj["ev"]
         if ev == COMPACT_EV:
-            return            # a JAX writer's compaction marker: no data
+            # compaction-epoch marker: coordination state for the
+            # replication tails, a no-op for the merged view
+            self._epoch = max(self._epoch,
+                              int(obj.get("epoch", 0) or 0))
+            return
         key = (json.dumps(obj.get("delta", {}), sort_keys=True,
                           default=str),
                str(obj.get("family", "")), str(obj.get("bottleneck", "")))
@@ -472,8 +504,8 @@ class PatternStore:
 
     def _merged_lines(self) -> int:
         """Lines a compaction would write: one per pattern + one per
-        acceptance-ledger bucket."""
-        return len(self._merged) + len(self._acc)
+        acceptance-ledger bucket + the epoch marker."""
+        return len(self._merged) + len(self._acc) + 1
 
     def _maybe_compact_locked(self) -> None:
         if not self.path or self._lines < self.COMPACT_MIN_LINES:
@@ -482,18 +514,29 @@ class PatternStore:
             return
         self._compact_locked()
 
+    def compact(self) -> None:
+        """Force a journal compaction (replication-safe: any live
+        Replicator ending at this journal is drained first, and the
+        rewrite closes with a compaction-epoch marker the tails resync
+        on)."""
+        with self._lock:
+            self._compact_locked()
+
     def _compact_locked(self) -> None:
         """Rewrite the journal as one line per merged pattern, under the
         store lock so no concurrent append lands between the tail read
         and the ``os.replace`` (it would be silently dropped).  Caller
-        must NOT hold the store flock."""
+        must NOT hold the store flock: the pre-compaction replica drain
+        appends under it."""
         if not self.path:
             return
         d = os.path.dirname(self.path)
         if d:
             os.makedirs(d, exist_ok=True)
+        drain_replicas(self.path)
         with _StoreLock(self.path):
             self._reload_under_flock_locked()
+            self._epoch += 1
             tmp = f"{self.path}.tmp{os.getpid()}"
             with open(tmp, "w") as f:
                 for p in self._merged.values():
@@ -504,6 +547,8 @@ class PatternStore:
                         {"ev": "acc", "delta": json.loads(dk),
                          "family": fam, "bottleneck": bn,
                          "n": n, "w": w}), default=str) + "\n")
+                f.write(json.dumps(compaction_marker(self._epoch),
+                                   default=str) + "\n")
             os.replace(tmp, self.path)
             st = os.stat(self.path)
             self._offset, self._ino = st.st_size, st.st_ino

@@ -97,13 +97,32 @@ def register_platform(name: str,
 
 
 def platform_from_name(name: str) -> "Platform":
-    """Reconstruct a platform from its spec string (wire form)."""
+    """Reconstruct a platform from its spec string (wire form):
+    ``"<name>"``, or ``"<name>@<device>"`` for a platform the caller put
+    on another device than its default (``platform_to_name``)."""
+    name, _, device = name.partition("@")
     try:
         factory = _PLATFORM_FACTORIES[name]
     except KeyError:
         raise KeyError(f"unknown platform {name!r}; registered: "
                        f"{sorted(_PLATFORM_FACTORIES)}") from None
-    return factory()
+    return factory(device=device) if device else factory()
+
+
+def platform_to_name(platform: "Platform") -> str:
+    """The spec string a worker rebuilds ``platform`` from: its registered
+    name, with ``@<device>`` when its constructor takes a device and the
+    caller chose another than the card (``h100-model@cpu``), so a worker
+    runs where the scheduler's platform does."""
+    import inspect
+    device = str(getattr(platform, "device", ""))
+    try:
+        takes = "device" in inspect.signature(type(platform)).parameters
+    except (TypeError, ValueError):
+        takes = False
+    if takes and device and device != "cuda":
+        return f"{platform.name}@{device}"
+    return platform.name
 
 
 class Platform:

@@ -587,8 +587,9 @@ class LLMBatcher:
     so the dispatch threshold tracks how many cases can still contribute
     a prompt — the last live case never waits out the linger timer.
 
-    In-process executors share one batcher across their worker threads
-    (the port has no other executor yet).
+    In-process executors share one batcher across their worker threads;
+    subprocess and remote workers each coalesce within their own process
+    only.
     """
 
     HEADER = ("You are optimizing {n} independent H100 kernels. Each "

@@ -76,8 +76,13 @@ def build(*names: str) -> List[ctypes.CDLL]:
                     errors.append(f"nvcc failed on {src.name} "
                                   f"(exit {proc.returncode}):\n{err}")
                     continue
-                log.write_text(err)
-                os.replace(tmp, out)    # atomic: concurrent builders agree
+                # atomic, both: other processes building the same source
+                # (campaign workers finding it unbuilt at the same moment)
+                # each compile to their own temporary name and agree
+                log_tmp = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+                log_tmp.write_text(err)
+                os.replace(log_tmp, log)
+                os.replace(tmp, out)
             build_info[name] = {"seconds": seconds,
                                 "ptxas": log.read_text() if log.exists()
                                 else ""}

@@ -34,12 +34,15 @@ Differences from the JAX package: an install goes through
 ``guarded_install(..., impl=platform.impl)``, the build the winner was
 timed on (as ``integrate.integrated_speedup`` installs it); the default
 probe's fallback is the baseline's ``torch`` build, its inputs on the
-platform's device; campaigns run in process (``config.executor`` None or
-``"inprocess"``), the other executors wait for ROADMAP.md queue 1, "The
-campaign fabric".
+platform's device.  ``config.executor`` takes every kind ``make_executor``
+knows; an out-of-process fabric runs the campaign in worker processes
+(which on the card hold its device lease over their device work), while
+``guarded_install``'s FE and probes stay in the serving process.
 """
 from __future__ import annotations
 
+import os
+import tempfile
 import threading
 import time
 from collections import deque
@@ -58,12 +61,9 @@ from repro_torch.core.optimizer import OptConfig, OptResult
 from repro_torch.core.patterns import PatternStore
 from repro_torch.core.profiler import Platform
 from repro_torch.core.proposer import HeuristicProposer, Proposer
-from repro_torch.core.workers import CaseJob
+from repro_torch.core.workers import CaseJob, make_executor
 from repro_torch.device import DEVICE_LOCK
 from repro_torch.kernels import ops
-
-IN_PROCESS = (None, "inprocess")
-
 
 @dataclass
 class AutotuneConfig:
@@ -81,15 +81,20 @@ class AutotuneConfig:
     probe_k: int = 0
     install: bool = True           # False = observe-and-campaign dry run
     seed: int = 0
-    # evaluation fabric: None (or "inprocess") runs campaigns in this
-    # process; the out-of-process fabrics wait for ROADMAP.md queue 1,
-    # "The campaign fabric"
+    # evaluation fabric: None → in-process policy default; "subprocess" /
+    # "local-cluster" / "remote" move MEP evaluation out of the serving
+    # process so background campaigns never contend with request threads
+    # for the GIL
     executor: Optional[str] = None
-    workers: Optional[int] = None  # campaign threads (None → default)
+    workers: Optional[int] = None  # fabric width (None → env/policy)
     # persistent Performance Pattern Inheritance store (JSONL journal
-    # path): campaign wins survive restarts
+    # path): campaign wins survive restarts and — because the store is
+    # multi-process safe — flow to out-of-process campaign workers
     patterns: Optional[str] = None
-    # adaptive measurement policy (None → engine defaults)
+    # adaptive measurement policy (None → engine defaults: CI-stopped
+    # reps under the eq. 3 R cap + incumbent racing); the campaign adds
+    # the cross-process timing lease, so measured platforms fan out
+    # across autotune workers
     measure: Optional[MeasureConfig] = None
 
 
@@ -161,12 +166,18 @@ class ServeAutotuner:
                  verbose: bool = False):
         self.platform = platform
         self.config = config or AutotuneConfig()
-        if self.config.executor not in IN_PROCESS:
-            raise NotImplementedError(
-                f"executor {self.config.executor!r}: the port runs autotune "
-                "campaigns in process; the out-of-process fabrics come with "
-                "ROADMAP.md queue 1, \"The campaign fabric\"")
-        self.cache = cache if cache is not None else EvalCache()
+        if cache is None:
+            # an out-of-process fabric shares the cache as a file; the
+            # in-memory default would be rejected by job_to_spec
+            if self.config.executor and \
+                    self.config.executor not in ("inprocess", "in-process",
+                                                 "thread"):
+                cache = EvalCache(os.path.join(
+                    tempfile.gettempdir(),
+                    f"repro-autotune-cache-{os.getpid()}.jsonl"))
+            else:
+                cache = EvalCache()
+        self.cache = cache
         self.db = db
         if patterns is None and self.config.patterns:
             patterns = PatternStore(self.config.patterns)
@@ -187,6 +198,12 @@ class ServeAutotuner:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._cycle_lock = threading.Lock()      # one cycle at a time
+        # one long-lived executor for every cycle's campaign: a
+        # local-cluster fabric keeps its worker processes alive across
+        # cycles, so repeated autotunes don't re-pay process startup
+        self._executor = (make_executor(self.config.executor,
+                                        workers=self.config.workers)
+                          if self.config.executor else None)
 
     # ---------------------------------------------------------- mapping --
     def site_cases(self) -> Dict[str, KernelCase]:
@@ -289,8 +306,9 @@ class ServeAutotuner:
                 cfg=cfg.opt, constraints=cfg.constraints, seed=cfg.seed,
                 mep=mep, label=f"autotune:{key}@{scale}"))
         camp = Campaign(self.platform, patterns=self.patterns,
-                        cache=self.cache, db=self.db,
-                        max_workers=cfg.workers or 4, measure=cfg.measure)
+                        cache=self.cache, db=self.db, verbose=self.verbose,
+                        executor=self._executor, max_workers=cfg.workers,
+                        measure=cfg.measure)
         rep.results = camp.run(jobs, stop=self._stop)
         for (key, scale), res in zip(rep.hot.items(), rep.results):
             # an interrupted job stays un-tuned so the next cycle resumes
@@ -364,3 +382,9 @@ class ServeAutotuner:
             self._thread.join(timeout)
             if not self._thread.is_alive():
                 self._thread = None
+        if self._executor is not None and self._thread is None:
+            # only wind the fabric down once no cycle can be in flight —
+            # closing under a still-draining thread would kill workers
+            # mid-exchange and burn their jobs' retry budgets; a later
+            # stop() (thread finished) closes it then
+            self._executor.close()

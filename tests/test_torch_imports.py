@@ -83,8 +83,32 @@ def test_guard_sees_every_port_module():
     for mod in ("kernelcase", "datagen", "fe", "measure", "evalcache",
                 "profiler", "mep", "aer", "diagnosis", "patterns",
                 "proposer", "optimizer", "workers", "campaign",
-                "integrate", "extraction"):
+                "integrate", "extraction", "replicate", "chaos",
+                "worker_main", "remote_worker"):
         assert f"src/repro_torch/core/{mod}.py" in names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_spawns_nothing_that_imports_jax_or_repro(path):
+    """No command string the port spawns names the JAX package: a worker
+    started from one would import JAX."""
+    tree = ast.parse(path.read_text(), str(path))
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            text = node.value
+            if any(t in text for t in ("from repro.", "import repro ",
+                                       "-m repro.", "import jax",
+                                       "scripts/worker_main",
+                                       "scripts/remote_worker")):
+                bad.append(text[:60])
+    assert not bad, f"{path.relative_to(ROOT)} spawns {bad}"
 
 
 CFG = dataclasses.replace(get_config("glm4-9b").reduced(),

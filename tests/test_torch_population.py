@@ -1,9 +1,10 @@
 """Population search in the port (``repro_torch.core.population``) against
 the JAX package's (``repro.core.population``).
 
-Mirrors every in-process case of ``tests/test_population.py`` on the
-analytic ``h100-model`` (constructed with ``device="cpu"``: FE runs the
-plain versions), then holds the two packages against each other:
+Mirrors every case of ``tests/test_population.py`` on the analytic
+``h100-model`` (constructed with ``device="cpu"``: FE runs the plain
+versions), its subprocess and local-cluster legs included, then holds the
+two packages against each other:
 
 * (i) each persona's heuristic clone proposes the same variants from the
   same ``RoundState`` in both packages, for ``gemm``, ``rwkv_wkv`` and
@@ -48,9 +49,10 @@ from repro.core.measure import measure_callable as jmeasure_callable
 from repro.core.proposer import RoundState as JRoundState
 from repro_torch.core import (Campaign, CaseJob, DirectProposer, EvalCache,
                               H100ModelPlatform, HeuristicProposer,
-                              LLMBatcher, LLMProposer, MEPConstraints,
-                              OptConfig, OptResult, PatternStore, Platform,
-                              PopulationConfig, ResultsDB, get_case,
+                              LLMBatcher, LLMProposer, LocalClusterExecutor,
+                              MEPConstraints, OptConfig, OptResult,
+                              PatternStore, Platform, PopulationConfig,
+                              ResultsDB, SubprocessExecutor, get_case,
                               persona_proposers, proposer_from_spec,
                               run_case_job)
 from repro_torch.core.diagnosis import classify
@@ -330,11 +332,11 @@ def test_migrants_are_cross_case_only(tmp_path):
                store.suggest_patterns(gemm, "h100-model"))
 
 
-def _population_campaign(base):
+def _population_campaign(base, executor=None):
     store = PatternStore(str(base / "pat.jsonl"))
     camp = Campaign(model_platform(), patterns=store,
                     cache=EvalCache(str(base / "ec.jsonl")), max_workers=1,
-                    population=POP)
+                    population=POP, executor=executor)
     cfg = OptConfig(d_rounds=8, n_candidates=2, r=5, k=1)
     results = camp.run([_job("gemm", cfg=cfg), _job("atax", cfg=cfg)])
     return [(r.case_name, r.best_variant, round(r.best_time_s, 15),
@@ -347,12 +349,75 @@ def test_population_winner_records_conform(tmp_path):
     """The same campaign twice, from fresh stores and caches, gives
     identical winner records (variant, time, generation count, stop
     reason, the persona sequence): string-seeded RNG and no wall clock in
-    selection.  The port has one executor, so this is its conformance
-    gate."""
+    selection.  The process legs follow."""
     (tmp_path / "a").mkdir()
     (tmp_path / "b").mkdir()
     assert _population_campaign(tmp_path / "a") == \
         _population_campaign(tmp_path / "b")
+
+
+# the process legs of the reference's EXECUTORS (its in-process leg is the
+# two tests above); slow, as their reference twins are
+PROC_EXECUTORS = [pytest.param("subprocess", marks=pytest.mark.slow),
+                  pytest.param("local-cluster", marks=pytest.mark.slow)]
+
+
+def _make(kind, workers=1):
+    if kind == "subprocess":
+        return SubprocessExecutor(workers)
+    return LocalClusterExecutor(workers)
+
+
+@pytest.fixture
+def _one_thread_workers(monkeypatch):
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+
+
+@pytest.mark.parametrize("kind", PROC_EXECUTORS)
+def test_migration_between_cases_across_processes(kind, tmp_path,
+                                                  _one_thread_workers):
+    """``test_migration_between_cases`` on a width-1 process fabric:
+    gemm's exported deltas surface in 2mm's generations, and the journal
+    carries the full population evidence through the wire."""
+    store = PatternStore(str(tmp_path / "pat.jsonl"))
+    db = ResultsDB(str(tmp_path / "db.jsonl"))
+    ex = _make(kind)
+    try:
+        camp = Campaign(model_platform(), executor=ex, patterns=store,
+                        db=db, cache=EvalCache(str(tmp_path / "ec.jsonl")),
+                        population=POP)
+        cfg = OptConfig(d_rounds=8, n_candidates=2, r=5, k=1)
+        gemm, mm2 = camp.run([_job("gemm", cfg=cfg), _job("2mm", cfg=cfg)])
+    finally:
+        ex.close()
+    assert gemm.migrations_out > 0, "gemm never exported an improvement"
+    cross = [m for rl in mm2.rounds for m in rl.migrations
+             if m["source"] == "gemm"]
+    assert cross, "gemm's win never reached 2mm's generations"
+    assert mm2.hints_suggested > 0
+    rounds = [r for r in db.records("round") if r["job"] == "2mm"]
+    assert rounds and all("personae" in r and "raced_kills" in r
+                          and "migrations" in r for r in rounds)
+    assert any(m["source"] == "gemm"
+               for r in rounds for m in r["migrations"])
+    assert any(c.get("persona") for r in rounds
+               for c in r.get("candidates", []))
+
+
+@pytest.mark.parametrize("kind", PROC_EXECUTORS)
+def test_population_winner_records_conform_across_processes(
+        kind, tmp_path, _one_thread_workers):
+    """Same campaign, any transport → identical winner records (variant,
+    time, generation count, stop reason, the persona sequence)."""
+    (tmp_path / "ref").mkdir()
+    (tmp_path / "fabric").mkdir()
+    ref = _population_campaign(tmp_path / "ref")
+    ex = _make(kind)
+    try:
+        got = _population_campaign(tmp_path / "fabric", executor=ex)
+    finally:
+        ex.close()
+    assert got == ref
 
 
 # --------------------------------- LLM wave coalescing ----------------
@@ -692,10 +757,10 @@ def test_population_config_wire_dict_equals_jax():
 
 
 def test_optconfig_wire_dict_equals_jax_but_the_kernel_check():
-    """The wire dicts are the reference's, population included, with two
-    stated differences: ``check_kernel`` (FE through the ``cuda`` build)
-    stands where the JAX package has ``check_pallas``, and ``ppi`` waits
-    for the campaign fabric."""
+    """The wire dicts are the reference's, population and ``ppi``
+    included, with one stated difference: ``check_kernel`` (FE through the
+    ``cuda`` build) stands where the JAX package has ``check_pallas``, and
+    ``from_dict`` reads the JAX key as the port's."""
     kw = dict(d_rounds=3, n_candidates=2, r=7, k=1, improve_eps=0.02,
               fe_input_sets=1, fe_scale=64)
     d = OptConfig(**kw, measure=MeasureConfig(ci_rel=0.01),
@@ -704,8 +769,9 @@ def test_optconfig_wire_dict_equals_jax_but_the_kernel_check():
                     population=JPopulationConfig(
                         size=3, generations=3, per_persona=1)).to_dict()
     assert d.pop("check_kernel") is False
-    assert jd.pop("check_pallas") is False and jd.pop("ppi") is True
-    assert d == jd
+    assert jd.pop("check_pallas") is False
+    assert d == jd and d["ppi"] is True
+    assert OptConfig.from_dict(dict(jd, check_pallas=True)).check_kernel
     back = OptConfig.from_dict(dict(jd, check_kernel=False))
     assert back.population == POP and back.measure == MeasureConfig(
         ci_rel=0.01)

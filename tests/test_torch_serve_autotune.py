@@ -249,10 +249,42 @@ def test_stop_event_interrupts_campaign_mid_flight(model):
     assert not tuner.tuned_scales
 
 
-def test_out_of_process_executors_wait_for_the_fabric():
-    with pytest.raises(NotImplementedError, match="The campaign fabric"):
-        make_autotuner(executor="subprocess")
-    assert make_autotuner(executor="inprocess").config.executor == "inprocess"
+def test_out_of_process_executors_wait_for_the_fabric(model, tmp_path,
+                                                      monkeypatch):
+    """The fabric has come: with ``executor="local-cluster"`` a cycle's
+    campaign runs in a worker process (one CPU thread) and finds the
+    in-process tuner's winner, ``guarded_install`` installs it in the
+    serving process, and ``stop`` closes the tuner's fabric."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    srv = make_server(model, slots=2, max_len=32)
+    for p in prompts(4):
+        srv.submit(p, max_new=6)
+    srv.step()
+    srv.step()
+    ref = make_autotuner(install=False).run_once()
+    tuner = ServeAutotuner(
+        H100ModelPlatform(device="cpu"),
+        config=AutotuneConfig(executor="local-cluster", workers=1,
+                              min_tokens=1, opt=FAST_CFG, constraints=FAST,
+                              probe_r=2, probe_k=0, max_regression=20.0,
+                              interval_s=0.05),
+        cache=EvalCache(str(tmp_path / "ec.jsonl")),
+        db=ResultsDB(str(tmp_path / "autotune.jsonl")))
+    try:
+        rep = tuner.run_once()
+        procs = dict(tuner._executor._procs)
+        assert procs and all(w.alive() for w in procs.values())
+    finally:
+        tuner.stop()
+    assert not any(w.alive() for w in procs.values())
+    assert rep.hot == ref.hot == {"attention@b8": 256}
+    (res,), (want,) = rep.results, ref.results
+    assert res.best_variant == want.best_variant != res.baseline_variant
+    assert res.best_time_s == want.best_time_s
+    assert len(rep.installed) == 1 and rep.installed[0].fe_ok
+    assert ops.active_entry("attention").info["variant"] == res.best_variant
+    starts = list(tuner.db.records("campaign_start"))
+    assert starts and starts[0]["executor"] == "local-cluster"
 
 
 # --------------------------------------------------------------------------

@@ -74,8 +74,9 @@ Phases, each fatal on failure (exit 1, no result line):
    ``mma`` body at both column slices (16 and 32 columns), the ``simt``
    body and the plain version by CUDA events, and the bodies by CUDA-graph
    replay (their device time without the wrapper's host time).
-9. Serve rwkv6-7b at full width and depth (32 layers, bf16, 14.0 GiB,
-   random weights from a seeded generator) with K6 at ``rwkv_wkv``: a
+9. Serve rwkv6-7b at full width (cut to 8 of its 32 layers for the
+   run's time cap, printed ``reduced:``; bf16, random weights
+   from a seeded generator) with K6 at ``rwkv_wkv``: a
    BatchedServer (4 slots, exact-length packing) answers 8 requests of 16
    new tokens, prompts of 8–128 tokens and one of 256, through the same
    serving phase as glm4-9b.  Checks every request's token count, K6 at
@@ -89,7 +90,8 @@ Phases, each fatal on failure (exit 1, no result line):
    tokens/s, peak memory and where one decode step and one 2x256 prefill
    spend their time.  K6 is held against its plain version at every
    (B, S) of the run.
-10. The same for hymba-1.5b (32 layers, bf16, 3.0 GiB, max_len 272) with
+10. The same for hymba-1.5b (cut to 8 of its 32 layers, printed; bf16,
+   max_len 272) with
    K7 at ``ssm_chunk`` and K2 at ``attention`` (H 25, KV 5, hd 64): both
    launch counts (K2 and K7 all on ``mma``), the final ``ssm`` state, and
    both kernels held against their plain versions at every (B, S) of the
@@ -97,8 +99,8 @@ Phases, each fatal on failure (exit 1, no result line):
 11. The paper's Table 4 hotspots: a ``Campaign`` on ``h100`` over
    ``rwkv_wkv`` and ``mamba_ssd`` (every candidate FE-checked and timed
    through K6 or K7), then each winner's ``integrated_speedup`` into
-   rwkv6-7b / hymba-1.5b at full width in float32 (each cut to 8 of its
-   32 layers, 8.5 and 1.6 GiB, the cuts printed)
+   rwkv6-7b / hymba-1.5b at full width in float32 (cut to 4 and 8 of
+   their 32 layers, the cuts printed)
    over 2x256 tokens against the naive sequential recurrence; ``fe_ok``
    must be true, and every K7 call of the case and the integration must
    take ``mma`` (launches by body).  K6 and K7 are held against their plain
@@ -316,16 +318,53 @@ Phases, each fatal on failure (exit 1, no result line):
    FABRIC_PROCESS_MIN a process.
    The phase's wall time on its own line; the journals under
    chiprun_out/fabric/.
+21. The distributed layer (every earlier model freed): (a) K2 with a
+   causal query offset at glm4-9b's heads (H 32, KV 2, hd 128), B 1, a
+   context-parallel shard of S 1024 of T 2048 at offsets 0 and 1024, in
+   bf16 (``mma``, required) and f32 (``simt``), against its plain version
+   with the gate of phase 2; the kernel, the plain version and SDPA with
+   the equivalent boolean mask (a yardstick) in 5 alternated rounds, the
+   bound over the mask's live pairs; the device times come with the main
+   shapes'.  Then glm4-9b at full width and depth in bf16 (random weights
+   from ``served_model``'s seed) here on one rank through K2: the logits
+   of CP_SAMPLES positions of each half of a 2048-token prompt and
+   ``generate()``'s 16 greedy tokens; the model freed.  Then two rank
+   processes (``chip_smoke.py --rank R DIR``: gloo over a FileStore in
+   chiprun_out/distributed/, both on the one card, mesh (1, 2) as (data,
+   model)), each: (b) the same model under the ``cp`` preset
+   (``decode_kv`` ``tp_seq``) with K2 at ``attention``, its counts zeroed
+   just before: the forward of its half of the prompt (1024 tokens at
+   positions rank x 1024..), whose logits at the held positions must lie
+   within LOGITS_RTOL of the single rank's, and (c) ``generate()`` from
+   its half, the prefill through K2 again and 15 decode steps over a cache
+   whose sequence is split over the two ranks (1032 positions each),
+   whose 16 tokens must equal the single rank's; every K2 launch on
+   ``mma`` at the rank's offset, two a layer; the collective transport
+   (gloo takes CUDA tensors in place) and the collectives made; (d)
+   ``compressed_psum`` of a [4096, 1024] f32 tensor over the two ranks:
+   the sum must equal (Σ qᵢ)·s bit for bit, each residual its own
+   formula's; (e) stablelm-3b at full width cut to 4 layers in f32 (TF32
+   off), one AdamW step under the ``fsdp`` preset on the rank's 2 of 4
+   rows x 256 with ``grad_shardings`` (reduce-scatters; the moments the
+   rank's half) against the single-rank step of the whole batch from the
+   same weights: gradients within TRAIN_GRAD_TOL, loss, grad norm and lr
+   within TRAIN_METRIC_RTOL, moments within TRAIN_MOMENT_TOL, the updated
+   weights within TRAIN_GRAD_TOL but for at most UPDATE_OFF_SHARE of
+   them, each where the gradient lies within its absolute gate of 0 (the
+   first AdamW step's sign).  Each rank's peak memory and seconds; a rank
+   that fails fails the run.  The phase's wall time on its own line.
 Then the device times at the main shapes (K2, K1 as above, K2 also at
-whisper's encoder and decode-cross shapes; K6, K7 at their
+whisper's encoder and decode-cross shapes and at (a)'s offset shards; K6,
+K7 at their
 serving runs' heaviest prefill; K3, K4, K5 as in phase 13) in a fresh
 process (with the wrapper's host µs per call where K2's CUDA-event time
 exceeds 1.5x its device time), K7's ``simt`` body, host µs a call and
 one-pass controls at its main shape (bf16; and f32: K7 on xh, B and C
 rounded to TF32, which must read above the gate), the ``kernels`` JSON
 line (K1-K7; K1, K6 and K7's launches include phase 15's, K1's phase
-20's workers' (also apart), K2's phases 17, 18 and 19's, with whisper's
-two shapes; K1,
+20's workers' (also apart), K2's phases 17, 18, 19 and 21's ranks' (also
+apart, by rank, body and offset), with whisper's two shapes and (a)'s
+offset shards; K1,
 K2, K5 and K7 with their launches by body, the main shape's body, the
 device time and the TF32, P-in-bf16 or one-pass controls; K2, K3, K4, K5,
 K6 and K7 with the host µs a call; K4 with phase 12's compiles and cache hits and its vector loads; K5
@@ -391,12 +430,15 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def attention_bound(B, S, T, H, KV, hd, dtype: str, causal: bool):
+def attention_bound(B, S, T, H, KV, hd, dtype: str, causal: bool,
+                    q_offset: int = 0):
     """(bound_ms, bound_by): the larger of bytes over HBM rate (q, k, v read
     once, o written once) and FLOPs over the peak for the input type
-    (QK^T and PV over the kept query/key pairs)."""
+    (QK^T and PV over the kept query/key pairs: under the causal mask query
+    row i keeps min(T, q_offset + i + 1) keys)."""
     item = 2 if dtype == "bfloat16" else 4
-    pairs = S * (S + 1) // 2 if causal else S * T
+    pairs = (sum(min(T, q_offset + i + 1) for i in range(S)) if causal
+             else S * T)
     flops = 4 * hd * B * H * pairs
     nbytes = item * (2 * B * S * H * hd + 2 * B * T * KV * hd)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
@@ -1185,10 +1227,13 @@ TABLE4_CASES = {"rwkv_wkv": ("wkv", "rwkv6-7b"),
 # of the phase over its 7 forwards, and its layers are alike, so the
 # Integrated Speedup is close to a per-layer ratio; hymba-1.5b's likewise,
 # for the run's time cap
-TABLE4_CUTS = {"rwkv6-7b": 8, "hymba-1.5b": 8}
+TABLE4_CUTS = {"rwkv6-7b": 4, "hymba-1.5b": 8}
 # phase 16's hymba-1.5b leg (graphs against eager, a replayed decode step)
 # cut in depth at full width, for the run's time cap
 ONLINE_CUTS = {"hymba-1.5b": 8}
+# phases 9 and 10 (the recurrent models served, their f32 gates) cut in
+# depth at full width, for the run's time cap with phase 21
+SERVE_CUTS = {"rwkv6-7b": 8, "hymba-1.5b": 8}
 
 
 def kernel_pair(name):
@@ -1554,11 +1599,12 @@ SERVE_MAX_NEW = 16
 RECURRENT_CHECK_NEW = {"float32": 8, "bfloat16": 4}
 
 
-def served_model(arch, n_layers=None, param_dtype=None, kv_quant=False):
+def served_model(arch, n_layers=None, param_dtype=None, kv_quant=False,
+                 ctx=None):
     """``arch`` at full width on the card, at full depth or cut to
     ``n_layers``, in the config's dtype or ``param_dtype``, its weights drawn
     from a generator seeded 0 on the card (the same weights in every
-    phase)."""
+    phase and every rank process), sharded under ``ctx`` if given."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -1566,7 +1612,7 @@ def served_model(arch, n_layers=None, param_dtype=None, kv_quant=False):
     cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
                               param_dtype=param_dtype or cfg.param_dtype)
-    model = get_model(cfg, device="cuda",
+    model = get_model(cfg, device="cuda", ctx=ctx,
                       **({"kv_quant": True} if kv_quant else {}))
     model.init_params(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
@@ -1599,14 +1645,16 @@ def phase_serve(report, arch):
     each by kernel name; the model is freed when the caller collects."""
     import math
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.lm import layer_spec, top_spec
     from repro_torch.serve import BatchedServer, generate
 
-    cfg = get_config(arch)
+    cut = SERVE_CUTS.get(arch)
     t0 = time.perf_counter()
-    model = served_model(arch)
+    model = served_model(arch, n_layers=cut)
+    cfg = model.cfg
+    if cut is not None:
+        print(f"{arch}: {cut_line(arch, cut)}", flush=True)
     n_params = sum(p.numel() for p in model.parameters())
     gib = sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30
     counted = cfg.param_counts()[0] + cfg.d_model  # param_counts omits final_ln
@@ -5436,6 +5484,412 @@ def phase_fabric(report):
     return out["worker_launches"], out["k1_checks"]
 
 
+# --------------------------------------------------------------------------
+# the distributed layer (phase 21): K2 with a causal query offset,
+# context-parallel prefill and sequence-sharded decode of glm4-9b, a
+# compressed all-reduce and a sharded train step, on two rank processes
+# that share the card
+# --------------------------------------------------------------------------
+CP_ARCH = "glm4-9b"
+CP_RANKS = 2                # mesh (1, 2) as (data, model)
+CP_SEQ, CP_NEW = 2048, 16   # one prompt of 2048 tokens, 16 greedy tokens
+CP_LAYERS = None            # glm4-9b's depth (40); an int cuts it
+CP_SAMPLES = 8              # positions of each rank's shard held by logits
+CP_TRAIN_LAYERS = 4         # stablelm-3b at full width, cut to 4 layers
+CP_TRAIN_ROWS, CP_TRAIN_SEQ = 4, 256
+CP_PSUM_SHAPE = (4096, 1024)
+CP_DIR = OUT.parent / "distributed"
+CP_TIMEOUT_S = 420
+
+
+def k2_offset_row(q, k, v, off):
+    """(a) K2 at one context-parallel shard: the kernel against its plain
+    version, its body, CUDA-event times of the kernel, the plain version
+    and SDPA with the equivalent boolean mask (a yardstick) in 5
+    alternated rounds, and the bound over the mask's live pairs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    dtype = str(q.dtype).replace("torch.", "")
+    got = flash_attention(q, k, v, causal=True, q_offset=off)
+    want = flash_attention_ref(q, k, v, causal=True, q_offset=off)
+    torch.cuda.synchronize()
+    mask = (torch.arange(T, device=q.device)[None, :]
+            <= off + torch.arange(S, device=q.device)[:, None])
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    times = alternated({
+        "ms": lambda: flash_attention(q, k, v, causal=True, q_offset=off),
+        "plain_ms": lambda: flash_attention_ref(q, k, v, causal=True,
+                                                q_offset=off),
+        "library_ms": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)})
+    bound_ms, bound_by = attention_bound(B, S, T, H, KV, hd, dtype, True,
+                                         q_offset=off)
+    return {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd,
+            "dtype": dtype, "q_offset": off, "path": k2_path(q, k, v),
+            "finite": bool(torch.isfinite(got).all()),
+            "max_abs_err": (got.float() - want.float()).abs().max().item(),
+            "tol_ratio": gate_ratio(got, want), **times,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def k2_offset_checks():
+    """(a): glm4-9b's heads (H 32, KV 2, hd 128), B 1, shards of S 1024 of
+    T 2048 at offsets 0 and 1024, bf16 (the tensor cores) and f32 (the
+    CUDA cores); each row with its call for the fresh-process device
+    time."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(21)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(1, CP_SEQ, h, 128, device="cuda",
+                               generator=g).to(dtype) for h in (32, 2, 2))
+        for off in (0, CP_SEQ // 2):
+            qs = q[:, off:off + CP_SEQ // 2]
+            r = k2_offset_row(qs, k, v, off)
+            rows.append((r, ((qs, k, v), {"causal": True, "q_offset": off})))
+            print(f"K2 with q_offset {off} ({r['dtype']}, B 1 S {r['S']} T "
+                  f"{r['T']} H 32 KV 2 hd 128, {r['path']}): max abs err "
+                  f"{r['max_abs_err']:.3g}, {r['tol_ratio']:.3f} of the gate;"
+                  f" kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
+                  f"sdpa with the mask {r['library_ms']:.4f}, bound "
+                  f"{r['bound_ms']:.5f} ({r['bound_by']})", flush=True)
+            if not (r["finite"] and r["tol_ratio"] <= 1.0):
+                fail(f"K2 with q_offset disagrees with its plain version: "
+                     f"{r}")
+            require_mma(r, f"q_offset {off}")
+    return rows
+
+
+def cp_reference(model, tokens):
+    """The single-rank run of (b)-(c) through K2: logits at CP_SAMPLES
+    positions of each rank's shard and generate()'s tokens."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.serve import generate
+    shard = CP_SEQ // CP_RANKS
+    positions = [r * shard + int(i) for r in range(CP_RANKS)
+                 for i in np.linspace(0, shard - 1, CP_SAMPLES)]
+    with ops.use_impl("attention", flash_attention), torch.no_grad():
+        hidden, _ = model.forward(tokens)
+        logits = model.logits_fn(hidden[:, positions])[0].float()
+        new = generate(model, tokens.cpu().numpy(), max_new=CP_NEW)
+    return {"positions": positions, "logits": logits.cpu(),
+            "tokens": new.tolist()}
+
+
+def rank_child(rank: int, run_dir: str) -> None:
+    """``--rank R DIR``: one of phase 21's rank processes.  Writes
+    DIR/rank<R>.json with its figures and checks; any failure exits 1."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from datetime import timedelta
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import make_ctx, make_smoke_mesh
+    from repro_torch.runtime.compress import compressed_psum
+    from repro_torch.serve import generate
+    from repro_torch.sharding import comm
+    run = Path(run_dir)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", rank=rank, world_size=CP_RANKS,
+                            store=dist.FileStore(str(run / "store"),
+                                                 CP_RANKS),
+                            timeout=timedelta(seconds=CP_TIMEOUT_S))
+    mesh = make_smoke_mesh(CP_RANKS, device_type="cuda")
+    ctx = make_ctx(mesh, preset="cp", decode_kv="tp_seq")
+    group = ctx.group(ctx.tp)
+    out = {"rank": rank, "backend": str(dist.get_backend()),
+           "transport": comm.transport("cuda", group),
+           "mesh": {k: int(v) for k, v in zip(mesh.mesh_dim_names,
+                                              mesh.mesh.shape)}}
+    deadline = time.monotonic() + CP_TIMEOUT_S
+    while not (run / "go").exists():     # the reference, its model freed
+        if time.monotonic() > deadline:
+            raise TimeoutError("no reference from the parent process")
+        time.sleep(0.1)
+    ref = torch.load(run / "reference.pt")
+    t0 = time.perf_counter()
+
+    # (b) context-parallel prefill through K2, (c) tp_seq decode
+    model = served_model(CP_ARCH, n_layers=CP_LAYERS, ctx=ctx)
+    tokens = ref["prompt"].cuda()
+    lay = ctx.sharding(("batch", "seq"), tuple(tokens.shape))
+    mine = lay.shard(tokens)
+    lo = lay.bounds(tuple(tokens.shape))[1][0]
+    flash_attention.launches = 0
+    flash_attention.launches_by_path = {"mma": 0, "simt": 0}
+    flash_attention.launches_by_offset = {}
+    calls = dict(comm.calls)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with ops.use_impl("attention", flash_attention), torch.no_grad():
+        hidden, _ = model.forward(mine)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        new = generate(model, mine.cpu().numpy(), max_new=CP_NEW)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    out["launches"] = flash_attention.launches
+    out["launches_by_path"] = dict(flash_attention.launches_by_path)
+    out["launches_by_offset"] = {str(o): n for o, n in
+                                 flash_attention.launches_by_offset.items()}
+    out["collectives"] = {n: comm.calls[n] - calls[n] for n in calls}
+    idx = [p - lo for p in ref["positions"] if lo <= p < lo + mine.shape[1]]
+    with torch.no_grad():
+        logits = model.logits_fn(hidden[:, idx])[0].float().cpu()
+    want = ref["logits"][[i for i, p in enumerate(ref["positions"])
+                          if lo <= p < lo + mine.shape[1]]]
+    n_layers = model.cfg.n_layers
+    out["cp"] = {"q_offset": lo, "positions": len(idx),
+                 "logits_rel_err": rel_err(logits, want),
+                 "forward_s": t2 - t1, "generate_s": t3 - t2,
+                 "tokens": new.tolist(),
+                 "tokens_equal": new.tolist() == ref["tokens"],
+                 "cache_positions_a_rank": (CP_SEQ + CP_NEW) // CP_RANKS,
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    checks = {
+        "every layer's prefill attention through K2, twice":
+            out["launches"] == 2 * n_layers,
+        "every K2 launch on mma": out["launches_by_path"]["simt"] == 0,
+        "every K2 launch at this shard's offset":
+            out["launches_by_offset"] == {str(lo): 2 * n_layers},
+        "logits within LOGITS_RTOL":
+            out["cp"]["logits_rel_err"] <= LOGITS_RTOL,
+        "greedy tokens equal the single rank's": out["cp"]["tokens_equal"],
+    }
+    del model, hidden
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) compressed_psum on CUDA tensors over the two ranks
+    g = torch.Generator(device="cuda").manual_seed(100 + rank)
+    x = torch.randn(CP_PSUM_SHAPE, device="cuda", generator=g)
+    total, res = compressed_psum(x, group)
+    top = comm.all_gather(x.abs().max()[None], group, 0).max()
+    scale = top / 127.0 + 1e-12
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    qsum = comm.all_reduce(q.to(torch.int32), group)
+    torch.cuda.synchronize()
+    out["psum"] = {"shape": list(CP_PSUM_SHAPE),
+                   "max_abs_total": float(total.abs().max())}
+    checks["compressed_psum: the int32 sum is Σ q exactly"] = bool(
+        torch.equal(total, qsum.float() * scale))
+    checks["compressed_psum: the residual is the local formula"] = bool(
+        torch.equal(res, x - q.float() * scale))
+
+    # (e) one sharded train step against the single-rank step
+    out["train"], train_checks = cp_train_step(ctx, mesh)
+    checks.update(train_checks)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"] = time.perf_counter() - t0
+    out["checks"] = checks
+    (run / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+    if not all(checks.values()):
+        sys.exit(1)
+
+
+def cp_train_step(ctx, mesh):
+    """(e): stablelm-3b at full width cut to CP_TRAIN_LAYERS in f32 (TF32
+    off), one AdamW step on this rank's rows under the fsdp preset, the
+    gradients landing in the parameters' layouts, against the single-rank
+    step of the whole batch from the same weights in this process."""
+    import torch
+    from repro_torch.data import SyntheticLMData, make_global_batch
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.sharding import comm
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    from repro_torch.train.steps import model_params, param_layouts
+    fsdp = make_ctx(mesh, preset="fsdp")
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    ref = served_model(TRAIN_ARCH, CP_TRAIN_LAYERS, "float32")
+    data = SyntheticLMData(ref.cfg, CP_TRAIN_SEQ, CP_TRAIN_ROWS, seed=0)
+    g0 = {}
+    step0 = make_train_step(ref, opt_cfg, grad_hook=lambda g: g0.update(
+        {n: t.clone() for n, t in g.items()}) or g)
+    p0 = model_params(ref)
+    _, o0, m0 = step0(p0, init_state(p0), make_global_batch(data, 0))
+    model = served_model(TRAIN_ARCH, CP_TRAIN_LAYERS, "float32", ctx=fsdp)
+    layouts = param_layouts(model)
+    g1 = {}
+    step1 = make_train_step(model, opt_cfg, grad_shardings=layouts,
+                            grad_hook=lambda g: g1.update(
+                                {n: t.clone() for n, t in g.items()}) or g)
+    p1 = model_params(model)
+    calls = dict(comm.calls)
+    batch = make_global_batch(data, 0, sharding=fsdp.sharding(
+        ("batch", None), (CP_TRAIN_ROWS, CP_TRAIN_SEQ)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, o1, m1 = step1(p1, init_state(p1, layouts), batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    top = max(float(t.abs().max()) for t in g0.values())
+    grad_ratio = max(float(((g1[n] - layouts[n].shard(g0[n])).abs()
+                            / (TRAIN_GRAD_TOL[0] * layouts[n].shard(
+                                g0[n]).abs() + TRAIN_GRAD_TOL[1] * top)
+                            ).max()) for n in g0)
+    metric_err = max(abs(float(m1[k]) - float(m0[k])) / abs(float(m0[k]))
+                     for k in ("loss", "grad_norm", "lr"))
+    mu_top = max(float(t.abs().max()) for t in o0["mu"].values())
+    moment_ratio = max(float((o1["mu"][n] - layouts[n].shard(o0["mu"][n])
+                              ).abs().max()) / (TRAIN_MOMENT_TOL * mu_top)
+                       for n in o0["mu"])
+    off = total = off_not_near_zero = 0
+    for n in p0:
+        w0, w1 = p0[n].detach(), p1[n].detach()
+        bad = (w1 - w0).abs() > (TRAIN_GRAD_TOL[0] * w0.abs()
+                                 + TRAIN_GRAD_TOL[1]
+                                 * float(w0.abs().max()))
+        off += int(bad.sum())
+        total += bad.numel()
+        off_not_near_zero += int((bad & (g0[n].abs()
+                                         > TRAIN_GRAD_TOL[1] * top)).sum())
+    res = {"rows_a_rank": int(batch["tokens"].shape[0]),
+           "loss": [float(m0["loss"]), float(m1["loss"])],
+           "grad_norm": [float(m0["grad_norm"]), float(m1["grad_norm"])],
+           "grad_tol_ratio": grad_ratio, "metric_rel_err": metric_err,
+           "moment_tol_ratio": moment_ratio,
+           "weights_off_share": off / total,
+           "weights_off_with_a_clear_gradient": off_not_near_zero,
+           "moment_elements_a_rank": sum(t.numel()
+                                         for t in o1["mu"].values()),
+           "moment_elements_whole": sum(t.numel()
+                                        for t in o0["mu"].values()),
+           "collectives": {n: comm.calls[n] - calls[n] for n in calls},
+           "step_s": seconds}
+    checks = {
+        "train: gradients within TRAIN_GRAD_TOL": grad_ratio <= 1,
+        "train: loss, grad norm, lr within TRAIN_METRIC_RTOL":
+            metric_err <= TRAIN_METRIC_RTOL,
+        "train: moments within TRAIN_MOMENT_TOL": moment_ratio <= 1,
+        "train: updated weights agree but where the gradient is ~0":
+            res["weights_off_share"] <= UPDATE_OFF_SHARE
+            and off_not_near_zero == 0,
+        "train: gradients reduce-scattered into the layouts":
+            res["collectives"]["reduce_scatter"] > 0
+            and res["moment_elements_a_rank"] < res["moment_elements_whole"],
+    }
+    return res, checks
+
+
+def phase_distributed(report):
+    """Phase 21 (see the docstring): (a) here, then the single-rank
+    reference of (b)-(c) here, then two rank processes for (b)-(e).
+    Returns (K2's rank launches, (a)'s rows with their calls)."""
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    rows = k2_offset_checks()
+    t_a = time.perf_counter() - t0
+    if CP_LAYERS is not None:
+        print(cut_line(CP_ARCH, CP_LAYERS), flush=True)
+    CP_DIR.mkdir(parents=True, exist_ok=True)
+    for f in CP_DIR.glob("*"):
+        f.unlink()
+    # the ranks start now (~10 s to import and meet) and wait for the
+    # reference, computed meanwhile, and for its model to be freed
+    t_ranks = time.perf_counter()
+    logs = [open(CP_DIR / f"rank{r}.log", "w") for r in range(CP_RANKS)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--rank", str(r), str(CP_DIR)],
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(CP_RANKS)]
+    try:
+        model = served_model(CP_ARCH, n_layers=CP_LAYERS)
+        rng = np.random.default_rng(21)
+        prompt = torch.from_numpy(rng.integers(0, model.cfg.vocab_size,
+                                               (1, CP_SEQ))).long().cuda()
+        t_ref = time.perf_counter()
+        ref = cp_reference(model, prompt)
+        ref["prompt"] = prompt.cpu()
+        t_ref = time.perf_counter() - t_ref
+        torch.save(ref, CP_DIR / "reference.pt")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        (CP_DIR / "go").touch()
+        deadline = time.monotonic() + CP_TIMEOUT_S
+        codes = []
+        for p in procs:
+            try:
+                codes.append(p.wait(max(1.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                codes.append(None)
+    finally:                  # no rank outlives the phase, failed or not
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    t_ranks = time.perf_counter() - t_ranks
+    results = []
+    for r in range(CP_RANKS):
+        path = CP_DIR / f"rank{r}.json"
+        results.append(json.loads(path.read_text()) if path.exists()
+                       else None)
+    if any(c != 0 for c in codes) or None in results:
+        tails = "\n".join(f"rank {r} (exit {c}):\n"
+                          + (CP_DIR / f"rank{r}.log").read_text()[-3000:]
+                          for r, c in enumerate(codes))
+        bad = [(r["rank"], [k for k, ok in r["checks"].items() if not ok])
+               for r in results if r is not None]
+        fail(f"phase 21's ranks failed; failed checks {bad}\n{tails}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    r0, r1 = results
+    print(f"phase 21 ranks ({smi}): {CP_RANKS} processes on the one card, "
+          f"mesh {r0['mesh']}, backend {r0['backend']}, collective "
+          f"transport for CUDA tensors: {r0['transport']} (gloo carries them "
+          f"in place, nothing staged through host memory); (a) {t_a:.1f} s, "
+          f"single-rank reference {t_ref:.1f} s here, ranks {t_ranks:.1f} s "
+          f"from their start", flush=True)
+    for r in results:
+        cp, tr = r["cp"], r["train"]
+        print(f"  rank {r['rank']}: cp prefill of {CP_ARCH} (bf16, "
+              f"{cp['positions']} held positions of its shard at q_offset "
+              f"{cp['q_offset']}): K2 launches {r['launches']} "
+              f"{r['launches_by_path']}, by offset {r['launches_by_offset']};"
+              f" logits rel err {cp['logits_rel_err']:.3g} (gate "
+              f"{LOGITS_RTOL}); forward {cp['forward_s']:.2f} s, generate "
+              f"{CP_NEW} tokens (tp_seq, {cp['cache_positions_a_rank']} "
+              f"cache positions a rank) {cp['generate_s']:.2f} s, tokens "
+              f"equal the single rank's: {cp['tokens_equal']}; collectives "
+              f"{r['collectives']}; compressed_psum {r['psum']['shape']} f32 "
+              f"exact; train step (fsdp, stablelm-3b {CP_TRAIN_LAYERS} "
+              f"layers f32, {tr['rows_a_rank']} of {CP_TRAIN_ROWS} rows x "
+              f"{CP_TRAIN_SEQ}): loss {tr['loss'][1]:.6f} vs "
+              f"{tr['loss'][0]:.6f}, grads at {tr['grad_tol_ratio']:.3f} of "
+              f"their gate, metrics rel err {tr['metric_rel_err']:.3g}, "
+              f"moments at {tr['moment_tol_ratio']:.3f}, weights off "
+              f"{tr['weights_off_share']:.3g} (all where the gradient is "
+              f"~0), moments {tr['moment_elements_a_rank']} of "
+              f"{tr['moment_elements_whole']} elements, "
+              f"{tr['collectives']['reduce_scatter']} reduce-scatters, step "
+              f"{tr['step_s']:.2f} s; peak memory {r['peak_gib']:.2f} GiB; "
+              f"{r['seconds']:.1f} s", flush=True)
+    report["distributed"] = {"ranks": results, "k2_offset_s": t_a,
+                             "reference_s": t_ref, "ranks_s": t_ranks,
+                             "k2_offset": [r for r, _ in rows],
+                             "seconds": time.perf_counter() - t0}
+    print(f"phase 21 (the distributed layer) took "
+          f"{report['distributed']['seconds']:.1f} s", flush=True)
+    free_card()
+    return results, rows
+
+
 def camp_ctx(camp):
     """A campaign's WorkerContext, for running jobs on its executor
     directly."""
@@ -5524,6 +5978,8 @@ def main() -> None:
     lap("training")
     fabric_launches, fabric_checks = phase_fabric(report)
     lap("fabric")
+    cp_ranks, cp_rows = phase_distributed(report)
+    lap("distributed")
     wkv_main, wkv_call = main_recurrent_shape("wkv", rwkv_calls["wkv"])
     wkv_main["host_us_per_call"] = host_us_per_call(
         lambda: kernel_pair("wkv")[0](*wkv_call[0], **wkv_call[1]))
@@ -5541,7 +5997,9 @@ def main() -> None:
              *[(f"grouped_matmul main {d}", "grouped_matmul", r, call)
                for d, (r, call) in k5_fixed.items()],
              *[(f"flash_attention whisper {n}", "flash_attention", r, call)
-               for n, (r, call) in whisper_times.items()]]
+               for n, (r, call) in whisper_times.items()],
+             *[(f"flash_attention {r['dtype']} q_offset {r['q_offset']}",
+                "flash_attention", r, call) for r, call in cp_rows]]
     for (_, _, r, _), dev in zip(timed, fresh_device_time(
             [(n, *device_time_args(n, call)) for _, n, _, call in timed])):
         r["kernel_device_ms"] = dev["device_ms"]
@@ -5561,6 +6019,7 @@ def main() -> None:
     k2_by_path = {body: sum(report[f"serve_{a}"]["launches_by_path"][
         "flash_attention"][body] for a in ("glm4-9b", "hymba-1.5b"))
         + zoo_by_path[body] + whisper_launches[body] + train_launches[body]
+        + sum(r["launches_by_path"][body] for r in cp_ranks)
         for body in ("mma", "simt")}
 
     k7_by_path = {body: report["serve_hymba-1.5b"]["launches_by_path"][
@@ -5580,13 +6039,15 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:82",
         "launches": glm_launches["flash_attention"]
         + hymba_launches["flash_attention"] + zoo_launches
-        + whisper_launches["total"] + train_launches["total"],
+        + whisper_launches["total"] + train_launches["total"]
+        + sum(r["launches"] for r in cp_ranks),
         "launches_by_path": k2_by_path,
         "main_shape_path": main_shape["path"],
         "max_abs_err": max(r["max_abs_err"] for r in
                            glm_checks["flash_attention"] + k2_pipeline_checks
                            + hymba_checks["flash_attention"] + zoo_checks
-                           + whisper_checks + train_checks),
+                           + whisper_checks + train_checks
+                           + [r for r, _ in cp_rows]),
         "ms": main_shape["ms"], "device_ms": main_shape["kernel_device_ms"],
         "simt_ms": main_shape["simt_ms"],
         "host_us_per_call": main_shape["host_us_per_call"],
@@ -5603,6 +6064,17 @@ def main() -> None:
            for n, (r, _) in whisper_times.items()},
         "whisper_causal_mask_control_tol_ratio": report["whisper"][
             "causal_mask_control_tol_ratio"],
+        "q_offset_shapes": [{
+            key: r[key] for key in ("B", "S", "T", "H", "KV", "hd", "dtype",
+                                    "q_offset", "path", "max_abs_err",
+                                    "tol_ratio", "ms", "kernel_device_ms",
+                                    "plain_ms", "library_ms", "bound_ms",
+                                    "bound_by")} for r, _ in cp_rows],
+        "launches_in_cp_ranks": {
+            str(r["rank"]): {"launches": r["launches"],
+                             "by_path": r["launches_by_path"],
+                             "by_q_offset": r["launches_by_offset"]}
+            for r in cp_ranks},
     }, {
         "name": "matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -5676,5 +6148,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--device-time"]:
         device_time_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--rank"]:
+        rank_child(int(sys.argv[2]), sys.argv[3])
     else:
         main()

@@ -12,8 +12,14 @@ flattening takes them), lists and tuples of tensors.  numpy has no
 bfloat16, so a bf16 tensor is saved as its uint16 bits and its dtype named
 in the manifest's ``dtypes`` (the inverse of ``models.convert._tensor``).
 A restore copies each leaf into the live tensor of ``like_tree`` in the
-same order.  Not ported: ``shardings``
-(elastic re-sharding), which waits for sharding.
+same order.
+
+Sharded state (elastic re-sharding): a leaf that is a DTensor is saved
+whole (its pieces all-gathered, every rank taking part) and written by
+rank 0 alone; a restore with ``shardings`` (a tree of
+``sharding.Layout``s mirroring ``like_tree``, or a DTensor's own
+placements) reads each rank's piece of the whole array for the mesh it
+runs on now, so a checkpoint saved by n ranks restores onto m.
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import Layout, full
 
 
 def _flatten(tree, path: str = "") -> List[Tuple[str, torch.Tensor]]:
@@ -53,9 +61,24 @@ def _rebuild(tree, by_path, path: str = ""):
     return by_path[path]
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _writes(flat) -> bool:
+    """Whether this process writes a checkpoint of ``flat``: rank 0 alone
+    when a leaf is a DTensor (each rank holds the same whole tree after
+    the gather), else every process (its own tree)."""
+    if not any(_is_dtensor(leaf) for _, leaf in flat):
+        return True
+    import torch.distributed as dist
+    return dist.get_rank() == 0
+
+
 def _host(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
-    """(numpy array to save, dtype name) of one leaf."""
-    t = leaf.detach().cpu()
+    """(numpy array to save, dtype name) of one leaf, a DTensor whole."""
+    t = full(leaf).detach().cpu()
     name = str(t.dtype).replace("torch.", "")
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), name
@@ -71,6 +94,10 @@ def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
 def save_checkpoint(path: str, step: int, tree, *, extra: Optional[Dict] = None,
                     keep: int = 3) -> str:
     flat = _flatten(tree)
+    if not _writes(flat):
+        for _, leaf in flat:
+            full(leaf)                   # this rank's part of each gather
+        return os.path.join(path, f"step_{step:08d}")
     final = os.path.join(path, f"step_{step:08d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
@@ -114,11 +141,27 @@ def latest_step(path: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _layouts(tree, path: str = ""):
+    """path → leaf of a tree whose leaves may be anything (``Layout`` or
+    None), in ``_flatten``'s order."""
+    if isinstance(tree, dict):
+        return {p: v for k in sorted(tree)
+                for p, v in _layouts(tree[k], f"{path}/{k}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {p: v for i, t in enumerate(tree)
+                for p, v in _layouts(t, f"{path}/{i}").items()}
+    return {path: tree}
+
+
 @torch.no_grad()
-def load_checkpoint(path: str, like_tree, *, step: Optional[int] = None):
+def load_checkpoint(path: str, like_tree, *, step: Optional[int] = None,
+                    shardings=None):
     """Restore into ``like_tree``: each leaf gets the checkpoint's values
-    copied in (on its own device and in its own dtype).  Returns
-    (like_tree's structure over those tensors, step, extra)."""
+    copied in (on its own device and in its own dtype).  With
+    ``shardings`` (``Layout`` or None leaves mirroring ``like_tree``) a
+    leaf gets this rank's piece of the saved whole array; a DTensor leaf
+    gets the piece its own placements name.  Returns (like_tree's
+    structure over those tensors, step, extra)."""
     step = step if step is not None else latest_step(path)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {path}")
@@ -128,19 +171,26 @@ def load_checkpoint(path: str, like_tree, *, step: Optional[int] = None):
     flat = _flatten(like_tree)
     assert manifest["n_leaves"] == len(flat), \
         f"checkpoint has {manifest['n_leaves']} leaves, model has {len(flat)}"
+    layouts = _layouts(shardings) if shardings is not None else {}
     for i, ((p, leaf), dtype) in enumerate(zip(flat, manifest["dtypes"])):
-        arr = np.load(os.path.join(d, f"leaf_{i:05d}.npy"))
-        if tuple(arr.shape) != tuple(leaf.shape):
+        arr = np.load(os.path.join(d, f"leaf_{i:05d}.npy"), mmap_mode="r")
+        layout, dest = layouts.get(p), leaf
+        if _is_dtensor(leaf):
+            layout, dest = Layout.of(leaf), leaf.to_local()
+        if layout is not None:
+            arr = arr[tuple(slice(lo, hi)
+                            for lo, hi in layout.bounds(arr.shape))]
+        if tuple(arr.shape) != tuple(dest.shape):
             raise ValueError(f"{p}: checkpoint shape {arr.shape}, tree "
-                             f"shape {tuple(leaf.shape)}")
-        leaf.copy_(_tensor(arr, dtype))
+                             f"shape {tuple(dest.shape)}")
+        dest.copy_(_tensor(np.array(arr), dtype))
     return _rebuild(like_tree, dict(flat)), step, manifest["extra"]
 
 
 def _snapshot(leaf: torch.Tensor) -> torch.Tensor:
     """A host copy of ``leaf`` that later in-place steps cannot change
     (``Tensor.cpu()`` of a CPU tensor is the tensor itself)."""
-    return leaf.detach().to("cpu", copy=True)
+    return full(leaf).detach().to("cpu", copy=True)
 
 
 class CheckpointManager:
@@ -168,8 +218,11 @@ class CheckpointManager:
 
     def save(self, step: int, tree, extra: Optional[Dict] = None):
         self.wait()
-        host_tree = _rebuild(tree, {p: _snapshot(leaf)
-                                    for p, leaf in _flatten(tree)})
+        flat = _flatten(tree)
+        writes = _writes(flat)
+        host_tree = _rebuild(tree, {p: _snapshot(leaf) for p, leaf in flat})
+        if not writes:                    # another rank writes it
+            return
 
         def work():
             try:
@@ -184,9 +237,9 @@ class CheckpointManager:
         else:
             work()
 
-    def restore(self, like_tree):
+    def restore(self, like_tree, shardings=None):
         self.wait()
-        return load_checkpoint(self.path, like_tree)
+        return load_checkpoint(self.path, like_tree, shardings=shardings)
 
     @property
     def latest(self) -> Optional[int]:

@@ -4,8 +4,9 @@ Port of ``repro.data.pipeline``.  Every row of a step's global batch is
 drawn from numpy generators keyed by (seed, step, row), so a restart or a
 replay of a step reproduces its batch bit for bit, and the stream equals
 the JAX package's.  ``make_global_batch`` puts the batch on a device as
-int32 tensors.  Not ported: the ``sharding`` argument (each host drawing
-only its slice), which waits for ``sharding/ctx.py``.
+int32 tensors; with a ``sharding`` (a ``sharding.Layout`` of the [B, S]
+batch) each rank draws only its rows, and the ranks' slices joined are
+the unsharded batch.
 """
 from __future__ import annotations
 
@@ -50,9 +51,18 @@ class SyntheticLMData:
         return self.host_batch(step, 0, self.global_batch)
 
 
-def make_global_batch(data: SyntheticLMData, step: int,
-                      device="cuda") -> Dict[str, torch.Tensor]:
-    """The global batch of ``step`` as int32 tensors on ``device``."""
+def make_global_batch(data: SyntheticLMData, step: int, device="cuda",
+                      sharding=None) -> Dict[str, torch.Tensor]:
+    """The global batch of ``step`` as int32 tensors on ``device``; with
+    ``sharding`` (the ``Layout`` of a [B, S] batch) this rank's piece of
+    it, drawing only its own rows."""
     dev = resolve_device(device)
-    return {name: torch.from_numpy(a).to(dev)
-            for name, a in data.batch(step).items()}
+    if sharding is None:
+        batch = data.batch(step)
+    else:
+        (lo, hi), (s0, s1) = sharding.bounds((data.global_batch,
+                                              data.seq_len))
+        batch = {k: a[:, s0:s1]
+                 for k, a in data.host_batch(step, lo, hi).items()}
+    return {name: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for name, a in batch.items()}

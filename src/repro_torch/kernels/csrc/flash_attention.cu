@@ -13,8 +13,11 @@
 //     repeating K/V in device memory;
 //   * the ragged edge (S or T not a multiple of the tile) is masked here,
 //     where the Pallas kernel asserts divisibility;
-//   * the causal mask counts query and key positions both from 0, as the
-//     Pallas kernel does (the wrapper requires S == T when causal).
+//   * the causal mask counts key positions from 0 and query positions from
+//     q_off: query row i sees key t iff t <= q_off + i.  With q_off 0 this
+//     is the Pallas kernel's mask (the wrapper requires S == T then); a
+//     context-parallel shard passes its first row's place in the sequence,
+//     and key tiles wholly above its shifted diagonal are never loaded.
 //
 // Bound on the H100 (SXM, 989 TFLOP/s dense bf16, 3.35 TB/s HBM): a causal
 // call does 2*hd*B*H*S(S+1) FLOPs (QK^T and PV over the kept pairs) and must
@@ -87,6 +90,7 @@ struct Params {
   long long v_sb, v_st, v_sh;
   long long o_sb, o_ss, o_sh;
   int causal;
+  int q_off;  // sequence position of query row 0 (causal only)
   float scale;
 };
 
@@ -177,9 +181,9 @@ fa_simt_kernel(const Params p) {
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
 
-  // Causal: keys past the block's last query row are masked for every row,
-  // so the tiles that hold only such keys are never loaded.
-  const int kv_end = p.causal ? min(p.T, q0 + BQ) : p.T;
+  // Causal: keys past the block's last query position are masked for every
+  // row, so the tiles that hold only such keys are never loaded.
+  const int kv_end = p.causal ? min(p.T, p.q_off + q0 + BQ) : p.T;
   const int n_tiles = (kv_end + BK - 1) / BK;
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -213,7 +217,7 @@ fa_simt_kernel(const Params p) {
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
+      const int qpos = p.q_off + q0 + ty + 16 * i;
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -354,9 +358,12 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
 
 // Fragment layouts (mma.m16n8k16, lane = 4g + t): the C fragment of an n8
 // tile holds rows g, g+8 at columns 2t, 2t+1; ldmatrix lane l gives the
-// address of row l & 7 of matrix l >> 3.
+// address of row l & 7 of matrix l >> 3.  The launch bound asks for two
+// blocks an SM: with no minimum, ptxas held some instantiations to 168
+// registers (three blocks) and spilled (hd 32 and 80 with the query
+// offset).
 template <int HD>
-__global__ void __launch_bounds__(MMA_THREADS)
+__global__ void __launch_bounds__(MMA_THREADS, 2)
 fa_mma_kernel(const Params p) {
   using TL = Tile<HD>;
   constexpr int KS = HD / 16;  // k16 steps of QK^T; pairs of n8 tiles of O
@@ -382,9 +389,9 @@ fa_mma_kernel(const Params p) {
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
                      h * p.o_sh;
 
-  // Causal: keys past the block's last query row are masked for every row,
-  // so the tiles that hold only such keys are never loaded.
-  const int kv_end = p.causal ? min(p.T, q0 + BQ) : p.T;
+  // Causal: keys past the block's last query position are masked for every
+  // row, so the tiles that hold only such keys are never loaded.
+  const int kv_end = p.causal ? min(p.T, p.q_off + q0 + BQ) : p.T;
   const int n_tiles = (kv_end + BK - 1) / BK;
 
   load_tile<HD>(sQ, q, p.q_ss, q0, p.S);
@@ -450,14 +457,15 @@ fa_mma_kernel(const Params p) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) s[n][r] *= sl2;
     // only the diagonal tile and the ragged last one hold masked pairs
-    if (k0 + BK > p.T || (p.causal && k0 + BK - 1 > q0)) {
+    if (k0 + BK > p.T || (p.causal && k0 + BK - 1 > p.q_off + q0)) {
 #pragma unroll
       for (int n = 0; n < NF; ++n)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int key = k0 + 8 * n + 2 * t + (r & 1);
-          const int row = row0 + 8 * (r >> 1);
-          if (key >= p.T || (p.causal && key > row)) s[n][r] = NEG_INF;
+          const int row = row0 + 8 * (r >> 1);  // at position q_off + row
+          if (key >= p.T || (p.causal && key > row + p.q_off))
+            s[n][r] = NEG_INF;
         }
     }
 
@@ -555,10 +563,11 @@ cudaError_t dispatch_mma(const Params& p, int B, int device,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last
-// dimension of every tensor must be contiguous.  path: 0 = simt, 1 = mma,
-// as flash_attention.path_for chose; mma where the mirrored rule
-// (mma_path) does not give it is refused, simt runs any input.  Returns a
-// cudaError_t.
+// dimension of every tensor must be contiguous.  q_off >= 0: the sequence
+// position of query row 0 under the causal mask (ignored when not causal).
+// path: 0 = simt, 1 = mma, as flash_attention.path_for chose; mma where the
+// mirrored rule (mma_path) does not give it is refused, simt runs any
+// input.  Returns a cudaError_t.
 extern "C" int fa_forward(const void* q, const void* k, const void* v,
                           void* o, int dtype, int device, int B, int S, int T,
                           int H, int KV, int hd, long long q_sb,
@@ -566,13 +575,13 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v,
                           long long k_st, long long k_sh, long long v_sb,
                           long long v_st, long long v_sh, long long o_sb,
                           long long o_ss, long long o_sh, int causal,
-                          float scale, int path, void* stream) {
+                          int q_off, float scale, int path, void* stream) {
   if (hd <= 0 || hd % 16 != 0 || hd > 256 || KV <= 0 || H % KV != 0 ||
-      B <= 0 || S <= 0 || T <= 0 || dtype < 0 || dtype > 1)
+      B <= 0 || S <= 0 || T <= 0 || dtype < 0 || dtype > 1 || q_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{q,    k,    v,    o,    S,    T,    H,    KV,     hd,
                  q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st,   v_sh,
-                 o_sb, o_ss, o_sh, causal, scale};
+                 o_sb, o_ss, o_sh, causal, causal ? q_off : 0, scale};
   if (path != 0 && (path != 1 || !mma_path(p, dtype)))
     return static_cast<int>(cudaErrorInvalidValue);
   // The launch goes to `device`, the stream's; the caller's current device

@@ -11,7 +11,13 @@ Where the two differ on purpose:
   raises (glm4 uses 0);
 * the causal mask counts query and key positions both from 0, as the Pallas
   kernel and ``attention_chunked`` do, which equals ``ref.attention_ref``
-  (offset T−S) only when S == T: causal calls with S != T raise;
+  (offset T−S) only when S == T: causal calls with S != T raise unless the
+  caller passes ``q_offset``;
+* ``q_offset`` (the Pallas kernel has none) places query row i at sequence
+  position ``q_offset + i``: under the causal mask it sees key t iff
+  ``t <= q_offset + i``, so a context-parallel rank attends its shard of
+  the queries against the whole sequence's keys, and key tiles wholly
+  above its shifted diagonal are skipped;
 * K/V are not repeated per query head: the kernel indexes KV head
   ``h // (H/KV)``;
 * S and T need not be multiples of the tile: the kernel masks the edge.
@@ -60,7 +66,7 @@ def path_for(dtype: torch.dtype, hd: int, strides, ptrs) -> str:
     return "mma"
 
 
-def _check(q, k, v, causal: bool, softcap: float) -> None:
+def _check(q, k, v, causal: bool, softcap: float, q_offset=None) -> None:
     """Raises on what the kernel does not take (shared with the plain
     version, so CPU runs reject what the card would)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -75,9 +81,13 @@ def _check(q, k, v, causal: bool, softcap: float) -> None:
     if softcap:
         raise NotImplementedError("the flash kernel does not implement "
                                   f"softcap (got {softcap})")
-    if causal and S != T:
+    if causal and S != T and q_offset is None:
         raise ValueError(f"causal attention with S={S} != T={T}: the kernel "
-                         "counts query and key positions both from 0")
+                         "counts query and key positions both from 0 unless "
+                         "q_offset is given")
+    if q_offset is not None and (not isinstance(q_offset, int)
+                                 or q_offset < 0):
+        raise ValueError(f"q_offset must be an int >= 0, got {q_offset!r}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -86,13 +96,25 @@ def _check(q, k, v, causal: bool, softcap: float) -> None:
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        softcap: float = 0.0):
+                        softcap: float = 0.0, q_offset=None):
     """Plain version of the kernel: ``ref.attention_ref`` (f32 scores,
     softmax and PV product, output in q's dtype) on the inputs the kernel
-    takes.  Causal calls have S == T, where its T−S mask offset is 0, so
-    the mask counts from 0 on both axes as the kernel's does."""
-    _check(q, k, v, causal, softcap)
-    return attention_ref(q, k, v, causal=causal)
+    takes.  Causal calls without ``q_offset`` have S == T, where its T−S
+    mask offset is 0, so the mask counts from 0 on both axes as the
+    kernel's does; with ``q_offset`` query row i sees key t iff
+    ``t <= q_offset + i``."""
+    _check(q, k, v, causal, softcap, q_offset)
+    if not causal or q_offset is None:
+        return attention_ref(q, k, v, causal=causal)
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    qh = q.reshape(B, S, KV, H // KV, hd).float()
+    s = torch.einsum("bskgh,btkh->bkgst", qh, k.float()) / math.sqrt(hd)
+    qpos = q_offset + torch.arange(S, device=q.device)
+    mask = torch.arange(T, device=q.device)[None, :] <= qpos[:, None]
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    o = torch.einsum("bkgst,btkh->bskgh", torch.softmax(s, dim=-1), v.float())
+    return o.reshape(B, S, H, hd).to(q.dtype)
 
 
 def _lib() -> ctypes.CDLL:
@@ -100,7 +122,7 @@ def _lib() -> ctypes.CDLL:
     if lib.fa_forward.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.fa_forward.argtypes = ([ptr] * 4 + [i32] * 8 + [i64] * 12
-                                   + [i32, ctypes.c_float, i32, ptr])
+                                   + [i32, i32, ctypes.c_float, i32, ptr])
         lib.fa_forward.restype = ctypes.c_int
         lib.fa_error_string.argtypes = [i32]
         lib.fa_error_string.restype = ctypes.c_char_p
@@ -108,8 +130,13 @@ def _lib() -> ctypes.CDLL:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0,
-                    device="cuda"):
+                    q_offset=None, device="cuda"):
     """q [B,S,H,hd], k/v [B,T,KV,hd] → [B,S,H,hd].
+
+    ``q_offset`` (an int, 0 when not given) is the sequence position of
+    query row 0 under the causal mask; a causal call with S != T must pass
+    it.  Launches that pass it are also counted by offset
+    (``launches_by_offset``).
 
     ``device`` names where the caller expects to run (default the GPU) and
     must match the tensors'.  CPU tensors take ``flash_attention_ref``;
@@ -122,22 +149,25 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != dev.type:
             raise ValueError(f"{name} lies on {t.device}, not on {dev}")
-    _check(q, k, v, causal, softcap)
+    _check(q, k, v, causal, softcap, q_offset)
     if dev.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal)
+        return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
     if q.device != k.device or q.device != v.device:
         raise ValueError("q, k and v must lie on one device")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the last (head_dim) dimension must be contiguous")
     path = path_for(q.dtype, q.shape[3], (q.stride(), k.stride(), v.stride()),
                     (q.data_ptr(), k.data_ptr(), v.data_ptr()))
-    o = run_body(q, k, v, causal=causal, path=path)
+    o = run_body(q, k, v, causal=causal, path=path, q_offset=q_offset or 0)
     flash_attention.launches += 1
     flash_attention.launches_by_path[path] += 1
+    if q_offset is not None:
+        by_offset = flash_attention.launches_by_offset
+        by_offset[q_offset] = by_offset.get(q_offset, 0) + 1
     return o
 
 
-def run_body(q, k, v, *, causal: bool, path: str):
+def run_body(q, k, v, *, causal: bool, path: str, q_offset: int = 0):
     """Launches the named body on CUDA tensors that ``flash_attention`` has
     checked, and counts nothing.  ``"simt"`` runs any input; ``"mma"``
     where ``path_for`` does not give it is refused by the kernel's entry.
@@ -151,7 +181,7 @@ def run_body(q, k, v, *, causal: bool, path: str):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         _DTYPE_CODE[q.dtype], q.device.index, B, S, T, H, KV, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        int(causal), 1.0 / math.sqrt(hd), _PATH[path],
+        int(causal), q_offset, 1.0 / math.sqrt(hd), _PATH[path],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash attention kernel launch failed ({path} "
@@ -161,3 +191,4 @@ def run_body(q, k, v, *, causal: bool, path: str):
 
 flash_attention.launches = 0
 flash_attention.launches_by_path = {"mma": 0, "simt": 0}
+flash_attention.launches_by_offset = {}

@@ -10,11 +10,12 @@ from repro_torch.models.whisper import EncDecLM
 Model = Union[LM, EncDecLM]
 
 
-def get_model(cfg: ModelConfig, device="cuda", **kw) -> Model:
+def get_model(cfg: ModelConfig, device="cuda", *, ctx=None, **kw) -> Model:
     """The port's model for ``cfg`` on ``device`` (parameters allocated,
     not initialised: call ``init_params`` or load a state dict):
-    ``EncDecLM`` for the encdec family, else ``LM`` (``kw``: ``loss_chunk``
-    and ``remat`` for either, ``kv_quant`` for ``LM``)."""
+    ``EncDecLM`` for the encdec family, else ``LM`` (``ctx``: a
+    ``sharding.ShardCtx`` to run sharded under; ``kw``: ``loss_chunk`` and
+    ``remat`` for either, ``kv_quant`` for ``LM``)."""
     if cfg.family == "encdec":
-        return EncDecLM(cfg, device=device, **kw)
-    return LM(cfg, device=device, **kw)
+        return EncDecLM(cfg, ctx, device=device, **kw)
+    return LM(cfg, ctx, device=device, **kw)

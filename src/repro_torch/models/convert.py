@@ -12,6 +12,9 @@ names (``mu_*``, ``w_r`` … ``cm_r``), hybrid layers the attention and MLP
 names plus ``mamba_*``, ``attn_out_ln`` and ``mamba_out_ln``, whisper's
 decoder layers the cross-attention's ``x_*``; a config with tied
 embeddings (hymba, whisper) has no ``lm_head`` in either tree.
+``axes_by_name`` keys a model's ``param_axes()`` (the JAX twin's logical
+axes over its stacked tree) the same way, for the port's parameter
+layouts under a ``ShardCtx``.
 """
 from __future__ import annotations
 
@@ -30,24 +33,43 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+def _stacks(cfg: ModelConfig) -> Dict[str, int]:
+    if cfg.family == "encdec":
+        return {"enc_layers": cfg.encoder.n_layers,
+                "dec_layers": cfg.n_layers}
+    return {"layers": cfg.n_layers}
+
+
+def by_name(cfg: ModelConfig, tree, per_layer) -> Dict:
+    """A JAX-structured tree (``{stack: {name: stacked leaf}, top names}``)
+    keyed by the port's state-dict names: ``per_layer(leaf, i)`` for
+    ``<stack>.<i>.<name>``, the leaf itself for ``top.<name>``."""
+    stacks = _stacks(cfg)
+    out: Dict = {}
+    for stack, n_layers in stacks.items():
+        for name, leaf in tree[stack].items():
+            for i in range(n_layers):
+                out[f"{stack}.{i}.{name}"] = per_layer(leaf, i)
+    for name, leaf in tree.items():
+        if name not in stacks:
+            out[f"top.{name}"] = leaf
+    return out
+
+
 def params_from_jax(cfg: ModelConfig, params_np) -> Dict[str, torch.Tensor]:
     """State dict for ``get_model(cfg)`` from the JAX parameter tree (numpy
     leaves).  Each stack must hold the config's number of layers."""
-    if cfg.family == "encdec":
-        stacks = {"enc_layers": cfg.encoder.n_layers,
-                  "dec_layers": cfg.n_layers}
-    else:
-        stacks = {"layers": cfg.n_layers}
-    sd: Dict[str, torch.Tensor] = {}
-    for stack, n_layers in stacks.items():
+    for stack, n_layers in _stacks(cfg).items():
         for name, stacked in params_np[stack].items():
-            stacked = np.asarray(stacked)
-            if stacked.shape[0] != n_layers:
-                raise ValueError(f"{stack}.{name} stacks {stacked.shape[0]} "
-                                 f"layers, config has {n_layers}")
-            for i in range(n_layers):
-                sd[f"{stack}.{i}.{name}"] = _tensor(stacked[i])
-    for name, arr in params_np.items():
-        if name not in stacks:
-            sd[f"top.{name}"] = _tensor(arr)
-    return sd
+            if np.asarray(stacked).shape[0] != n_layers:
+                raise ValueError(f"{stack}.{name} stacks "
+                                 f"{np.asarray(stacked).shape[0]} layers, "
+                                 f"config has {n_layers}")
+    return {n: _tensor(a) for n, a in
+            by_name(cfg, params_np, lambda a, i: np.asarray(a)[i]).items()}
+
+
+def axes_by_name(cfg: ModelConfig, axes_tree) -> Dict[str, tuple]:
+    """The logical axes of ``param_axes()`` by state-dict name: a layer's
+    without the stacked ``layer`` axis."""
+    return by_name(cfg, axes_tree, lambda axes, i: axes[1:])

@@ -9,9 +9,18 @@ hotspot ``attention_chunked`` consults the kernel-variant registry
 (``repro_torch.kernels.ops``) so an installed kernel takes over without
 touching model code.
 
-Not ported here: context-parallel attention, ``flash_decode_sharded`` and
-the ``ShardCtx``/``shard_map`` branches of ``moe_block`` (no sharding in
-the port yet).
+The sharded branches run rank-locally (``repro_torch.sharding``): under a
+``ShardCtx`` with the ``cp`` preset ``attention_context_parallel``
+all-gathers K/V over the model axis and runs each rank's query shard
+through the ``attention`` site with its ``q_offset`` (an installed kernel
+receives it; the JAX twin drops it there, ROADMAP.md queue 3);
+``flash_decode_sharded`` combines per-shard partial softmaxes of a cache
+whose sequence is split over mesh axes; ``moe_block``'s ``shard_map``
+branch sums the tp-sharded expert-ffn partials after the per-token gather.
+The ``*_param_axes`` tables give each parameter's logical axes, the JAX
+twin's ``*_param_spec`` second halves.  ``constrain`` calls mark the JAX
+twin's layout points; on the plain local tensors here they change
+nothing.
 """
 from __future__ import annotations
 
@@ -22,6 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import ShardCtx, comm
+
+_NULL = ShardCtx.null()
 
 NEG_INF = -1e30
 
@@ -137,7 +149,18 @@ def attn_param_spec(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     return spec
 
 
-def _project_qkv(x, p, cfg: ModelConfig, positions):
+def attn_param_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """name → logical axes of ``attn_param_spec``'s parameters."""
+    axes = {"wq": ("d_model", "heads"), "wk": ("d_model", "kv_heads"),
+            "wv": ("d_model", "kv_heads"), "wo": ("heads", "d_model")}
+    if cfg.qkv_bias:
+        axes.update(bq=("heads",), bk=("kv_heads",), bv=("kv_heads",))
+    if cfg.qk_norm:
+        axes.update(q_scale=(None,), k_scale=(None,))
+    return axes
+
+
+def _project_qkv(x, p, cfg: ModelConfig, positions, ctx: ShardCtx = _NULL):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
@@ -151,21 +174,38 @@ def _project_qkv(x, p, cfg: ModelConfig, positions):
         k = rms_norm(k, p["k_scale"], cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta, cfg.partial_rotary)
     k = rope(k, positions, cfg.rope_theta, cfg.partial_rotary)
+    if ctx.attn_impl == "cp" and q.shape[1] > 1:
+        # context parallel: everything stays sequence-sharded; the cp
+        # attention gathers K/V itself
+        q = ctx.constrain(q, "batch", "seq", None, None)
+        k = ctx.constrain(k, "batch", "seq", None, None)
+        v = ctx.constrain(v, "batch", "seq", None, None)
+    else:
+        q = ctx.constrain(q, "batch", None, "heads", None)
+        k = ctx.constrain(k, "batch", None, "kv_heads", None)
+        v = ctx.constrain(v, "batch", None, "kv_heads", None)
     return q, k, v
 
 
 def attention_chunked(q, k, v, *, causal: bool, q_chunk: int = 256,
-                      softcap: float = 0.0, use_impl: bool = True):
+                      softcap: float = 0.0, q_offset=None,
+                      use_impl: bool = True):
     """Flash-style q-chunked attention: O(S·chunk) score memory.
 
     The plain reference lowering; when a kernel is installed at the
     registry's ``attention`` site it takes over (the reintegration step).
+    ``q_offset`` (context-parallel shards) puts query row i at sequence
+    position ``q_offset + i`` under the causal mask; an installed impl
+    receives it whenever it is given.
     """
     if use_impl:
         from repro_torch.kernels import ops
         impl = ops.get_impl("attention")
         if impl is not None:
-            return impl(q, k, v, causal=causal, softcap=softcap)
+            if q_offset is None:
+                return impl(q, k, v, causal=causal, softcap=softcap)
+            return impl(q, k, v, causal=causal, softcap=softcap,
+                        q_offset=q_offset)
 
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -183,12 +223,34 @@ def attention_chunked(q, k, v, *, causal: bool, q_chunk: int = 256,
         if softcap > 0.0:
             s = torch.tanh(s / softcap) * softcap
         if causal:
-            qpos = start + torch.arange(q_chunk, device=q.device)
+            qpos = (q_offset or 0) + start + torch.arange(q_chunk,
+                                                          device=q.device)
             mask = kpos[None, :] <= qpos[:, None]          # [c, t]
             s = torch.where(mask, s, torch.full_like(s, NEG_INF))
         p = torch.softmax(s, dim=-1).to(v.dtype)
         outs.append(torch.einsum("bkgct,btkh->bckgh", p, v))
     return torch.cat(outs, dim=1).reshape(B, S, H, hd)
+
+
+def attention_context_parallel(q, k, v, *, ctx: ShardCtx, q_chunk: int = 256,
+                               softcap: float = 0.0):
+    """Context-parallel causal attention: q stays sequence-sharded on the
+    model axis; K/V (small under GQA) are all-gathered and each rank
+    attends its own query shard with its causal mask shifted by
+    ``rank · S/n``.  Returns (out, whole K, whole V): the gathered K/V are
+    the sequence's, for a prefill's cache."""
+    if not ctx.enabled:
+        return attention_chunked(q, k, v, causal=True, q_chunk=q_chunk,
+                                 softcap=softcap), k, v
+    group = ctx.group(ctx.tp)
+    s_local = q.shape[1]
+    kf = comm.all_gather(k, group, 1)
+    vf = comm.all_gather(v, group, 1)
+    off = ctx.index(ctx.tp) * s_local
+    out = attention_chunked(q, kf, vf, causal=True,
+                            q_chunk=min(q_chunk, s_local), softcap=softcap,
+                            q_offset=off)
+    return out, kf, vf
 
 
 # ---- decode cache indexing (shared-position and ragged per-slot) --------
@@ -262,6 +324,66 @@ def attention_decode(q, k_cache, v_cache, length: Optional[torch.Tensor] = None,
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def flash_decode_sharded(q, k_cache, v_cache, ctx: ShardCtx,
+                         length: Optional[torch.Tensor] = None, *,
+                         seq_axes=None, k_scale=None, v_scale=None):
+    """Distributed flash-decode: each rank holds a shard of the cache's
+    sequence over the mesh ``seq_axes`` (default the data axes) and of its
+    batch rows; it computes partial attention over its shard, and the
+    shards are combined by a log-sum-exp reduction (all-reduce MAX of the
+    row maxima, then one SUM of the rescaled numerators and denominators,
+    joined along head_dim).  int8
+    caches are dequantized per shard.  q [b,1,H,hd] (this rank's rows),
+    caches [b, T/n, KV, hd], ``length`` [b] in whole-sequence positions.
+    Plain torch, as the JAX twin computes it outside any kernel; like it,
+    it applies no softcap."""
+    if not ctx.enabled:
+        return attention_decode(q, k_cache, v_cache, length,
+                                k_scale=k_scale, v_scale=v_scale)
+    seq_axes = tuple(seq_axes if seq_axes is not None else ctx.dp)
+    group = ctx.group(seq_axes)
+    B, _, H, hd = q.shape
+    tl, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    if k_scale is not None:
+        k_cache = kv_dequantize(k_cache, k_scale)
+        v_cache = kv_dequantize(v_cache, v_scale)
+    qh = q.reshape(B, KV, G, hd).to(torch.promote_types(q.dtype,
+                                                        k_cache.dtype))
+    kpos = ctx.index(seq_axes) * tl + torch.arange(tl, device=q.device)
+    s = torch.einsum("bkgh,btkh->bkgt", qh, k_cache).float() * scale
+    if length is not None:
+        valid = (kpos[None, :] < length[:, None])[:, None, None, :]
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)                                       # [b,KV,G]
+    e = torch.exp(s - m[..., None])
+    num = torch.einsum("bkgt,btkh->bkgh", e, v_cache.float())
+    den = e.sum(dim=-1)
+    c = torch.exp(m - comm.all_reduce(m, group, "max"))
+    # one SUM for the rescaled numerators and denominators together
+    both = comm.all_reduce(torch.cat([num * c[..., None],
+                                      (den * c)[..., None]], dim=-1), group)
+    out = both[..., :-1] / both[..., -1:].clamp(min=1e-30)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def sharded_cache_update(cache, new, pos, lo: int):
+    """``cache_update`` on a rank's shard of a cache's sequence, which
+    holds positions [lo, lo + its length): rows whose ``pos`` falls there
+    are written, the others left to the rank that holds them."""
+    tl = cache.shape[1]
+    if is_shared_pos(pos):
+        if lo <= int(pos) < lo + tl:
+            cache_update(cache, new, int(pos) - lo)
+        return cache
+    pos = torch.as_tensor(pos, device=cache.device).long()
+    rows = ((pos >= lo) & (pos < lo + tl)).nonzero()[:, 0]
+    if rows.numel():
+        cache[rows, pos[rows] - lo] = new[rows, 0].to(cache.dtype)
+    return cache
+
+
 # --------------------------------------------------------------------------
 # MLP
 # --------------------------------------------------------------------------
@@ -276,7 +398,16 @@ def mlp_param_spec(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     return spec
 
 
-def mlp(x, p, cfg: ModelConfig):
+def mlp_param_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    axes = {"w1": ("d_model", "ffn"), "w2": ("ffn", "d_model")}
+    if cfg.act == "swiglu":
+        axes["w3"] = ("d_model", "ffn")
+    if cfg.mlp_bias:
+        axes.update(b1=("ffn",), b2=("d_model",))
+    return axes
+
+
+def mlp(x, p, cfg: ModelConfig, ctx: ShardCtx = _NULL):
     a = act_fn(cfg.act)
     h = x @ p["w1"]
     if cfg.mlp_bias:
@@ -284,6 +415,10 @@ def mlp(x, p, cfg: ModelConfig):
     h = a(h)
     if cfg.act == "swiglu":
         h = h * (x @ p["w3"])
+    if ctx.attn_impl == "cp":
+        h = ctx.constrain(h, "batch", "seq", None)   # tokens stay sharded
+    else:
+        h = ctx.constrain(h, "batch", None, "ffn")   # Megatron TP
     out = h @ p["w2"]
     if cfg.mlp_bias:
         out = out + p["b2"]
@@ -312,6 +447,17 @@ def moe_param_spec(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     return spec
 
 
+def moe_param_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    axes = {"router": ("d_model", "experts"),
+            "we1": ("experts", "d_model", "expert_ffn"),
+            "we2": ("experts", "expert_ffn", "d_model"),
+            "we3": ("experts", "d_model", "expert_ffn")}
+    if cfg.moe.n_shared:
+        axes.update(ws1=("d_model", "ffn"), ws2=("ffn", "d_model"),
+                    ws3=("d_model", "ffn"), ws_gate=("d_model", None))
+    return axes
+
+
 def _moe_capacity(S: int, m) -> int:
     c = int(math.ceil(S * m.top_k * m.capacity_factor / m.n_experts))
     return max(4, ((c + 3) // 4) * 4)
@@ -329,14 +475,20 @@ def moe_route(x, p, m):
     return probs, gate / gate.sum(dim=-1, keepdim=True), eidx
 
 
-def moe_block(x, p, cfg: ModelConfig):
+def moe_block(x, p, cfg: ModelConfig, ctx: ShardCtx = _NULL):
     """x: [B, S, d].  Tokens are routed within their own sequence, top k of
     E experts each.  Decode (S == 1) runs every expert and combines by the
     gates; a parallel call dispatches each expert at most ``_moe_capacity``
     tokens, in sequence order, and drops the rest (a dropped token's slot
     gets zeros added, as the JAX twin's ``.at[].add`` does, so it leaves the
     kept token there intact).  Every shape is static for a given (B, S), so
-    the block is captured in a CUDA graph as it is."""
+    the block is captured in a CUDA graph as it is.
+
+    Under a ctx with ``moe_impl="shard_map"`` a parallel call runs
+    combine-before-reduce: each rank of the model axis applies its slice
+    of the expert-ffn dim (columns of we1/we3, rows of we2), gathers its
+    per-token partial outputs and sums them over the axis as [B, S, d]
+    instead of [B, E, C, d]."""
     m = cfg.moe
     B, S, d = x.shape
     E, K = m.n_experts, m.top_k
@@ -371,16 +523,26 @@ def moe_block(x, p, cfg: ModelConfig):
         buf.index_add_(0, slot.reshape(-1),
                        (xk * keep[..., None]).reshape(B * T, d))
         buf = buf.view(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
-        h = a(torch.bmm(buf, p["we1"])) * torch.bmm(buf, p["we3"])
-        ye = torch.bmm(h, p["we2"]).view(E, B, C, d)
+        we1, we3, we2 = p["we1"], p["we3"], p["we2"]
+        combine = ctx.enabled and ctx.moe_impl == "shard_map"
+        if combine:           # this rank's slice of the expert-ffn dim
+            n = ctx.axis_size(ctx.tp)
+            f = we1.shape[-1] // n
+            lo = ctx.index(ctx.tp) * f
+            we1, we3 = we1[..., lo:lo + f], we3[..., lo:lo + f]
+            we2 = we2[:, lo:lo + f]
+        h = a(torch.bmm(buf, we1)) * torch.bmm(buf, we3)
+        ye = torch.bmm(h, we2).view(E, B, C, d)
         yk = ye[ef, rows, pos_c] * (gf * keep)[..., None]   # [B, T, d]
         out = yk.reshape(B, S, K, d).sum(dim=2)
+        if combine:
+            out = comm.all_reduce(out, ctx.group(ctx.tp))
 
     if m.n_shared:
         h = a(x @ p["ws1"]) * (x @ p["ws3"])
         sgate = torch.sigmoid((x @ p["ws_gate"]).float())
         out = out + (h @ p["ws2"]) * sgate.to(x.dtype)
-    return out
+    return ctx.constrain(out, "batch", "seq", None)
 
 
 def moe_aux_loss(x, p, cfg: ModelConfig) -> torch.Tensor:

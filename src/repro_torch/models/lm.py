@@ -23,6 +23,22 @@ Entry points:
 vlm is the dense path (its image tokens are vocabulary entries); a moe
 layer has ``moe_block`` where the others have the MLP.
 
+Sharded (``ctx``, a ``repro_torch.sharding.ShardCtx`` on a mesh of
+``torch.distributed`` ranks), every entry point takes and returns the
+rank's own shard: the batch rows of its data axes and, under the ``cp``
+preset, its S/n of the sequence (positions counted from
+``rank · S/n``).  There attention gathers K/V over the model axis and runs
+the query shard with a causal offset, and the recurrent scans (rwkv's
+block, hymba's mamba heads) and the MoE block, which need the whole
+sequence of their rows, run on it gathered and keep their shard of the
+result.  Decode under ``decode_kv`` ``tp_seq`` / ``dp_seq`` holds the
+cache's sequence split over the model / data axes (``init_cache`` and
+``prefill`` lay it out so) and combines the shards' partial softmaxes.
+``param_axes`` and ``cache_axes`` give the JAX twin's logical axes over
+its stacked tree (``param_shapes``, ``cache_shapes``).  ``loss`` under a
+ctx that splits the tokens returns the rank's share of the global loss
+(its summed NLL over the global count); the shares sum to the loss.
+
 Parameters are made with ``requires_grad=False``, so serving builds no
 autograd graph; ``train.steps.make_train_step`` switches it on for the
 length of a step.  With ``remat`` (the default, as in the JAX twin) a
@@ -44,6 +60,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
+from repro_torch.sharding import ShardCtx, comm, full
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the cache entries held per position (written at [:S] by prefill and at
@@ -81,6 +98,96 @@ def top_spec(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     if not cfg.tie_embeddings:
         spec["lm_head"] = (d, vp)
     return spec
+
+
+def layer_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """name → logical axes of one layer's parameters."""
+    if cfg.family == "ssm":
+        return {"ln1": (None,), "ln2": (None,), **SSM.rwkv_param_axes(cfg)}
+    axes = {"ln1": (None,), **L.attn_param_axes(cfg)}
+    if not cfg.parallel_block:
+        axes["ln2"] = (None,)
+    axes.update(L.moe_param_axes(cfg) if cfg.family == "moe"
+                else L.mlp_param_axes(cfg))
+    if cfg.family == "hybrid":
+        axes.update({f"mamba_{k}": v
+                     for k, v in SSM.mamba_param_axes(cfg).items()})
+        axes["attn_out_ln"] = (None,)
+        axes["mamba_out_ln"] = (None,)
+    return axes
+
+
+def top_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    axes = {"embed": ("vocab", "d_model"), "final_ln": (None,)}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("d_model", "vocab")
+    return axes
+
+
+def stacked(layer: Dict, top: Dict, stack: str, lead) -> Dict:
+    """The JAX twin's tree of a model: ``stack`` → one layer's leaves
+    with ``lead(leaf)`` prepended (the stacked layer axis), and the top
+    leaves beside it."""
+    return {stack: {k: lead(v) for k, v in layer.items()}, **top}
+
+
+def param_axes(cfg: ModelConfig):
+    """Logical axes over the JAX twin's stacked parameter tree."""
+    return stacked(layer_axes(cfg), top_axes(cfg), "layers",
+                   lambda a: ("layer",) + a)
+
+
+def param_shapes(cfg: ModelConfig):
+    """Shapes over the JAX twin's stacked parameter tree."""
+    return stacked(layer_spec(cfg), top_spec(cfg), "layers",
+                   lambda sh: (cfg.n_layers,) + sh)
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                 kv_quant: bool = False):
+    """name → (shape, dtype) of the decode cache: K/V for the attention
+    families (int8, with bf16 ``k_scale``/``v_scale`` a position and kv
+    head, under ``kv_quant``), the recurrent state (f32 for wkv/ssm) for
+    ssm/hybrid; every entry has the layer axis first."""
+    dtype = _DTYPES[cfg.param_dtype]
+    Lc = cfg.n_layers
+    shapes = {}
+    if cfg.family != "ssm":
+        kv = (Lc, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        kv_dtype = torch.int8 if kv_quant else dtype
+        shapes["k"] = (kv, kv_dtype)
+        shapes["v"] = (kv, kv_dtype)
+        if kv_quant:
+            sc = (Lc, batch, max_len, cfg.n_kv_heads, 1)
+            shapes["k_scale"] = (sc, torch.bfloat16)
+            shapes["v_scale"] = (sc, torch.bfloat16)
+    if cfg.family == "hybrid":
+        ms = SSM.mamba_state_shape(cfg, batch)
+        shapes["conv"] = ((Lc,) + ms["conv"], dtype)
+        shapes["ssm"] = ((Lc,) + ms["ssm"], torch.float32)
+    if cfg.family == "ssm":
+        rs = SSM.rwkv_state_shape(cfg, batch)
+        shapes["wkv"] = ((Lc,) + rs["wkv"], torch.float32)
+        shapes["shift_tm"] = ((Lc,) + rs["shift_tm"], dtype)
+        shapes["shift_cm"] = ((Lc,) + rs["shift_cm"], dtype)
+    return shapes
+
+
+def cache_axes(cfg: ModelConfig, kv_quant: bool = False) -> Dict[str, Tuple]:
+    """Logical axes of ``cache_shapes``' entries."""
+    ax: Dict[str, Tuple] = {}
+    if cfg.family != "ssm":
+        for name in ("k", "v") + (("k_scale", "v_scale")
+                                  if kv_quant else ()):
+            ax[name] = ("layer", "batch", "kv_seq", "kv_heads", None)
+    if cfg.family == "hybrid":
+        ax["conv"] = ("layer", "batch", None, "ffn")
+        ax["ssm"] = ("layer", "batch", "heads", None, None)
+    if cfg.family == "ssm":
+        ax["wkv"] = ("layer", "batch", "heads", None, None)
+        ax["shift_tm"] = ("layer", "batch", None)
+        ax["shift_cm"] = ("layer", "batch", None)
+    return ax
 
 
 class ParamGroup(nn.Module):
@@ -139,9 +246,9 @@ def remat_layer(fn, x):
 
 
 class LM(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device="cuda",
-                 kv_quant: bool = False, loss_chunk: int = 1024,
-                 remat: bool = True):
+    def __init__(self, cfg: ModelConfig, ctx: Optional[ShardCtx] = None, *,
+                 device="cuda", kv_quant: bool = False,
+                 loss_chunk: int = 1024, remat: bool = True):
         super().__init__()
         if cfg.family not in ("dense", "vlm", "moe", "hybrid", "ssm"):
             raise ValueError(
@@ -149,6 +256,9 @@ class LM(nn.Module):
                 f"ssm), not {cfg.family!r}: models.get_model builds the "
                 "model of an encdec config (models.whisper.EncDecLM)")
         self.cfg = cfg
+        self.ctx = ctx or ShardCtx.null()
+        self._cp = self.ctx.enabled and self.ctx.attn_impl == "cp"
+        self._layer_axes = layer_axes(cfg)
         # int8 KV cache with per-(position, kv-head) bf16 scales: 130/256
         # of a bf16 cache's bytes at head_dim 128
         self.kv_quant = kv_quant
@@ -175,6 +285,50 @@ class LM(nn.Module):
             L.init_from_spec(layer.tensors(), generator)
         L.init_from_spec(self.top.tensors(), generator)
 
+    def param_axes(self):
+        return param_axes(self.cfg)
+
+    def param_shapes(self):
+        return param_shapes(self.cfg)
+
+    def _top(self, name: str) -> torch.Tensor:
+        """A top-level weight to compute with (a DTensor gathered whole)."""
+        return full(getattr(self.top, name))
+
+    def _layer_params(self, layer) -> Dict[str, torch.Tensor]:
+        """One layer's weights to compute with: under a ctx, a DTensor
+        weight is gathered whole (``gather_fsdp``, then the rest)."""
+        p = layer.tensors()
+        if not self.ctx.enabled:
+            return p
+        return {n: full(w) for n, w in
+                self.ctx.gather_params(p, self._layer_axes).items()}
+
+    def _whole_sequence(self, fn, x):
+        """``fn`` (returning (out, state)) on the whole sequence of this
+        rank's rows under cp, keeping this rank's shard of ``out``; the
+        state is the whole sequence's."""
+        if not self._cp:
+            return fn(x)
+        S = x.shape[1]
+        out, state = fn(comm.all_gather(x, self.ctx.group(self.ctx.tp), 1))
+        lo = self.ctx.index(self.ctx.tp) * S
+        return out[:, lo:lo + S], state
+
+    def sequence_length(self, local_len: int) -> int:
+        """The whole sequence's length of a rank's ``local_len`` tokens:
+        n times it under context parallelism over n ranks."""
+        return local_len * (self.ctx.axis_size(self.ctx.tp) if self._cp
+                            else 1)
+
+    def _kv_seq_axes(self):
+        """The mesh axes the decode cache's sequence is split over, or
+        None."""
+        if not self.ctx.enabled:
+            return None
+        return {"tp_seq": (self.ctx.tp,), "dp_seq": tuple(self.ctx.dp)
+                }.get(self.ctx.decode_kv)
+
     # ------------------------------------------------------------------
     # blocks
     # ------------------------------------------------------------------
@@ -188,13 +342,19 @@ class LM(nn.Module):
         the recurrent state of a parallel call (prefill).  ``want_aux``: a
         moe layer adds its load-balancing loss (f32 0-d) as ``new["aux"]``.
         """
-        cfg = self.cfg
+        cfg, ctx = self.cfg, self.ctx
         B, S, _ = x.shape
         if cfg.family == "ssm":
+            if cache is None:
+                return self._whole_sequence(
+                    lambda xs: self._rwkv_block(xs, p, None, need_state), x)
             return self._rwkv_block(x, p, cache, need_state)
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = L._project_qkv(h, p, cfg, positions)
-        if cache is None:
+        q, k, v = L._project_qkv(h, p, cfg, positions, ctx)
+        if cache is None and self._cp:
+            att, k, v = L.attention_context_parallel(
+                q, k, v, ctx=ctx, softcap=cfg.logit_softcap)
+        elif cache is None:
             att = L.attention_chunked(q, k, v, causal=True,
                                       softcap=cfg.logit_softcap)
         else:
@@ -202,12 +362,23 @@ class LM(nn.Module):
             if self.kv_quant:
                 for name in ("k", "v"):
                     kv[name], kv[f"{name}_scale"] = L.kv_quantize(kv[name])
+            seq_axes = self._kv_seq_axes()
             for name, t in kv.items():
-                L.cache_update(cache[name], t, pos)
+                if seq_axes is None:
+                    L.cache_update(cache[name], t, pos)
+                else:
+                    L.sharded_cache_update(
+                        cache[name], t, pos,
+                        ctx.index(seq_axes) * cache[name].shape[1])
             length = L.decode_lengths(pos, B, x.device)
-            att = L.attention_decode(
-                q, cache["k"], cache["v"], length, cfg.logit_softcap,
-                **{n: cache[n] for n in ("k_scale", "v_scale") if n in kv})
+            scales = {n: cache[n] for n in ("k_scale", "v_scale") if n in kv}
+            if seq_axes is None:
+                att = L.attention_decode(q, cache["k"], cache["v"], length,
+                                         cfg.logit_softcap, **scales)
+            else:
+                att = L.flash_decode_sharded(q, cache["k"], cache["v"], ctx,
+                                             length, seq_axes=seq_axes,
+                                             **scales)
         attn_out = att.reshape(B, S, -1) @ p["wo"]
         new = {"k": k, "v": v}
         if cfg.family == "hybrid":
@@ -215,22 +386,31 @@ class LM(nn.Module):
                   if name.startswith("mamba_")}
             m_state = None if cache is None else {"conv": cache["conv"],
                                                   "ssm": cache["ssm"]}
-            mamba_out, m_new = SSM.mamba_block(h, mp, cfg, state=m_state,
-                                               need_state=need_state)
+            mamba_out, m_new = self._whole_sequence(
+                lambda hs: SSM.mamba_block(hs, mp, cfg, state=m_state,
+                                           need_state=need_state),
+                h) if cache is None else SSM.mamba_block(
+                    h, mp, cfg, state=m_state, need_state=need_state)
             # mean of per-branch normalized outputs (hymba parallel heads)
             attn_out = L.rms_norm(attn_out, p["attn_out_ln"], cfg.norm_eps)
             mamba_out = L.rms_norm(mamba_out, p["mamba_out_ln"], cfg.norm_eps)
             attn_out = 0.5 * (attn_out + mamba_out)
             new.update(conv=m_new["conv"], ssm=m_new["ssm"].float())
         if cfg.parallel_block:
-            return x + attn_out + L.mlp(h, p, cfg), new
+            return x + attn_out + L.mlp(h, p, cfg, ctx), new
         x = x + attn_out
+        x = ctx.constrain(x, "batch", "seq" if cache is None else None, None)
         h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         if cfg.family == "moe":
             if want_aux:
                 new["aux"] = L.moe_aux_loss(h2, p, cfg)
-            return x + L.moe_block(h2, p, cfg), new
-        return x + L.mlp(h2, p, cfg), new
+            if not ctx.enabled:
+                return x + L.moe_block(h2, p, cfg), new
+            moe_out, _ = self._whole_sequence(
+                lambda hs: (L.moe_block(hs, p, cfg, ctx), None), h2) \
+                if cache is None else (L.moe_block(h2, p, cfg, ctx), None)
+            return x + moe_out, new
+        return x + L.mlp(h2, p, cfg, ctx), new
 
     def _rwkv_block(self, x, p, cache, need_state: bool = False):
         """One RWKV6 block (time mix, channel mix); decodes from ``cache``
@@ -243,12 +423,13 @@ class LM(nn.Module):
             h, p, cfg,
             shift_state=zeros if cache is None else cache["shift_tm"],
             wkv_state=None if cache is None else cache["wkv"],
-            need_state=need_state)
+            need_state=need_state, ctx=self.ctx)
         x = x + tm_out
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         cm_out, shift_cm = SSM.rwkv_channel_mix(
             h, p, cfg,
-            shift_state=zeros if cache is None else cache["shift_cm"])
+            shift_state=zeros if cache is None else cache["shift_cm"],
+            ctx=self.ctx)
         x = x + cm_out
         return x, {"wkv": wkv.float(), "shift_tm": shift_tm,
                    "shift_cm": shift_cm}
@@ -257,7 +438,7 @@ class LM(nn.Module):
     # forward passes
     # ------------------------------------------------------------------
     def _embed(self, tokens):
-        return F.embedding(tokens, self.top.embed).to(self.dtype)
+        return F.embedding(tokens, self._top("embed")).to(self.dtype)
 
     def forward(self, tokens, *, collect_cache: bool = False,
                 want_aux: bool = False):
@@ -269,11 +450,13 @@ class LM(nn.Module):
         moe family) third.  Under grad with ``remat`` each layer runs in
         ``torch.utils.checkpoint``."""
         x = self._embed(tokens)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        S = tokens.shape[1]
+        off = self.ctx.index(self.ctx.tp) * S if self._cp else 0
+        positions = off + torch.arange(S, device=tokens.device)[None, :]
         caches: List[Dict[str, torch.Tensor]] = []
         aux = x.new_zeros((), dtype=torch.float32)
         for layer in self.layers:
-            def one(x, p=layer.tensors()):
+            def one(x, p=self._layer_params(layer)):
                 return self._block(x, p, positions, need_state=collect_cache,
                                    want_aux=want_aux)
             x, new = remat_layer(one, x) if self.remat else one(x)
@@ -281,14 +464,15 @@ class LM(nn.Module):
                 aux = aux + new.pop("aux")
             if collect_cache:
                 caches.append(new)
-        x = L.rms_norm(x, self.top.final_ln, self.cfg.norm_eps)
+        x = L.rms_norm(x, self._top("final_ln"), self.cfg.norm_eps)
         if want_aux:
             return x, (caches if collect_cache else None), aux
         return x, (caches if collect_cache else None)
 
     def logits_fn(self, hidden):
         cfg = self.cfg
-        head = self.top.embed.T if cfg.tie_embeddings else self.top.lm_head
+        head = (self._top("embed").T if cfg.tie_embeddings
+                else self._top("lm_head"))
         logits = (hidden @ head).float()
         vp = cfg.padded_vocab()
         if vp != cfg.vocab_size:
@@ -300,11 +484,20 @@ class LM(nn.Module):
         Returns (loss, {"nll", "aux"}): the mean NLL over valid targets, to
         which a moe model adds ``0.01 * aux / n_layers``."""
         tokens, targets = batch["tokens"], batch["targets"]
+        split = self.ctx.enabled and self.ctx.axis_size(
+            self.ctx.batch_axes) > 1
+        if split and self.cfg.family == "moe":
+            raise NotImplementedError(
+                "the moe aux loss is not a sum over token shards: a moe loss "
+                "under a ctx that splits the tokens is not ported")
         hidden, _, aux = self.forward(tokens, want_aux=True)
         Sq = hidden.shape[1]
         c = min(self.loss_chunk, Sq)
         assert Sq % c == 0
         total, count = chunked_nll(self.logits_fn, hidden, targets, c)
+        if split:
+            count = comm.all_reduce(count, self.ctx.group(
+                self.ctx.batch_axes))
         nll = total / count.clamp(min=1.0)
         loss = nll
         if self.cfg.family == "moe":
@@ -315,37 +508,25 @@ class LM(nn.Module):
     # serving
     # ------------------------------------------------------------------
     def cache_shapes(self, batch: int, max_len: int):
-        """name → (shape, dtype) of the decode cache: K/V for the attention
-        families (int8, with bf16 ``k_scale``/``v_scale`` a position and kv
-        head, under ``kv_quant``), the recurrent state (f32 for wkv/ssm) for
-        ssm/hybrid; every entry has the layer axis first."""
-        cfg = self.cfg
-        Lc = cfg.n_layers
-        shapes = {}
-        if cfg.family != "ssm":
-            kv = (Lc, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-            kv_dtype = torch.int8 if self.kv_quant else self.dtype
-            shapes["k"] = (kv, kv_dtype)
-            shapes["v"] = (kv, kv_dtype)
-            if self.kv_quant:
-                sc = (Lc, batch, max_len, cfg.n_kv_heads, 1)
-                shapes["k_scale"] = (sc, torch.bfloat16)
-                shapes["v_scale"] = (sc, torch.bfloat16)
-        if cfg.family == "hybrid":
-            ms = SSM.mamba_state_shape(cfg, batch)
-            shapes["conv"] = ((Lc,) + ms["conv"], self.dtype)
-            shapes["ssm"] = ((Lc,) + ms["ssm"], torch.float32)
-        if cfg.family == "ssm":
-            rs = SSM.rwkv_state_shape(cfg, batch)
-            shapes["wkv"] = ((Lc,) + rs["wkv"], torch.float32)
-            shapes["shift_tm"] = ((Lc,) + rs["shift_tm"], self.dtype)
-            shapes["shift_cm"] = ((Lc,) + rs["shift_cm"], self.dtype)
-        return shapes
+        return cache_shapes(self.cfg, batch, max_len, self.kv_quant)
+
+    def cache_axes(self) -> Dict[str, Tuple]:
+        return cache_axes(self.cfg, self.kv_quant)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
-        return {name: torch.zeros(shape, dtype=dtype, device=self.device)
-                for name, (shape, dtype) in
-                self.cache_shapes(batch, max_len).items()}
+        """A zero cache of ``batch`` rows; under ``decode_kv`` ``tp_seq``
+        / ``dp_seq`` each K/V entry holds this rank's max_len/n positions."""
+        seq_axes = self._kv_seq_axes()
+        n = 1 if seq_axes is None else self.ctx.axis_size(seq_axes)
+        if max_len % n:
+            raise ValueError(f"max_len {max_len} does not split over {n} "
+                             f"ranks of {seq_axes}")
+        cache = {}
+        for name, (shape, dtype) in self.cache_shapes(batch, max_len).items():
+            if name in KV_ENTRIES:
+                shape = shape[:2] + (max_len // n,) + shape[3:]
+            cache[name] = torch.zeros(shape, dtype=dtype, device=self.device)
+        return cache
 
     def prefill(self, tokens, max_len: Optional[int] = None,
                 lengths: Optional[torch.Tensor] = None):
@@ -363,8 +544,11 @@ class LM(nn.Module):
         ``kv_quant`` the cache stores the quantized K/V and their scales.
         """
         B, Sq = tokens.shape
-        max_len = max_len or Sq
         hidden, caches = self.forward(tokens, collect_cache=True)
+        if self._cp:                      # the whole sequence of the rows
+            hidden = comm.all_gather(hidden, self.ctx.group(self.ctx.tp), 1)
+            Sq = hidden.shape[1]
+        max_len = max_len or Sq
         if lengths is None:
             h_last = hidden[:, -1:, :]
         else:
@@ -372,13 +556,20 @@ class LM(nn.Module):
             h_last = hidden[torch.arange(B, device=hidden.device), idx][:, None]
         logits = self.logits_fn(h_last)
         cache = self.init_cache(B, max_len)
+        seq_axes = self._kv_seq_axes()
+        tl = cache["k"].shape[2] if "k" in cache else max_len
+        lo = 0 if seq_axes is None else self.ctx.index(seq_axes) * tl
+        a, b = lo, min(lo + tl, Sq)     # this rank's positions of [0, Sq)
         for i, new in enumerate(caches):
             for name, t in new.items():
                 if name in KV_ENTRIES:
+                    if b <= a:
+                        continue
+                    t = t[:, a:b]
                     if self.kv_quant:
                         t, scale = L.kv_quantize(t)
-                        cache[f"{name}_scale"][i, :, :Sq] = scale
-                    cache[name][i, :, :Sq] = t
+                        cache[f"{name}_scale"][i, :, :b - a] = scale
+                    cache[name][i, :, :b - a] = t
                 else:                      # recurrent state: the row's end
                     cache[name][i] = t
         return logits, cache
@@ -401,5 +592,5 @@ class LM(nn.Module):
             for name, t in new.items():
                 if name not in KV_ENTRIES:  # K/V were written at pos
                     cache[name][i].copy_(t)
-        x = L.rms_norm(x, self.top.final_ln, self.cfg.norm_eps)
+        x = L.rms_norm(x, self._top("final_ln"), self.cfg.norm_eps)
         return self.logits_fn(x), cache

@@ -37,6 +37,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rms_norm
+from repro_torch.sharding import ShardCtx
+
+_NULL = ShardCtx.null()
 
 
 # ==========================================================================
@@ -67,6 +70,15 @@ def mamba_param_spec(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         "ln_y": (d_in,),
         "w_out": (d_in, d),
     }
+
+
+def mamba_param_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """name → logical axes of ``mamba_param_spec``'s parameters."""
+    return {"w_in": ("d_model", "ffn"), "conv_w": ("conv", "ffn"),
+            "conv_bias": ("ffn",), "w_bc": ("ffn", "state"),
+            "w_dt": ("ffn", "heads"), "dt_bias": ("heads",),
+            "a_log": ("heads",), "d_skip": ("heads",), "ln_y": ("ffn",),
+            "w_out": ("ffn", "d_model")}
 
 
 def _causal_conv(x, w, b):
@@ -240,6 +252,19 @@ def rwkv_param_spec(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     }
 
 
+def rwkv_param_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """name → logical axes of ``rwkv_param_spec``'s parameters."""
+    axes = {n: (None,) for n in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w",
+                                 "ln_x_scale", "ln_x_bias", "mu_ck", "mu_cr")}
+    axes.update({n: ("d_model", "heads") for n in ("w_r", "w_k", "w_v",
+                                                   "w_g", "cm_r")})
+    axes.update(w_o=("heads", "d_model"), decay_base=("heads", None),
+                decay_lora_a=("d_model", None), decay_lora_b=(None, "heads"),
+                bonus_u=("heads", None), cm_k=("d_model", "ffn"),
+                cm_v=("ffn", "d_model"))
+    return axes
+
+
 def _wkv_chunked(r, k, v, lw, u, chunk: int, use_impl: bool = True,
                  need_state: bool = False):
     """Exact chunked WKV6.  r/k/v/lw: [B,S,H,K] (lw = log decay ≤ 0), u [H,K].
@@ -313,7 +338,7 @@ def _token_shift(x, last):
 
 
 def rwkv_time_mix(x, p, cfg: ModelConfig, *, shift_state, wkv_state,
-                  need_state: bool = False):
+                  need_state: bool = False, ctx: ShardCtx = _NULL):
     """RWKV6 attention replacement.  Returns (out, (shift', wkv')).
     ``need_state``: the caller keeps wkv' (prefill); a segment continuing
     from ``wkv_state`` always needs it."""
@@ -358,7 +383,7 @@ def rwkv_time_mix(x, p, cfg: ModelConfig, *, shift_state, wkv_state,
     o = layer_scaled_groupnorm(o, p["ln_x_scale"], p["ln_x_bias"], H,
                                cfg.norm_eps)
     out = (o * g) @ p["w_o"]
-    return out, (shift_new, wkv_new)
+    return ctx.constrain(out, "batch", "seq", None), (shift_new, wkv_new)
 
 
 def layer_scaled_groupnorm(x, scale, bias, groups: int, eps: float):
@@ -372,11 +397,16 @@ def layer_scaled_groupnorm(x, scale, bias, groups: int, eps: float):
     return (xg.reshape(B, S, d) * scale + bias).to(x.dtype)
 
 
-def rwkv_channel_mix(x, p, cfg: ModelConfig, *, shift_state):
+def rwkv_channel_mix(x, p, cfg: ModelConfig, *, shift_state,
+                     ctx: ShardCtx = _NULL):
     prev, shift_new = _token_shift(x, shift_state)
     xk = _lerp(x, prev, p["mu_ck"])
     xr = _lerp(x, prev, p["mu_cr"])
     h = torch.square(F.relu(xk @ p["cm_k"]))
+    if ctx.attn_impl == "cp":
+        h = ctx.constrain(h, "batch", "seq", None)
+    else:
+        h = ctx.constrain(h, "batch", None, "ffn")
     out = h @ p["cm_v"]
     rgate = torch.sigmoid(xr @ p["cm_r"])
     return out * rgate, shift_new

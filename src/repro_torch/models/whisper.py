@@ -30,9 +30,11 @@ causal) and every cross-attention, at prefill and at decode, go through
 site takes each of them, as in the reference; decode self-attention is
 ``layers.attention_decode``.  With ``remat`` (the default) a forward
 under grad runs each encoder and decoder layer in
-``torch.utils.checkpoint``, as ``LM`` does.  Not ported: ``param_axes`` and
-``cache_axes``, which wait for sharding (ROADMAP.md queue 1, "Extraction,
-training, checkpoints, data, runtime and launch").
+``torch.utils.checkpoint``, as ``LM`` does.  Under a ``ShardCtx`` the
+model runs data-parallel on the rank's batch rows (every layer's weights
+through ``gather_params``, whole; activations unsplit otherwise), and
+``loss`` returns the rank's share of the global loss, as ``LM``'s does;
+``param_axes`` and ``cache_axes`` give the JAX twin's logical axes.
 """
 from __future__ import annotations
 
@@ -46,7 +48,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.lm import (_DTYPES, ParamGroup, chunked_nll,
-                                   remat_layer)
+                                   remat_layer, stacked)
+from repro_torch.sharding import ShardCtx, comm, full
 
 MAX_DECODER_POS = 32768  # learned positions table bound (largest assigned shape)
 
@@ -77,15 +80,73 @@ def top_spec(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
             "final_ln": (d,), "final_ln_b": (d,)}
 
 
+def enc_layer_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    return {"ln1": (None,), "ln1_b": (None,), "ln2": (None,),
+            "ln2_b": (None,), **L.attn_param_axes(cfg),
+            **L.mlp_param_axes(cfg)}
+
+
+def dec_layer_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    return {"ln1": (None,), "ln1_b": (None,), "ln2": (None,),
+            "ln2_b": (None,), "ln3": (None,), "ln3_b": (None,),
+            **L.attn_param_axes(cfg),
+            **{f"x_{k}": v for k, v in L.attn_param_axes(cfg).items()},
+            **L.mlp_param_axes(cfg)}
+
+
+def top_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    return {"embed": ("vocab", "d_model"), "dec_pos": (None, "d_model"),
+            "enc_pos": ("frames", "d_model"), "enc_final_ln": (None,),
+            "enc_final_ln_b": (None,), "final_ln": (None,),
+            "final_ln_b": (None,)}
+
+
+def param_axes(cfg: ModelConfig):
+    """Logical axes over the JAX twin's stacked parameter tree."""
+    def lead(a):
+        return ("layer",) + a
+    return {**stacked(enc_layer_axes(cfg), {}, "enc_layers", lead),
+            **stacked(dec_layer_axes(cfg), top_axes(cfg), "dec_layers", lead)}
+
+
+def param_shapes(cfg: ModelConfig):
+    """Shapes over the JAX twin's stacked parameter tree."""
+    return {**stacked(enc_layer_spec(cfg), {}, "enc_layers",
+                      lambda s: (cfg.encoder.n_layers,) + s),
+            **stacked(dec_layer_spec(cfg), top_spec(cfg), "dec_layers",
+                      lambda s: (cfg.n_layers,) + s)}
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
+    """name → (shape, dtype): self K/V over ``max_len`` positions and
+    cross K/V over the encoder's frames, the layer axis first."""
+    dtype = _DTYPES[cfg.param_dtype]
+    Lc, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    kv = (Lc, batch, max_len, KV, hd)
+    xkv = (Lc, batch, cfg.encoder.n_frames, KV, hd)
+    return {"k": (kv, dtype), "v": (kv, dtype),
+            "xk": (xkv, dtype), "xv": (xkv, dtype)}
+
+
+def cache_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    return {"k": ("layer", "batch", None, "kv_heads", None),
+            "v": ("layer", "batch", None, "kv_heads", None),
+            "xk": ("layer", "batch", "frames", "kv_heads", None),
+            "xv": ("layer", "batch", "frames", "kv_heads", None)}
+
+
 class EncDecLM(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device="cuda",
-                 loss_chunk: int = 1024, remat: bool = True):
+    def __init__(self, cfg: ModelConfig, ctx: Optional[ShardCtx] = None, *,
+                 device="cuda", loss_chunk: int = 1024, remat: bool = True):
         super().__init__()
         if cfg.family != "encdec" or cfg.encoder is None:
             raise ValueError(f"EncDecLM needs an encdec config with an "
                              f"encoder; {cfg.name} is {cfg.family!r} with "
                              f"encoder {cfg.encoder}")
         self.cfg = cfg
+        self.ctx = ctx or ShardCtx.null()
+        self._enc_axes = enc_layer_axes(cfg)
+        self._dec_axes = dec_layer_axes(cfg)
         self.loss_chunk = loss_chunk
         self.remat = remat
         self.device = resolve_device(device)
@@ -111,6 +172,28 @@ class EncDecLM(nn.Module):
             L.init_from_spec(layer.tensors(), generator)
         L.init_from_spec(self.top.tensors(), generator)
 
+    def param_axes(self):
+        return param_axes(self.cfg)
+
+    def param_shapes(self):
+        return param_shapes(self.cfg)
+
+    def sequence_length(self, local_len: int) -> int:
+        """The whole sequence's length of a rank's tokens (never split)."""
+        return local_len
+
+    def _top(self, name: str) -> torch.Tensor:
+        """A top-level weight to compute with (a DTensor gathered whole)."""
+        return full(getattr(self.top, name))
+
+    def _layer_params(self, layer, axes) -> Dict[str, torch.Tensor]:
+        """One layer's weights to compute with (DTensors gathered)."""
+        p = layer.tensors()
+        if not self.ctx.enabled:
+            return p
+        return {n: full(w) for n, w in
+                self.ctx.gather_params(p, axes).items()}
+
     # ------------------------------------------------------------------
     def _ln(self, x, p, name):
         return L.layer_norm(x, p[name], p[name + "_b"], self.cfg.norm_eps)
@@ -121,7 +204,7 @@ class EncDecLM(nn.Module):
         token decoded against this layer's (k, v) cache, written at ``pos``
         in place.  Returns (output, this call's (k, v))."""
         B, S, _ = x.shape
-        q, k, v = L._project_qkv(x, p, self.cfg, None)
+        q, k, v = L._project_qkv(x, p, self.cfg, None, self.ctx)
         if cache is None:
             out = L.attention_chunked(q, k, v, causal=causal)
         else:
@@ -152,23 +235,26 @@ class EncDecLM(nn.Module):
         if frames.dim() != 3 or tuple(frames.shape[1:]) != want:
             raise ValueError(f"frames must be [B, {want[0]}, {want[1]}], got "
                              f"{tuple(frames.shape)}")
-        x = frames.to(self.dtype) + self.top.enc_pos.to(self.dtype)
+        x = frames.to(self.dtype) + self._top("enc_pos").to(self.dtype)
+        x = self.ctx.constrain(x, "batch", None, None)
         for layer in self.enc_layers:
-            def one(x, p=layer.tensors()):
+            def one(x, p=self._layer_params(layer, self._enc_axes)):
                 return self._enc_block(x, p)
             x = remat_layer(one, x) if self.remat else one(x)
-        return L.layer_norm(x, self.top.enc_final_ln, self.top.enc_final_ln_b,
+        return L.layer_norm(x, self._top("enc_final_ln"),
+                            self._top("enc_final_ln_b"),
                             cfg.norm_eps)
 
     def _enc_block(self, x, p):
         a, _ = self._self_attn(self._ln(x, p, "ln1"), p, causal=False)
         x = x + a
-        return x + L.mlp(self._ln(x, p, "ln2"), p, self.cfg)
+        return x + L.mlp(self._ln(x, p, "ln2"), p, self.cfg, self.ctx)
 
     def _dec_embed(self, tokens, pos0: int):
-        x = F.embedding(tokens, self.top.embed).to(self.dtype)
+        x = F.embedding(tokens, self._top("embed")).to(self.dtype)
         positions = pos0 + torch.arange(tokens.shape[1], device=tokens.device)
-        return x + self.top.dec_pos[positions].to(self.dtype)
+        x = x + self._top("dec_pos")[positions].to(self.dtype)
+        return self.ctx.constrain(x, "batch", None, None)
 
     def _cross_kv(self, p, enc_out):
         """One decoder layer's cross K/V of the encoder output:
@@ -186,7 +272,7 @@ class EncDecLM(nn.Module):
                                 cache=cache, pos=pos)
         x = x + a
         x = x + self._cross_attn(self._ln(x, p, "ln2"), p, xk, xv)
-        return x + L.mlp(self._ln(x, p, "ln3"), p, self.cfg), kv
+        return x + L.mlp(self._ln(x, p, "ln3"), p, self.cfg, self.ctx), kv
 
     def decode_parallel(self, tokens, enc_out, *,
                         collect_cache: bool = False):
@@ -197,24 +283,26 @@ class EncDecLM(nn.Module):
         x = self._dec_embed(tokens, 0)
         caches: List[Dict[str, torch.Tensor]] = []
         for layer in self.dec_layers:
-            def one(x, p=layer.tensors()):
+            def one(x, p=self._layer_params(layer, self._dec_axes)):
                 xk, xv = self._cross_kv(p, enc_out)
                 x, (k, v) = self._dec_block(x, p, xk, xv)
                 return x, {"k": k, "v": v, "xk": xk, "xv": xv}
             x, new = remat_layer(one, x) if self.remat else one(x)
             if collect_cache:
                 caches.append(new)
-        x = L.layer_norm(x, self.top.final_ln, self.top.final_ln_b,
+        x = L.layer_norm(x, self._top("final_ln"), self._top("final_ln_b"),
                          self.cfg.norm_eps)
         return x, (caches if collect_cache else None)
 
     def logits_fn(self, hidden):
         """Tied embeddings; the padded vocabulary's logits are -1e30."""
         cfg = self.cfg
-        logits = (hidden @ self.top.embed.T).float()
+        embed = full(self.ctx.gather_fsdp(self.top.embed,
+                                          ("vocab", "d_model")))
+        logits = (hidden @ embed.T).float()
         if cfg.padded_vocab() != cfg.vocab_size:
             logits[..., cfg.vocab_size:] = L.NEG_INF
-        return logits
+        return self.ctx.constrain(logits, "batch", None, "vocab")
 
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {'frames': [B,F,d], 'tokens': [B,S], 'targets': [B,S]}
@@ -224,19 +312,18 @@ class EncDecLM(nn.Module):
         c = min(self.loss_chunk, hidden.shape[1])
         assert hidden.shape[1] % c == 0
         total, count = chunked_nll(self.logits_fn, hidden, batch["targets"], c)
+        if self.ctx.enabled and self.ctx.axis_size(self.ctx.batch_axes) > 1:
+            count = comm.all_reduce(count, self.ctx.group(
+                self.ctx.batch_axes))
         loss = total / count.clamp(min=1.0)
         return loss, {"nll": loss}
 
     # ------------------------------------------------------------------
     def cache_shapes(self, batch: int, max_len: int):
-        """name → (shape, dtype): self K/V over ``max_len`` positions and
-        cross K/V over the encoder's frames, the layer axis first."""
-        cfg = self.cfg
-        Lc, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
-        kv = (Lc, batch, max_len, KV, hd)
-        xkv = (Lc, batch, cfg.encoder.n_frames, KV, hd)
-        return {"k": (kv, self.dtype), "v": (kv, self.dtype),
-                "xk": (xkv, self.dtype), "xv": (xkv, self.dtype)}
+        return cache_shapes(self.cfg, batch, max_len)
+
+    def cache_axes(self) -> Dict[str, Tuple]:
+        return cache_axes(self.cfg)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
         return {name: torch.zeros(shape, dtype=dtype, device=self.device)
@@ -265,10 +352,11 @@ class EncDecLM(nn.Module):
         pos = int(pos)
         x = self._dec_embed(token, pos)
         for i, layer in enumerate(self.dec_layers):
-            x, _ = self._dec_block(x, layer.tensors(), cache["xk"][i],
+            p = self._layer_params(layer, self._dec_axes)
+            x, _ = self._dec_block(x, p, cache["xk"][i],
                                    cache["xv"][i],
                                    cache=(cache["k"][i], cache["v"][i]),
                                    pos=pos)
-        x = L.layer_norm(x, self.top.final_ln, self.top.final_ln_b,
+        x = L.layer_norm(x, self._top("final_ln"), self._top("final_ln_b"),
                          self.cfg.norm_eps)
         return self.logits_fn(x), cache

@@ -76,7 +76,9 @@ def _check_model_device(model, dev: torch.device) -> None:
 def generate(model, prompts, *, max_new: int = 16, frames=None,
              eos_id: Optional[int] = None, device="cuda") -> np.ndarray:
     """Greedy generation for a fixed batch.  prompts: [B, S] ints (numpy or
-    tensor).  An encoder–decoder model takes ``frames`` [B, n_frames,
+    tensor); a sharded model takes its rank's shard of them (under
+    context parallelism S/n of each row's positions) and every rank
+    returns the same tokens.  An encoder–decoder model takes ``frames`` [B, n_frames,
     d_model] (numpy or tensor, moved to the model's device), which no other
     model takes.  With ``eos_id``, a sequence stops at its first EOS: every
     later column is ``eos_id``, and the loop exits once all rows finished.
@@ -90,7 +92,8 @@ def generate(model, prompts, *, max_new: int = 16, frames=None,
                          f"{model.cfg.family!r})")
     prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                               device=model.device)
-    B, S = prompts.shape
+    B = prompts.shape[0]
+    S = model.sequence_length(prompts.shape[1])
     vocab = model.cfg.vocab_size
     if encdec:
         logits, cache = model.prefill(

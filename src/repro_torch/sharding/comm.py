@@ -1,0 +1,104 @@
+"""The collectives of the port's distributed layer, in one helper.
+
+Ranks are ``torch.distributed`` processes; every collective the models,
+the train step, ``compressed_psum`` and the checkpoints make goes through
+``all_reduce``, ``all_gather`` or ``reduce_scatter`` here, on a process
+group of a ``ShardCtx``'s mesh.  A group of one rank makes no call.
+
+The transport is chosen once per (backend, device type) by ``transport``
+and printed by the card's smoke run; it is never changed after a failure.
+Every backend the port runs takes the tensors where they lie
+(``"direct"``): NCCL on CUDA, gloo on the CPU and on CUDA tensors too.
+gloo carries ``all_gather_into_tensor``, ``all_reduce`` (sum, max; f32,
+bf16, int32) and ``reduce_scatter_tensor`` on CUDA tensors on the H100
+host, where two ranks that share the one card must use it (NCCL refuses
+two ranks on one device), so nothing is staged through host memory.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Dict
+
+import torch
+import torch.distributed as dist
+
+# collectives made, by kind (a group of one rank makes none)
+calls: Dict[str, int] = {"all_reduce": 0, "all_gather": 0,
+                         "reduce_scatter": 0}
+
+
+def transport(device_type: str, group=None) -> str:
+    """The transport for tensors on ``device_type`` over ``group``'s
+    backend: a function of the two alone."""
+    backend = str(dist.get_backend(group))
+    if backend not in ("gloo", "nccl") or (backend == "nccl"
+                                           and device_type != "cuda"):
+        raise ValueError(f"no transport for {device_type} tensors over "
+                         f"the {backend} backend")
+    return "direct"
+
+
+def _size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _run(x: torch.Tensor, group, fn) -> torch.Tensor:
+    """``fn`` (a collective on a contiguous tensor, returning its result)
+    over the transport of ``x``'s device."""
+    transport(x.device.type, group)
+    return fn(x.contiguous())
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """The ``op`` ("sum" or "max") of ``x`` over ``group``'s ranks, as a
+    new tensor."""
+    if _size(group) == 1:
+        return x.clone()
+    calls["all_reduce"] += 1
+
+    def run(t):
+        t = t.clone() if t is x else t
+        dist.all_reduce(t, op=_OPS[op], group=group)
+        return t
+    return _run(x, group, run)
+
+
+def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` joined along ``dim`` in group-rank order."""
+    n = _size(group)
+    if n == 1:
+        return x
+    calls["all_gather"] += 1
+    xt = x.movedim(dim, 0)
+
+    def run(t):
+        out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]),
+                          dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(out, t, group=group)
+        return out
+    return _run(xt.contiguous(), group, run).movedim(0, dim)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's piece (its group rank's of ``n`` equal pieces along
+    ``dim``) of the sum of the ranks' ``x``."""
+    n = _size(group)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} ranks")
+    calls["reduce_scatter"] += 1
+    xt = x.movedim(dim, 0)
+
+    def run(t):
+        out = torch.empty((t.shape[0] // n,) + tuple(t.shape[1:]),
+                          dtype=t.dtype, device=t.device)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.reduce_scatter_tensor(out, t, group=group)
+        return out
+    return _run(xt.contiguous(), group, run).movedim(0, dim)

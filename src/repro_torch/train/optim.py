@@ -13,7 +13,10 @@ that is every parameter of a layer (norm scales and biases included) and
 the top-level parameters of rank 2 or more.  The port keeps each layer's
 parameters unstacked (``layers.3.ln1`` is ``(d,)``), so ``decays`` counts
 the layer index in the name as the stack's axis (ROADMAP.md queue 3).
-Not ported: ``state_axes``, which waits for sharding.
+``state_axes`` gives the moments their parameters' logical axes; under
+a sharded train step (``train.steps``, ``grad_shardings``) the moments are
+each rank's pieces of those layouts (``init_state``'s ``layouts``) and the
+clipping norm is the global one, handed to ``apply_update``.
 """
 from __future__ import annotations
 
@@ -47,9 +50,15 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def init_state(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+def init_state(params: Dict[str, torch.Tensor], layouts=None
+               ) -> Dict[str, Any]:
+    """Zero moments (f32) and step; with ``layouts`` (name →
+    ``sharding.Layout``) each moment is this rank's piece of its
+    parameter's layout."""
     def zeros():
-        return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {n: torch.zeros(p.shape if layouts is None
+                               else layouts[n].local_shape(p.shape),
+                               dtype=torch.float32, device=p.device)
                 for n, p in params.items()}
     device = next(iter(params.values())).device
     return {"mu": zeros(), "nu": zeros(),
@@ -84,13 +93,20 @@ def _update_leaf(cfg: AdamWConfig, name, p, g, mu, nu, scale, lr, b1c, b2c):
     return (p.float() - lr * delta).to(p.dtype), mu, nu
 
 
+def state_axes(param_axes_tree) -> Dict[str, Any]:
+    """Logical axes for the optimizer state (mirrors params)."""
+    return {"mu": param_axes_tree, "nu": param_axes_tree, "step": ()}
+
+
 @torch.no_grad()
-def apply_update(cfg: AdamWConfig, params, grads, state
+def apply_update(cfg: AdamWConfig, params, grads, state, grad_norm=None
                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any],
                             Dict[str, torch.Tensor]]:
-    """(new params, new state, {"grad_norm", "lr"}); functional."""
+    """(new params, new state, {"grad_norm", "lr"}); functional.
+    ``grad_norm``: the norm to clip by, when ``grads`` are pieces of a
+    sharded tree (default: ``global_norm(grads)``)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step)
     b1c = 1 - cfg.b1 ** step.to(torch.float32)

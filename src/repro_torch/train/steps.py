@@ -12,8 +12,19 @@ and serve steps read the model's parameters and take none.
 
 A step runs the plain path at every kernel site, as the reference's does:
 no kernel has a backward, and K2, K6 and K7 refuse to run under grad
-(``kernels.no_backward``).  Not ported: ``grad_shardings``, which waits for
-sharding.
+(``kernels.no_backward``).
+
+Sharded (the model's ``ctx`` on a mesh of ranks), each rank computes the
+gradients of its share of the loss (``LM.loss``) on its tokens, with the
+whole weights it holds.  Without ``grad_shardings`` they are summed over
+the ranks that hold different tokens (an all-reduce) and every rank takes
+the same whole update.  With ``grad_shardings`` (``param_layouts``) each
+gradient lands in its parameter's layout: a reduce-scatter over the mesh
+axes that both split the tokens and shard the parameter (the FSDP
+gradient), a cut over the others; AdamW then updates this rank's pieces
+with moments laid out alike (``optim.init_state(..., layouts)``) and the
+global clipping norm, and the updated pieces are all-gathered into the
+model's weights.
 """
 from __future__ import annotations
 
@@ -22,6 +33,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.models.convert import axes_by_name
+from repro_torch.sharding import comm
 from repro_torch.train import optim
 from repro_torch.train.optim import AdamWConfig
 
@@ -30,6 +43,29 @@ def model_params(model) -> Dict[str, torch.Tensor]:
     """The model's parameters by name, sorted: the tree the train step,
     the optimizer and the checkpoints take."""
     return dict(sorted(model.named_parameters()))
+
+
+def param_layouts(model):
+    """name → ``sharding.Layout`` of each of the model's parameters under
+    its ctx (the port's parameter shardings; None under a null ctx)."""
+    return model.ctx.tree_shardings(
+        axes_by_name(model.cfg, model.param_axes()), model_params(model))
+
+
+def rest_sharded(model) -> None:
+    """Puts each of the model's parameters at rest in its layout
+    (``param_layouts``): this rank's piece, as a DTensor.  The model's
+    forward gathers a layer's weights whole as it runs the layer
+    (``gather_params``), so serving holds one layer's whole weights at a
+    time; a train step takes whole weights (it lands the gradients in the
+    layouts itself)."""
+    import torch.nn as nn
+    for name, layout in param_layouts(model).items():
+        owner, leaf = name.rsplit(".", 1)
+        module = model.get_submodule(owner)
+        piece = layout.shard(getattr(module, leaf).detach()).clone()
+        setattr(module, leaf, nn.Parameter(layout.dtensor(piece),
+                                           requires_grad=False))
 
 
 def make_loss_fn(model):
@@ -53,14 +89,22 @@ def _trainable(leaves):
 
 
 def make_train_step(model, opt_cfg: AdamWConfig, *, accum: int = 1,
-                    grad_hook: Optional[Callable] = None):
+                    grad_hook: Optional[Callable] = None,
+                    grad_shardings: Optional[Dict] = None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), where ``params`` is ``model_params(model)``.  ``accum`` > 1
     splits the batch on the leading axis into microbatches whose gradients
     are summed in f32 buffers, as the reference's scan does.  ``grad_hook``
     (e.g. ``runtime.compress.make_compression_hook``) is applied to the
-    final gradient dict."""
+    final gradient dict.  ``grad_shardings`` (``param_layouts(model)``):
+    gradients land in the parameters' layouts, and ``opt_state`` holds
+    this rank's pieces of the moments."""
     loss_fn = make_loss_fn(model)
+    ctx = model.ctx
+    summed = ctx.batch_axes if ctx.enabled else ()
+    group = ctx.group(summed) if ctx.enabled else None
+    everyone = ctx.group(tuple(ctx.mesh.mesh_dim_names)) if ctx.enabled \
+        else None
     own = model_params(model)
     names = list(own)
     leaves = [own[n] for n in names]
@@ -100,14 +144,30 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, accum: int = 1,
                     del g
                 grads = {n: t.div_(accum) for n, t in grads.items()}
                 loss = loss / accum
+        loss = comm.all_reduce(loss, group) if ctx.enabled else loss
+        gnorm, pieces = None, params
+        if ctx.enabled and grad_shardings is None:
+            grads = {n: comm.all_reduce(g, group) for n, g in grads.items()}
+        elif ctx.enabled:
+            grads = {n: grad_shardings[n].land(g, summed)
+                     for n, g in grads.items()}
+            pieces = {n: grad_shardings[n].shard(p)
+                      for n, p in params.items()}
         if grad_hook is not None:
             grads = grad_hook(grads)
+        if ctx.enabled and grad_shardings is not None:
+            sq = sum(torch.sum(torch.square(g)) / grad_shardings[n].replicas()
+                     for n, g in grads.items())
+            gnorm = torch.sqrt(comm.all_reduce(sq, everyone))
         new_params, opt_state, opt_metrics = optim.apply_update(
-            opt_cfg, params, grads, opt_state)
+            opt_cfg, pieces, grads, opt_state, grad_norm=gnorm)
         del grads
         with torch.no_grad():
             for n in names:
-                own[n].copy_(new_params.pop(n))
+                new = new_params.pop(n)
+                if ctx.enabled and grad_shardings is not None:
+                    new = grad_shardings[n].gather(new)
+                own[n].copy_(new)
         return params, opt_state, {"loss": loss, **opt_metrics}
 
     return train_step

@@ -118,6 +118,47 @@ def test_flash_bodies_agree_on_bf16(cuda, B, S, T, H, KV, hd, causal):
     flash_gate(mma, simt)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("off", [0, 1024])
+def test_flash_with_a_query_offset_at_the_cp_shard_shape(cuda, dtype, off):
+    """A context-parallel rank's call at glm4-9b's heads: 1024 query rows
+    at sequence positions ``off``.. against all 2048 keys, on the body the
+    rule gives (``mma`` for bf16, ``simt`` for f32), within the gate of
+    the plain version; the other body on bf16 agrees; the launch is
+    counted by its offset."""
+    q, k, v = flash_inputs(cuda, dtype, 1, 2048, 2048, 32, 2, 128)
+    qs = q[:, off:off + 1024]
+    path = "mma" if dtype == torch.bfloat16 else "simt"
+    before = dict(flash_attention.launches_by_offset)
+    by_path = dict(flash_attention.launches_by_path)
+    got = flash_attention(qs, k, v, causal=True, q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_offset[off] == before.get(off, 0) + 1
+    assert flash_attention.launches_by_path[path] == by_path[path] + 1
+    flash_gate(got, flash_attention_ref(qs, k, v, causal=True, q_offset=off))
+    if dtype == torch.bfloat16:
+        simt = fa_mod.run_body(qs, k, v, causal=True, path="simt",
+                               q_offset=off)
+        flash_gate(simt, flash_attention_ref(qs, k, v, causal=True,
+                                             q_offset=off))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,KV,hd", [(25, 5, 64), (4, 2, 256)])
+def test_flash_offset_shards_join_into_the_whole_causal_call(cuda, dtype, H,
+                                                            KV, hd):
+    """Shards of the queries at their offsets (ragged ones too) give the
+    whole causal call's rows, within the gate, on either body (head_dim
+    256 runs on the CUDA cores in bf16 too)."""
+    q, k, v = flash_inputs(cuda, dtype, 2, 300, 300, H, KV, hd)
+    whole = flash_attention(q, k, v, causal=True)
+    cuts = [0, 37, 128, 200, 300]
+    parts = [flash_attention(q[:, a:b], k, v, causal=True, q_offset=a)
+             for a, b in zip(cuts, cuts[1:])]
+    torch.cuda.synchronize()
+    flash_gate(torch.cat(parts, 1), whole)
+
+
 def test_flash_misaligned_view_takes_the_cuda_cores(cuda):
     """A bf16 view whose rows start 2 bytes off 16: the rule sends it to
     ``simt``, which matches the plain version; ``mma`` is refused on it."""

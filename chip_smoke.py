@@ -161,8 +161,9 @@ Phases, each fatal on failure (exit 1, no result line):
 16. Online reintegration at full width (bf16, 4 slots, phase 3, 9 and 10's
    requests and weights): (a) glm4-9b served by ``BatchedServer`` on CUDA
    graphs (19 captures: 6 buckets x 1, 2, 4 rows + decode; their seconds
-   and memory) against the eager server in 5 alternated rounds (decode
-   and prefill tokens/s), its tokens against phase 3's (a request that
+   and memory) against the eager server in 3 alternated rounds (cut from
+   5 for the run's time cap, printed ``reduced:``; decode and prefill
+   tokens/s), its tokens against phase 3's (a request that
    differs must hold its prefill logits, graph against eager, within
    LOGITS_RTOL), one replayed decode step and one replayed 2 x 256
    prefill traced (busy share; the prefill's trace must name K2's
@@ -262,7 +263,8 @@ Phases, each fatal on failure (exit 1, no result line):
    tokens): K2 launched at every layer of every prefill, all on ``mma``
    (bf16, hd 80), held against its plain version at every (B, S) of the
    run, and the last-token prefill logits of a 256-token prompt through K2
-   against the plain version within LOGITS_RTOL (phase 3's gate).  (e) The
+   against the plain version within LOGITS_RTOL (phase 3's gate); that
+   prefill through K2 timed with CUDA events for phase 22.  (e) The
    fault-tolerant loop on device tensors at the reduced config in f32
    (checkpoint every 4 steps into a temporary directory, a failure
    injected at step 6, 10 steps) ends at the uninterrupted run's
@@ -353,6 +355,23 @@ Phases, each fatal on failure (exit 1, no result line):
    them, each where the gradient lies within its absolute gate of 0 (the
    first AdamW step's sign).  Each rank's peak memory and seconds; a rank
    that fails fails the run.  The phase's wall time on its own line.
+22. The launch layer's dry run (``repro_torch.launch``; every earlier
+   model freed): (a) the production dry run, ``python -m
+   repro_torch.launch.dryrun --single-pod``, of whisper-medium x decode_32k
+   and stablelm-3b x train_4k, each in a process of its own on the CPU
+   (CUDA hidden), started beside phase 21 (one rank's step on fake tensors
+   over a ``fake`` group of 256 ranks; records and logs in
+   chiprun_out/dryrun/), collected after (b): each must read ``OK``; their
+   fit, a rank's peak GiB, the three roofline terms and ``count_s`` are
+   printed, and the card's ``total_memory`` beside ``hw.HBM_BYTES``.  (b)
+   Here, stablelm-3b's train step at phase 19's shape (8 x 1024,
+   accum 2, bf16, remat, one card) and the prefill of phase 19 (c)'s
+   256-token prompt counted on fake tensors: flops, ideal and upper bytes,
+   compute and memory seconds and the bound against the measured time
+   (phase 19's steady step; the prefill through K2), the flops beside
+   6·N·tokens and the tracked peak beside phase 19's
+   ``max_memory_allocated``.  A measured time under its bound fails the
+   run.  The phase's wall time on its own line.
 Then the device times at the main shapes (K2, K1 as above, K2 also at
 whisper's encoder and decode-cross shapes and at (a)'s offset shards; K6,
 K7 at their
@@ -3466,6 +3485,11 @@ def swap_line(g):
             f"{g.generation_before} -> {g.generation})")
 
 
+# phase 16 (a)'s alternated rounds of glm4-9b on graphs against eager, cut
+# from 5 for the run's time cap
+ONLINE_GLM_ROUNDS = 3
+
+
 def phase_online(report):
     """Phase 16: online reintegration at full width.  (a) glm4-9b on CUDA
     graphs against eager serving and phase 3's tokens, replayed steps
@@ -3498,7 +3522,11 @@ def phase_online(report):
     ops.clear_all()
     ops.install("attention", flash, kernel="flash_attention", route="cuda")
     flash.launches = 0                       # this path's run
-    graph, a = graph_against_eager("glm4-9b", model, prompts, max_len, 5)
+    print(f"reduced: phase 16's glm4-9b graph against eager in "
+          f"{ONLINE_GLM_ROUNDS} alternated rounds, not 5 (the run's time "
+          f"cap)", flush=True)
+    graph, a = graph_against_eager("glm4-9b", model, prompts, max_len,
+                                   ONLINE_GLM_ROUNDS)
     a["k2_launches"] = flash.launches
     control = a["tokens"]["graph"]
     phase3 = report["serve_glm4-9b"]["tokens"]
@@ -4375,6 +4403,9 @@ UPDATE_OFF_SHARE = 1e-3
 # after each: 16 rows, one of each of the stream's 16 motifs, from a step
 # the training never draws
 HELD_ROWS, HELD_STEP = 16, 1000
+# (c): the prompt whose last-token logits through K2 are gated and whose
+# prefill through K2 is timed (phase 22 holds that time against its count)
+PREFILL_PROMPT = 256
 
 
 def train_steps_here(model, opt_cfg, data, steps, device, record=None):
@@ -4717,21 +4748,29 @@ def phase_training(report):
              f"{by_path}")
     checks = zoo_k2_checks(f"trained {TRAIN_ARCH}", rec.calls)
     ops.clear_all()
-    probe = torch.as_tensor(rows[0, :256], device="cuda")[None].long()
+    probe = torch.as_tensor(rows[0, :PREFILL_PROMPT],
+                            device="cuda")[None].long()
     lk, _ = prefill_with(model, probe, {"attention": flash})
     plain_logits, _ = prefill_with(model, probe, {"attention": None})
     rel = rel_err(lk, plain_logits)
     agree = sum(int(tok[0] == rows[i, n])
                 for i, (n, tok) in enumerate(zip(lengths, served)))
+    # the same prefill through K2 timed, for phase 22's reading against
+    # its counted bound
+    prefill_ms = cuda_ms(lambda: prefill_with(model, probe,
+                                              {"attention": flash}),
+                         reps=10, warmup=2)
     out["serve"] = {"prompt_lengths": list(lengths), "wall_s": wall,
                     "prefill_calls": srv.stats["prefill_calls"],
                     "k2_launches": launches, "k2_launches_by_path": by_path,
                     "logits_rel_err": rel, "tokens": served,
-                    "first_token_is_the_streams_next": agree}
+                    "first_token_is_the_streams_next": agree,
+                    "prefill_256_k2_ms": prefill_ms}
     print(f"{TRAIN_ARCH}: trained weights, last-token prefill logits (S 256)"
           f" through K2 against the plain version: max rel err {rel:.3g} "
           f"(tol {LOGITS_RTOL}); the first served token is the stream's next"
-          f" token in {agree}/{len(prompts)} requests", flush=True)
+          f" token in {agree}/{len(prompts)} requests; that prefill through "
+          f"K2 {prefill_ms:.3f} ms (CUDA events, 10 calls)", flush=True)
     if not (torch.isfinite(lk).all() and rel <= LOGITS_RTOL):
         fail(f"{TRAIN_ARCH}: trained logits through K2 off the plain "
              f"version: {rel}")
@@ -5900,6 +5939,170 @@ def camp_ctx(camp):
                          lease_scope=camp.lease_scope)
 
 
+# --------------------------------------------------------------------------
+# the launch layer's dry run (phase 22): the production cells counted on
+# fake tensors, and the count held against phase 19's measured step
+# --------------------------------------------------------------------------
+DRYRUN_CELLS = (("whisper-medium", "decode_32k"), ("stablelm-3b", "train_4k"))
+DRYRUN_DIR = OUT.parent / "dryrun"
+DRYRUN_TIMEOUT_S = 300
+
+
+def start_dryruns():
+    """(a)'s production cells, each ``python -m repro_torch.launch.dryrun
+    --single-pod`` in a process of its own on the CPU (CUDA hidden), their
+    records in DRYRUN_DIR: [(arch, shape, process, record path, log)]."""
+    import os
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    runs = []
+    for arch, shape in DRYRUN_CELLS:
+        path = DRYRUN_DIR / f"{arch}_{shape}.jsonl"
+        path.unlink(missing_ok=True)
+        log = open(DRYRUN_DIR / f"{arch}_{shape}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
+             "--arch", arch, "--shape", shape, "--single-pod",
+             "--out", str(path)],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        runs.append((arch, shape, proc, path, log))
+    return runs
+
+
+def stop_dryruns(runs):
+    """Ends any of (a)'s processes still running (a failed run's exit)."""
+    for _, _, proc, _, log in runs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def finish_dryruns(runs):
+    """Waits for (a)'s processes (killing any still running at the end of
+    their time) and returns their records; fails on a cell not ``OK``."""
+    recs = []
+    for arch, shape, proc, path, log in runs:
+        try:
+            proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+        lines = path.read_text().splitlines() if path.exists() else []
+        rec = json.loads(lines[-1]) if lines else {}
+        if proc.returncode != 0 or rec.get("status") != "OK":
+            fail(f"dry run of {arch} x {shape} (exit {proc.returncode}): "
+                 f"{rec.get('error', 'no record')}; log "
+                 f"{(DRYRUN_DIR / f'{arch}_{shape}.log').read_text()[-1500:]}")
+        recs.append(rec)
+    return recs
+
+
+def phase_dryrun(report, runs, started):
+    """Phase 22: (a) the production dry run of DRYRUN_CELLS in processes
+    of their own (``runs``, started at ``started`` beside phase 21: they
+    use the CPU only); here (b), stablelm-3b's train step at phase 19's
+    shape and the prefill of phase 19 (c)'s prompt counted on fake tensors
+    under a null ctx (one card), each held against its measured time: a
+    measured time under its counted bound is an impossible reading and
+    fails.  Then (a)'s records.  Returns the phase's record."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    out = report["dryrun"] = {}
+    ops.clear_all()                  # the count is of the model's own path
+    out["one_card"] = one_card_reading(report)
+    recs = finish_dryruns(runs)
+    out["production"] = recs
+    out["production_wall_s"] = time.perf_counter() - started
+    print(f"phase 22 (a): the production dry runs took "
+          f"{out['production_wall_s']:.1f} s from their start (beside phase "
+          f"21)", flush=True)
+    import torch
+    from repro_torch import hw
+    total = torch.cuda.get_device_properties(0).total_memory
+    out["hbm_bytes"] = {"hw": hw.HBM_BYTES, "this_card": total}
+    print(f"fits_hbm holds a rank's peak against hw.HBM_BYTES "
+          f"{hw.HBM_BYTES:,} bytes; this card's total_memory {total:,}",
+          flush=True)
+    for r in recs:
+        m, rf = r["memory"], r["roofline"]
+        print(f"dry run [{r['arch']} x {r['shape']} x {r['mesh']}, "
+              f"{r['rules']}]: OK, fits={m['fits_hbm']}, peak "
+              f"{m['peak_bytes'] / 2**30:.2f} GiB a rank (arguments "
+              f"{m['argument_bytes'] / 2**30:.2f}, temp "
+              f"{m['temp_bytes'] / 2**30:.2f}), compute "
+              f"{rf['compute_s']:.4g} s, memory {rf['memory_s']:.4g} s, "
+              f"collective {rf['collective_s']:.4g} s ({rf['dominant']}), "
+              f"bound step {rf['step_s'] * 1e3:.2f} ms, mfu_bound "
+              f"{rf['mfu_bound']:.3f}, count_s {r['count_s']}", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 22 (dry run) took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def one_card_reading(report):
+    """Phase 22 (b): the counter's bound against phase 19's readings."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.sharding import ShardCtx
+    train = report["training"]["train"]
+    cfg = get_config(TRAIN_ARCH)
+    cells = (
+        ("train step", ShapeSpec("phase 19's step", TRAIN_SEQ, TRAIN_BATCH,
+                                 "train"), TRAIN_ACCUM,
+         train["steady_step_ms"] / 1e3),
+        (f"prefill of {PREFILL_PROMPT} tokens through K2",
+         ShapeSpec("phase 19 (c)'s prompt", PREFILL_PROMPT, 1, "prefill"),
+         None, report["training"]["serve"]["prefill_256_k2_ms"] / 1e3))
+    rows = []
+    for what, shape, accum, measured_s in cells:
+        t = time.perf_counter()
+        counter, mem = count_step(cfg, shape, ShardCtx.null(), accum=accum)
+        count_s = time.perf_counter() - t
+        roof = rl.from_cost(counter.cost, n_chips=1,
+                            model_flops_total=rl.model_flops(cfg, shape))
+        c = counter.cost
+        row = {"what": what, "batch": shape.global_batch,
+               "seq": shape.seq_len, "accum": accum, "flops": c.flops,
+               "ideal_bytes": c.hbm_bytes_ideal, "upper_bytes": c.hbm_bytes,
+               "compute_s": roof.compute_s, "memory_s": roof.memory_s,
+               "memory_s_upper": roof.memory_s_upper,
+               "bound_s": roof.step_s, "dominant": roof.dominant,
+               "measured_s": measured_s,
+               "measured_over_bound": measured_s / roof.step_s,
+               "model_flops": roof.model_flops_total,
+               "peak_bytes": mem.peak_bytes, "count_s": count_s,
+               "uncounted": counter.uncounted}
+        rows.append(row)
+        print(f"{TRAIN_ARCH} {what} (B {shape.global_batch} x S "
+              f"{shape.seq_len}{f', accum {accum}' if accum else ''}, bf16, "
+              f"remat, one card) counted on fake tensors in {count_s:.1f} s: "
+              f"{c.flops:.4g} FLOPs, bytes {c.hbm_bytes_ideal:.4g} ideal / "
+              f"{c.hbm_bytes:.4g} upper; compute {roof.compute_s * 1e3:.2f} "
+              f"ms, memory {roof.memory_s * 1e3:.2f} ms (upper "
+              f"{roof.memory_s_upper * 1e3:.2f}), bound {roof.step_s * 1e3:.2f}"
+              f" ms ({roof.dominant}); measured {measured_s * 1e3:.2f} ms = "
+              f"{row['measured_over_bound']:.2f} x the bound", flush=True)
+        if measured_s < roof.step_s:
+            fail(f"{TRAIN_ARCH} {what}: measured {measured_s * 1e3:.3f} ms "
+                 f"is under its counted bound {roof.step_s * 1e3:.3f} ms: the "
+                 "count or the card's figures are wrong")
+    step, prefill = rows
+    six_n = 6 * train["params"] * TRAIN_BATCH * TRAIN_SEQ
+    print(f"{TRAIN_ARCH} train step: counted {step['flops']:.4g} FLOPs = "
+          f"{step['flops'] / six_n:.3f} x 6·N·tokens ({six_n:.4g}; remat "
+          f"recomputes the forward); tracked peak "
+          f"{step['peak_bytes'] / 2**30:.2f} GiB beside phase 19's "
+          f"max_memory_allocated {train['peak_memory_bytes'] / 2**30:.2f} "
+          f"GiB", flush=True)
+    return {"rows": rows, "six_n_tokens": six_n,
+            "measured_peak_bytes": train["peak_memory_bytes"]}
+
+
 def main() -> None:
     import gc
     import torch
@@ -5978,8 +6181,15 @@ def main() -> None:
     lap("training")
     fabric_launches, fabric_checks = phase_fabric(report)
     lap("fabric")
-    cp_ranks, cp_rows = phase_distributed(report)
-    lap("distributed")
+    # phase 22 (a) counts on the CPU only: it runs beside phase 21
+    dryruns, dry_t0 = start_dryruns(), time.perf_counter()
+    try:
+        cp_ranks, cp_rows = phase_distributed(report)
+        lap("distributed")
+        phase_dryrun(report, dryruns, dry_t0)
+        lap("dry run")
+    finally:
+        stop_dryruns(dryruns)
     wkv_main, wkv_call = main_recurrent_shape("wkv", rwkv_calls["wkv"])
     wkv_main["host_us_per_call"] = host_us_per_call(
         lambda: kernel_pair("wkv")[0](*wkv_call[0], **wkv_call[1]))

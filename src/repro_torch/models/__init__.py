@@ -14,8 +14,8 @@ def get_model(cfg: ModelConfig, device="cuda", *, ctx=None, **kw) -> Model:
     """The port's model for ``cfg`` on ``device`` (parameters allocated,
     not initialised: call ``init_params`` or load a state dict):
     ``EncDecLM`` for the encdec family, else ``LM`` (``ctx``: a
-    ``sharding.ShardCtx`` to run sharded under; ``kw``: ``loss_chunk`` and
-    ``remat`` for either, ``kv_quant`` for ``LM``)."""
+    ``sharding.ShardCtx`` to run sharded under; ``kw``: ``q_chunk``,
+    ``loss_chunk`` and ``remat`` for either, ``kv_quant`` for ``LM``)."""
     if cfg.family == "encdec":
         return EncDecLM(cfg, ctx, device=device, **kw)
     return LM(cfg, ctx, device=device, **kw)

@@ -247,7 +247,7 @@ def remat_layer(fn, x):
 
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, ctx: Optional[ShardCtx] = None, *,
-                 device="cuda", kv_quant: bool = False,
+                 device="cuda", kv_quant: bool = False, q_chunk: int = 256,
                  loss_chunk: int = 1024, remat: bool = True):
         super().__init__()
         if cfg.family not in ("dense", "vlm", "moe", "hybrid", "ssm"):
@@ -262,6 +262,8 @@ class LM(nn.Module):
         # int8 KV cache with per-(position, kv-head) bf16 scales: 130/256
         # of a bf16 cache's bytes at head_dim 128
         self.kv_quant = kv_quant
+        # query rows a chunk of the plain attention (its score buffer)
+        self.q_chunk = q_chunk
         self.loss_chunk = loss_chunk
         self.remat = remat
         self.device = resolve_device(device)
@@ -353,9 +355,11 @@ class LM(nn.Module):
         q, k, v = L._project_qkv(h, p, cfg, positions, ctx)
         if cache is None and self._cp:
             att, k, v = L.attention_context_parallel(
-                q, k, v, ctx=ctx, softcap=cfg.logit_softcap)
+                q, k, v, ctx=ctx, q_chunk=self.q_chunk,
+                softcap=cfg.logit_softcap)
         elif cache is None:
             att = L.attention_chunked(q, k, v, causal=True,
+                                      q_chunk=self.q_chunk,
                                       softcap=cfg.logit_softcap)
         else:
             kv = {"k": k, "v": v}
@@ -586,7 +590,7 @@ class LM(nn.Module):
             pos = torch.as_tensor(pos, device=x.device).long()
             positions = pos[:, None]                        # [B, 1] per slot
         for i, layer in enumerate(self.layers):
-            x, new = self._block(x, layer.tensors(), positions,
+            x, new = self._block(x, self._layer_params(layer), positions,
                                  cache={n: c[i] for n, c in cache.items()},
                                  pos=pos)
             for name, t in new.items():

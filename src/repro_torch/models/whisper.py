@@ -137,7 +137,8 @@ def cache_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
 
 class EncDecLM(nn.Module):
     def __init__(self, cfg: ModelConfig, ctx: Optional[ShardCtx] = None, *,
-                 device="cuda", loss_chunk: int = 1024, remat: bool = True):
+                 device="cuda", q_chunk: int = 256, loss_chunk: int = 1024,
+                 remat: bool = True):
         super().__init__()
         if cfg.family != "encdec" or cfg.encoder is None:
             raise ValueError(f"EncDecLM needs an encdec config with an "
@@ -147,6 +148,7 @@ class EncDecLM(nn.Module):
         self.ctx = ctx or ShardCtx.null()
         self._enc_axes = enc_layer_axes(cfg)
         self._dec_axes = dec_layer_axes(cfg)
+        self.q_chunk = q_chunk
         self.loss_chunk = loss_chunk
         self.remat = remat
         self.device = resolve_device(device)
@@ -206,7 +208,8 @@ class EncDecLM(nn.Module):
         B, S, _ = x.shape
         q, k, v = L._project_qkv(x, p, self.cfg, None, self.ctx)
         if cache is None:
-            out = L.attention_chunked(q, k, v, causal=causal)
+            out = L.attention_chunked(q, k, v, causal=causal,
+                                      q_chunk=self.q_chunk)
         else:
             k_cache, v_cache = cache
             L.cache_update(k_cache, k, pos)
@@ -224,7 +227,8 @@ class EncDecLM(nn.Module):
         if cfg.qkv_bias:
             q = q + p["x_bq"]
         q = q.reshape(B, S, cfg.n_heads, cfg.resolved_head_dim)
-        out = L.attention_chunked(q, xk, xv, causal=False)
+        out = L.attention_chunked(q, xk, xv, causal=False,
+                                  q_chunk=self.q_chunk)
         return out.reshape(B, S, -1) @ p["x_wo"]
 
     # ------------------------------------------------------------------

@@ -12,7 +12,10 @@ Every backend the port runs takes the tensors where they lie
 gloo carries ``all_gather_into_tensor``, ``all_reduce`` (sum, max; f32,
 bf16, int32) and ``reduce_scatter_tensor`` on CUDA tensors on the H100
 host, where two ranks that share the one card must use it (NCCL refuses
-two ranks on one device), so nothing is staged through host memory.
+two ranks on one device), so nothing is staged through host memory.  The
+``fake`` backend (``torch.testing._internal.distributed.fake_pg``: one
+process standing for every rank, as the dry run uses it) issues no
+transfer, so it is direct as well.
 """
 from __future__ import annotations
 
@@ -31,8 +34,8 @@ def transport(device_type: str, group=None) -> str:
     """The transport for tensors on ``device_type`` over ``group``'s
     backend: a function of the two alone."""
     backend = str(dist.get_backend(group))
-    if backend not in ("gloo", "nccl") or (backend == "nccl"
-                                           and device_type != "cuda"):
+    if backend not in ("gloo", "nccl", "fake") or (
+            backend == "nccl" and device_type != "cuda"):
         raise ValueError(f"no transport for {device_type} tensors over "
                          f"the {backend} backend")
     return "direct"

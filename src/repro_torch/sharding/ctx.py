@@ -34,6 +34,7 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.sharding import comm
@@ -88,7 +89,7 @@ def mesh_shape(mesh) -> Dict[str, int]:
     """Axis name → size of a ``DeviceMesh`` or of a shape-only mesh."""
     names = getattr(mesh, "mesh_dim_names", None)
     if names is not None:
-        return dict(zip(names, mesh.mesh.shape))
+        return dict(zip(names, mesh.shape))
     return dict(mesh.shape)
 
 
@@ -271,14 +272,24 @@ class ShardCtx:
                                                      for a in names):
             raise ValueError(f"axes {names} are not in the mesh's order "
                              f"{tuple(order)}")
+        import torch.distributed as dist
         groups = mesh.__dict__.setdefault("_groups_by_axes", {})
-        if names not in groups:
-            import torch.distributed as dist
-            if len(names) == 1:
+        if names not in groups or not _alive(groups[names]):
+            # a mesh can outlive its process group: DTensor's sharding
+            # cache hands back an equal mesh of an earlier group (the dry
+            # run makes one group a cell); its groups are then made anew
+            if len(names) == 1 and _alive(mesh.get_group(names[0])):
                 groups[names] = mesh.get_group(names[0])
             else:
-                ranks = mesh.mesh.movedim(
-                    [order.index(a) for a in names],
+                # read outside every dispatch mode: under the dry run's
+                # FakeTensorMode the rank tensor would turn fake and
+                # unreadable, and its counter would count the read
+                from torch.utils._python_dispatch import \
+                    _disable_current_modes
+                with _disable_current_modes():
+                    ranks = mesh.mesh.numpy()
+                ranks = np.moveaxis(
+                    ranks, [order.index(a) for a in names],
                     list(range(len(order) - len(names), len(order))))
                 cosets = ranks.reshape(-1, self.axis_size(names)).tolist()
                 groups[names], _ = dist.new_subgroups_by_enumeration(cosets)
@@ -291,6 +302,16 @@ class ShardCtx:
         for a in _names(axes):
             idx = idx * self.axis_size(a) + self.mesh.get_local_rank(a)
         return idx
+
+
+def _alive(group) -> bool:
+    """Whether ``group`` belongs to the current default process group."""
+    import torch.distributed as dist
+    try:
+        dist.get_backend(group)
+    except ValueError:
+        return False
+    return True
 
 
 def _is_dtensor(x) -> bool:

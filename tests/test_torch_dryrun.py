@@ -1,0 +1,151 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) held against the JAX
+package's ``repro.launch.dryrun``.
+
+``resolve_rules`` gives the JAX package's answer for every config, shape,
+mesh and rules name; a SKIP cell's record is the JAX package's; and the
+JAX package's own slow cell, whisper-medium x decode_32k on the single
+pod, runs end to end in a subprocess (a ``fake`` group of 256 ranks, fake
+tensors) to ``OK`` with ``fits_hbm`` true and the record's keys, which
+``--resume`` then skips.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+from repro.configs import REGISTRY, SHAPES, cell_applicable
+from repro.configs import get_config as jax_config
+
+from repro_torch import hw
+from repro_torch.configs import get_config, get_shape
+from repro_torch.launch import dryrun
+
+RULES = ("auto", "default", "fsdp", "ep", "cp")
+
+
+@pytest.fixture(scope="module")
+def jax_dryrun():
+    """The JAX package's dry-run module, imported with this process's
+    XLA_FLAGS kept (the module sets them for its own process)."""
+    before = os.environ.get("XLA_FLAGS")
+    try:
+        from repro.launch import dryrun as jdryrun
+    finally:
+        if before is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = before
+    return jdryrun
+
+
+@pytest.mark.parametrize("arch", list(REGISTRY))
+def test_resolve_rules_match_jax(arch, jax_dryrun):
+    for shape in SHAPES:
+        for multi_pod in (False, True):
+            for rules in RULES:
+                assert dryrun.resolve_rules(
+                    get_config(arch), get_shape(shape.name), rules,
+                    multi_pod) == jax_dryrun.resolve_rules(
+                        jax_config(arch), shape, rules, multi_pod)
+    assert dryrun.KV_QUANT_DECODE == jax_dryrun.KV_QUANT_DECODE
+
+
+def test_skip_cell_record_matches_jax(jax_dryrun):
+    skipped = [(a, s.name) for a in REGISTRY for s in SHAPES
+               if not cell_applicable(jax_config(a), s)[0]]
+    assert len(skipped) == 8
+    for arch, shape in skipped:
+        for multi_pod in (False, True):
+            got = dryrun.run_cell(arch, shape, multi_pod=multi_pod)
+            want = jax_dryrun.run_cell(arch, shape, multi_pod=multi_pod)
+            assert got["status"] == want["status"] == "SKIP"
+            assert got == want
+
+
+DECODE_CELLS = r"""
+import json, warnings
+warnings.simplefilter("ignore")
+from repro_torch.launch.dryrun import run_cell
+print(json.dumps([run_cell(arch, "decode_32k", multi_pod=False,
+                           verbose=False)
+                  for arch in ("stablelm-3b", "qwen2-moe-a2.7b")]))
+"""
+WHISPER = ("--arch", "whisper-medium", "--shape", "decode_32k",
+           "--single-pod")
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Side by side: the whisper cell through the command line (its record
+    in ``out``), and two decoder-only decode cells in one process."""
+    out = tmp_path_factory.mktemp("dryrun") / "dryrun.jsonl"
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(__file__), "..", "src"))
+    procs = [subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in ([sys.executable, "-W", "ignore", "-m",
+                          "repro_torch.launch.dryrun", *WHISPER, "--out",
+                          str(out)],
+                         [sys.executable, "-c", DECODE_CELLS])]
+    done = []
+    for proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        done.append((proc.returncode, stdout, stderr))
+    return out, env, done
+
+
+def test_whisper_decode_cell_end_to_end(runs):
+    """The JAX package's slow dry-run test (tests/test_system.py), on the
+    port: whisper-medium x decode_32k on 256 ranks reads OK and fits the
+    H100's memory; the record has the JAX record's keys with ``count_s``
+    for the compile times and the port's memory keys; ``--resume`` skips
+    it."""
+    out, env, ((rc, stdout, stderr), _) = runs
+    assert rc == 0, stdout[-2000:] + stderr[-2000:]
+    assert "[whisper-medium × decode_32k × 16x16] OK" in stdout
+    assert "fits=True" in stdout
+    assert "done: 1 ok, 0 skip, 0 fail" in stdout
+    (rec,) = [json.loads(line) for line in out.read_text().splitlines()]
+    assert rec["status"] == "OK"
+    assert set(rec) == {"arch", "shape", "mesh", "rules", "accum",
+                        "seq_shard", "moe_impl", "ssm_chunk", "q_chunk",
+                        "kv_quant", "status", "count_s", "memory",
+                        "roofline"}
+    mem = rec["memory"]
+    assert set(mem) == {"argument_bytes", "output_bytes", "temp_bytes",
+                        "peak_bytes", "fits_hbm"}
+    assert mem["fits_hbm"] is True and 0 < mem["peak_bytes"] <= hw.HBM_BYTES
+    assert mem["peak_bytes"] == (mem["argument_bytes"] + mem["temp_bytes"]
+                                 + mem["output_bytes"])
+    rf = rec["roofline"]
+    assert rf["n_chips"] == 256 and rf["flops_per_chip"] > 0
+    assert rf["collective_count_by_kind"]["all-gather"] > 0
+    assert (rec["mesh"], rec["rules"]) == ("16x16", "default")
+    again = subprocess.run(
+        [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
+         *WHISPER, "--out", str(out), "--resume"], env=env,
+        capture_output=True, text=True, timeout=300)
+    assert again.returncode == 0 and "done: 0 ok, 0 skip, 0 fail" in \
+        again.stdout
+    assert len(out.read_text().splitlines()) == 1
+
+
+def test_decoder_decode_cells_in_one_process(runs):
+    """A decoder-only decode step with its weights at rest as DTensor
+    pieces (each layer gathered whole, as the forward does) under
+    ``tp_seq``, and a second cell after the first one's process group was
+    destroyed (an equal mesh handed back by DTensor's cache gets groups of
+    the new one); the MoE cell's cache split over the model axis."""
+    _, _, (_, (rc, stdout, stderr)) = runs
+    assert rc == 0, stderr[-3000:]
+    dense, moe = json.loads(stdout.splitlines()[-1])
+    for rec in (dense, moe):
+        assert rec["status"] == "OK" and rec["memory"]["fits_hbm"]
+        assert rec["rules"] == "default" and rec["kv_quant"] is False
+        kinds = rec["roofline"]["collective_count_by_kind"]
+        assert kinds["all-gather"] > 0 and kinds["all-reduce"] > 0

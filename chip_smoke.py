@@ -132,7 +132,8 @@ Phases, each fatal on failure (exit 1, no result line):
    ``moe_grouped_gemm``, as phase 5 (adi and gramschm cut to one round of
    R 10, adi's MEP pinned at scale 256, each cut printed); then each
    winner re-timed against its
-   baseline in this process, alternating 5 rounds of 30 calls (a winner
+   baseline in this process, alternating 3 rounds of 30 calls (cut from
+   5 for the run's time cap, printed ``reduced:``) (a winner
    whose build is the baseline's is marked: it can win only timing
    spread); each case's speedup and the suites' means, campaign and
    re-timed, beside the paper's (labelled as the paper's).
@@ -168,21 +169,19 @@ Phases, each fatal on failure (exit 1, no result line):
    LOGITS_RTOL), one replayed decode step and one replayed 2 x 256
    prefill traced (busy share; the prefill's trace must name K2's
    ``fa_mma_kernel``), ``FixedBatchServer`` on the same requests padded to
-   the longest (table 9's baseline), one ``ServeAutotuner.run_once()`` on
-   ``h100`` mid-traffic (hot sites, speedups, installs), and a forced
-   ``guarded_install`` of ``attention_prefill``'s ``cuda`` build probed by
-   a served prefill, which must install, bump one swap epoch and
-   re-capture every graph, with in-flight tokens equal to the control;
-   (c) the autotuner's thread (``start``/``stop``) beside a second wave,
+   the longest (table 9's baseline) (its autotune cycle and forced
+   ``guarded_install`` cut since the dry run's moe train cell joined
+   phase 22, printed ``reduced:``); (c) the autotuner's thread
+   (``start``/``stop``) beside a second wave,
    with a registry change mid-cycle so that a re-capture waits for the
    device lock: tokens equal, no ``autotune_error``; (b) rwkv6-7b on
    graphs against eager (3 rounds), then mid-traffic ``guarded_install``s
    probed by the served weights' f32 prefill: ``rwkv_wkv``'s ``cuda`` build
-   (K6 at chunk 32) must install with the tokens unchanged, the naive
-   sequential build must be rolled back for regression with the registry
-   restored, and a build off by x 1e3 refused at ``fe_fail``; (d)
-   hymba-1.5b on graphs against eager (3 rounds; cut to 8 of its 32
-   layers, printed).  K2 and K6 must launch
+   (K6 at the served chunk, 128) must install with the tokens unchanged,
+   the naive sequential build must be rolled back for regression with the
+   registry restored, and a build off by x 1e3 refused at ``fe_fail``
+   (cut to 8 of its 32 layers, printed); (d) hymba-1.5b on graphs against
+   eager (3 rounds; cut to 8 of its 32 layers, printed).  K2 and K6 must launch
    on the phase's paths.  The phase's wall time on its own line; the
    journal in chiprun_out/autotune.jsonl.
 17. The rest of the decoder-only models through K2 at ``attention``
@@ -347,18 +346,35 @@ Phases, each fatal on failure (exit 1, no result line):
    the sum must equal (Σ qᵢ)·s bit for bit, each residual its own
    formula's; (e) stablelm-3b at full width cut to 4 layers in f32 (TF32
    off), one AdamW step under the ``fsdp`` preset on the rank's 2 of 4
-   rows x 256 with ``grad_shardings`` (reduce-scatters; the moments the
-   rank's half) against the single-rank step of the whole batch from the
-   same weights: gradients within TRAIN_GRAD_TOL, loss, grad norm and lr
-   within TRAIN_METRIC_RTOL, moments within TRAIN_MOMENT_TOL, the updated
-   weights within TRAIN_GRAD_TOL but for at most UPDATE_OFF_SHARE of
-   them, each where the gradient lies within its absolute gate of 0 (the
-   first AdamW step's sign).  Each rank's peak memory and seconds; a rank
-   that fails fails the run.  The phase's wall time on its own line.
+   rows x 256, twice from the same weights: at rest (``rest_sharded``:
+   each layer gathered inside its remat body, its gradient reduce-scattered
+   in the backward, AdamW on the pieces) and with whole weights landing
+   their gradients (``grad_shardings``; the control), each against the
+   single-rank step of the whole batch from the same weights (the ranks
+   take turns computing it): gradients within TRAIN_GRAD_TOL, loss, grad
+   norm and lr within TRAIN_METRIC_RTOL, moments within
+   TRAIN_MOMENT_TOL, the updated weights within TRAIN_GRAD_TOL but for at
+   most UPDATE_OFF_SHARE of them, each where a gradient anywhere within its
+   gate moves the first AdamW step's update by more than the weights'
+   tolerance (the sign open, or a gradient near AdamW's eps), and at most
+   UPDATE_OFF_PAST_GATE of them with a gradient past its absolute gate
+   (each printed), reduce-scatters made and the moments the rank's half; each leg's ``max_memory_allocated``
+   over its step, the at-rest leg's below the control's; (f)
+   qwen2-moe-a2.7b at full width (60 experts) cut to 1 layer in f32 on a
+   mesh (data 2, model 1) under ``default`` with the MoE
+   combine-before-reduce (the moe train preset: the tokens split over the
+   data axis, the aux loss of the global batch), one AdamW step at rest
+   against its single-rank step under the same gates.  With one model rank
+   the combine's sum and reduce are identities here: the combine across
+   ranks is held only by the CPU tests on four gloo ranks.  Each rank's peak
+   memory and seconds; a rank that fails fails the run.  The phase's wall
+   time on its own line.
 22. The launch layer's dry run (``repro_torch.launch``; every earlier
    model freed): (a) the production dry run, ``python -m
-   repro_torch.launch.dryrun --single-pod``, of whisper-medium x decode_32k
-   and stablelm-3b x train_4k, each in a process of its own on the CPU
+   repro_torch.launch.dryrun --single-pod``, of whisper-medium x decode_32k,
+   stablelm-3b x train_4k and qwen2-moe-a2.7b x train_4k (its weights at
+   rest, the moe loss under the data axis's token split), each in a
+   process of its own on the CPU
    (CUDA hidden), started beside phase 21 (one rank's step on fake tensors
    over a ``fake`` group of 256 ranks; records and logs in
    chiprun_out/dryrun/), collected after (b): each must read ``OK``; their
@@ -1247,9 +1263,11 @@ TABLE4_CASES = {"rwkv_wkv": ("wkv", "rwkv6-7b"),
 # Integrated Speedup is close to a per-layer ratio; hymba-1.5b's likewise,
 # for the run's time cap
 TABLE4_CUTS = {"rwkv6-7b": 4, "hymba-1.5b": 8}
-# phase 16's hymba-1.5b leg (graphs against eager, a replayed decode step)
-# cut in depth at full width, for the run's time cap
-ONLINE_CUTS = {"hymba-1.5b": 8}
+# phase 16's rwkv6-7b and hymba-1.5b legs (graphs against eager, a
+# replayed decode step; rwkv6-7b's guarded installs) cut in depth at full
+# width, for the run's time cap (rwkv6-7b's leg took 20.9-26.4 s at 32
+# layers on an NVIDIA H100 80GB HBM3, 700.00 W)
+ONLINE_CUTS = {"rwkv6-7b": 8, "hymba-1.5b": 8}
 # phases 9 and 10 (the recurrent models served, their f32 gates) cut in
 # depth at full width, for the run's time cap with phase 21
 SERVE_CUTS = {"rwkv6-7b": 8, "hymba-1.5b": 8}
@@ -2615,6 +2633,8 @@ TABLES_PINNED = {"adi": 256}
 # the alternated re-timing of phase 14: rounds of REPS calls of the
 # baseline, then of the winner; calls above 10 ms take 5 a round
 RETIME_ROUNDS, RETIME_REPS = 5, 30
+# phase 14's re-timing of Tables 1-3's winners, cut for the run's time cap
+TABLES_RETIME_ROUNDS = 3
 
 
 def same_build(f, g) -> bool:
@@ -2643,14 +2663,17 @@ def same_build(f, g) -> bool:
     return True
 
 
-def call_times_ms(fn, inputs, reps):
+def call_times_ms(fn, inputs, reps, gap_s=0.0):
     """CUDA-event ms of ``reps`` calls, each started on an idle card, as
-    the measured platforms time a rep."""
+    the measured platforms time a rep; with ``gap_s`` the host sleeps that
+    long before each, leaving the card idle."""
     import torch
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     out = []
     for _ in range(reps):
+        if gap_s:
+            time.sleep(gap_s)
         torch.cuda.synchronize()
         start.record()
         fn(*inputs)
@@ -2660,9 +2683,9 @@ def call_times_ms(fn, inputs, reps):
     return out
 
 
-def alternate_builds(case, scale, builds):
+def alternate_builds(case, scale, builds, rounds=RETIME_ROUNDS):
     """``builds`` (side -> built function) on the case's seed-0 inputs at
-    ``scale``, alternating RETIME_ROUNDS rounds of RETIME_REPS calls (5 a
+    ``scale``, alternating ``rounds`` rounds of RETIME_REPS calls (5 a
     round when a call exceeds 10 ms): (calls a round, side -> the round
     medians in ms).  Host-clock rates move up to 5x between calls, so a
     speedup read across calls needs this."""
@@ -2675,18 +2698,18 @@ def alternate_builds(case, scale, builds):
             f(*inputs)
         reps = RETIME_REPS if max(call_times_ms(f, inputs, 1)[0]
                                   for f in builds.values()) <= 10 else 5
-        rounds = {side: [] for side in builds}
-        for _ in range(RETIME_ROUNDS):
+        medians = {side: [] for side in builds}
+        for _ in range(rounds):
             for side, f in builds.items():
-                rounds[side].append(float(np.median(call_times_ms(
+                medians[side].append(float(np.median(call_times_ms(
                     f, inputs, reps))))
-    return reps, rounds
+    return reps, medians
 
 
 def retime(case, row):
     """The case's winner against its baseline in one process, alternating
-    RETIME_ROUNDS rounds of each on the MEP's scale and seed-0 inputs:
-    the median of each side's round medians and their ratio."""
+    TABLES_RETIME_ROUNDS rounds of each on the MEP's scale and seed-0
+    inputs: the median of each side's round medians and their ratio."""
     base_v, win_v = dict(case.baseline_variant), row["best_variant"]
     out = {"winner_is_baseline": win_v == base_v}
     if out["winner_is_baseline"]:
@@ -2694,7 +2717,8 @@ def retime(case, row):
     fb, fw = (case.build(v, impl="torch") for v in (base_v, win_v))
     out["same_build"] = same_build(fb, fw)
     reps, rounds = alternate_builds(case, row["scale"],
-                                    {"baseline": fb, "winner": fw})
+                                    {"baseline": fb, "winner": fw},
+                                    rounds=TABLES_RETIME_ROUNDS)
     out.update(reps=reps, rounds=rounds,
                baseline_ms=float(np.median(rounds["baseline"])),
                winner_ms=float(np.median(rounds["winner"])))
@@ -2745,9 +2769,12 @@ def phase_tables(report):
         if row["status"]["ok"] == 0:
             fail(f"{name}: no candidate reached status ok on "
                  f"{platform.name}")
+    print(f"reduced: Tables 1-3's winners re-timed in "
+          f"{TABLES_RETIME_ROUNDS} alternated rounds, not {RETIME_ROUNDS} "
+          f"(the run's time cap)", flush=True)
     print(f"Tables 1-3 re-timed: each winner against its baseline, "
-          f"alternating {RETIME_ROUNDS} rounds in this process (median of "
-          f"the round medians, CUDA events):", flush=True)
+          f"alternating {TABLES_RETIME_ROUNDS} rounds in this process "
+          f"(median of the round medians, CUDA events):", flush=True)
     from repro_torch.core import get_case
     for row in rows:
         rt = row["retimed"] = retime(get_case(row["case"]), row)
@@ -3469,7 +3496,7 @@ def autotuner(platform, db, **cfg):
 # device) and read 0.61x-1.33x K2 over K2, past the 1.25x limit (PERF.md);
 # 16 rows make the probe device-bound, and 15 calls trimmed by 3 at each
 # end steady the mean
-GUARD_R, GUARD_K, GUARD_ROWS = 15, 3, 16
+GUARD_R, GUARD_K = 15, 3
 
 
 def probe_ratio(g):
@@ -3581,70 +3608,11 @@ def phase_online(report):
           f"{a['median']['eager']['wall_tokens_per_s']:.1f}", flush=True)
     del fixed
 
-    # one autotune cycle on h100 over the observed attention@b* sites,
-    # requests in flight on the graph server
-    ops.telemetry.reset()
-    reqs = [graph.submit(p, max_new=SERVE_MAX_NEW) for p in prompts]
-    graph.step()
-    graph.step()
-    tuner = autotuner(platform, db, min_tokens=64)
-    rep = tuner.run_once()
-    graph.run()
-    if [r.tokens for r in reqs] != control:
-        fail("glm4-9b: tokens served across the autotune cycle differ from "
-             "the control")
-    a["autotune"] = {"hot": rep.hot, "wall_s": rep.wall_s,
-                     "speedups": [r.speedup for r in rep.results],
-                     "swaps": [g.to_dict() for g in rep.swaps],
-                     "swap_epochs": graph.swap_epochs}
-    print(f"glm4-9b: autotune cycle on h100 mid-traffic in {rep.wall_s:.2f} "
-          f"s: hot {rep.hot}, campaign speedups "
-          f"{[round(x, 4) for x in a['autotune']['speedups']]}, "
-          + ("; ".join(swap_line(g) for g in rep.swaps) or "no install "
-             "(no winner beat the incumbent by 1%)")
-          + f"; the server saw {graph.swap_epochs} swap epochs; in-flight "
-          f"tokens equal the control", flush=True)
-
-    # a forced guarded install on the same server, probed by a served-model
-    # prefill: one swap epoch and one re-capture mid-traffic.  The build is
-    # K2, as the incumbent, so the guard's reading is the probe's spread
-    epochs, built = graph.swap_epochs, graph.aot_compiles
-    reqs = [graph.submit(p, max_new=SERVE_MAX_NEW) for p in prompts]
-    graph.step()
-    graph.step()
-    rows = torch.as_tensor(np.pad(np.stack([prompts[0][:160]] * GUARD_ROWS),
-                                  ((0, 0), (0, 96))), device="cuda").long()
-    lens = torch.full((GUARD_ROWS,), 160, device="cuda")
-
-    def served_prefill():
-        return model.prefill(rows, max_len=max_len, lengths=lens)[0]
-
-    case = get_case("attention_prefill")
-    forced = guarded_install(case, dict(case.baseline_variant), scale=256,
-                             impl="cuda", probe=served_prefill, r=GUARD_R,
-                             k=GUARD_K)
-    t = time.perf_counter()
-    graph.step()
-    pause = time.perf_counter() - t
-    graph.run()
-    a["forced_install"] = dict(forced.to_dict(), recapture_step_s=pause,
-                               swap_epochs=graph.swap_epochs,
-                               captures=graph.aot_compiles,
-                               probe_ratio=probe_ratio(forced))
-    print(f"glm4-9b: forced guarded install, probed by a served prefill "
-          f"({GUARD_ROWS} x 256, r={GUARD_R} k={GUARD_K}): "
-          f"{swap_line(forced)}, "
-          f"installed/baseline {probe_ratio(forced):.3f}; the next step "
-          f"re-captured in {pause:.2f} s; swap epochs {epochs} -> "
-          f"{graph.swap_epochs}, captures {built} -> {graph.aot_compiles}",
-          flush=True)
-    if forced.reason != "installed" or graph.swap_epochs != epochs + 1 \
-            or graph.aot_compiles != built + a["captures"]:
-        fail(f"glm4-9b: the forced install did not swap once: "
-             f"{a['forced_install']}")
-    if [r.tokens for r in reqs] != control:
-        fail("glm4-9b: in-flight tokens across the swap differ from the "
-             "control")
+    print("reduced: phase 16's glm4-9b autotune cycle and forced guarded "
+          "install are not run (the run's time cap): (c)'s autotuner thread "
+          "runs cycles and a registry change mid-cycle that must swap once "
+          "and re-capture every graph once on this server, and (b) "
+          "installs, rolls back and refuses builds mid-traffic", flush=True)
 
     # ---- (c) the autotuner's thread beside a second wave ---------------
     ops.telemetry.reset()
@@ -3653,18 +3621,24 @@ def phase_online(report):
     captures = graph.aot_compiles
     reqs = [graph.submit(p, max_new=SERVE_MAX_NEW) for p in prompts]
     thread = tuner.start()
-    step_s = capture_s = None
+    step_s = capture_s = swap = None
     try:
         while graph.queue or any(graph.active):
             if step_s is None and tuner._cycle_lock.locked():
-                # a registry change while the autotuner works on the card:
-                # the server's next step re-captures under the device lock
+                # a registry change while the autotuner works on the card
+                # (K2 again, as the incumbent): the server's next step sees
+                # one swap epoch and re-captures every graph once, under
+                # the device lock
                 ops.install("attention", flash, kernel="flash_attention",
                             route="cuda")
+                epochs, built = graph.swap_epochs, graph.aot_compiles
                 t, before = time.perf_counter(), graph.capture_s
                 graph.step()
                 step_s = time.perf_counter() - t
                 capture_s = graph.capture_s - before
+                swap = {"swap_epochs": [epochs, graph.swap_epochs],
+                        "captures": [built, graph.aot_compiles],
+                        "graphs": len(graph._graphs)}
             else:
                 graph.step()
     finally:
@@ -3673,7 +3647,7 @@ def phase_online(report):
     c = {"cycles": len(tuner.reports), "swap_epochs": graph.swap_epochs,
          "captures": graph.aot_compiles - captures,
          "recapture_step_s": step_s, "recapture_s": capture_s,
-         "errors": errors,
+         "swap": swap, "errors": errors,
          "installed": [g.to_dict() for r in tuner.reports
                        for g in r.installed]}
     out["c"] = c
@@ -3686,6 +3660,19 @@ def phase_online(report):
           + f", thread alive after stop: {thread.is_alive()}", flush=True)
     if thread.is_alive() or errors or [r.tokens for r in reqs] != control:
         fail(f"glm4-9b: the autotuner thread beside serving: {c}")
+    if swap is None:
+        fail("glm4-9b: no step ran while the autotuner held its cycle, so "
+             "the registry change mid-cycle was not made")
+    print(f"glm4-9b: the registry change mid-cycle: swap epochs "
+          f"{swap['swap_epochs'][0]} -> {swap['swap_epochs'][1]}, captures "
+          f"{swap['captures'][0]} -> {swap['captures'][1]} for "
+          f"{swap['graphs']} graphs; in-flight tokens equal the control",
+          flush=True)
+    if swap["swap_epochs"][1] != swap["swap_epochs"][0] + 1 \
+            or swap["captures"][1] - swap["captures"][0] != a["captures"] \
+            or swap["graphs"] != a["captures"]:
+        fail(f"glm4-9b: the registry change mid-cycle did not swap once and "
+             f"re-capture every graph once: {swap}")
     out["a"] = a
     laps = out["segment_seconds"] = {"a_c": time.perf_counter() - t0}
     del graph, model, tuner
@@ -3695,7 +3682,9 @@ def phase_online(report):
 
     # ---- (b) rwkv6-7b --------------------------------------------------
     wkv = kernel_pair("wkv")[0]
-    model = served_model("rwkv6-7b")
+    cut = ONLINE_CUTS.get("rwkv6-7b")
+    model = served_model("rwkv6-7b", n_layers=cut)
+    print(f"rwkv6-7b on graphs: {cut_line('rwkv6-7b', cut)}", flush=True)
     lengths, prompts, max_len, probe = serve_workload(model.cfg)
     ops.install("rwkv_wkv", site_impl("rwkv_wkv", wkv), kernel="wkv",
                 route="cuda")
@@ -4385,6 +4374,10 @@ TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=1000)
 TRAIN_GRAD_TOL = (1e-4, 1e-5)
 TRAIN_METRIC_RTOL = 1e-5
 TRAIN_MOMENT_TOL = 1e-4
+# (e), (f): of the updated weights that differ, at most this many may have
+# a gradient past its absolute gate (where only a gradient near AdamW's
+# eps leaves the first update open); each is printed
+UPDATE_OFF_PAST_GATE = 4
 # (a): the last full-width step's AdamW update of these leaves against a
 # float64 recomputation from the step's own inputs (a weight matrix of the
 # first and of the last layer, a norm scale that decays, the final norm,
@@ -4862,6 +4855,14 @@ STALL_TIMEOUT_S, STALL_S = 4.0, 60.0
 # the interference control's window: calls back to back between two
 # events, ~13 ms quiet, so it spans several of the card's time slices
 WINDOW_CALLS = 100
+# the control's one-call reps start REP_GAP_S apart.  A quiet rep reads the
+# kernel plus the host's launch gap (and, after a gap, the idle card's
+# wake-up); a second context that keeps the card busy takes both out.  Back
+# to back, the quiet rounds' medians move with the host's speed by as much
+# as the gap they are held to: the gate held in 22 of 30 trials, 3 ms
+# apart in 30 of 30 (probes/interference_rep.py, NVIDIA H100 80GB HBM3,
+# 700.00 W)
+REP_GAP_S = 0.003
 # the interference control's second context: K1 at 4096^3 f32 in a loop
 # (~8 ms a launch), until told to stop or this many seconds have passed
 INTERFERER = """
@@ -4988,8 +4989,9 @@ def interference_control(case, variant, scale, child):
     while ``child`` (another process, its own CUDA context) launches K1 in
     a loop.  Each round reads two ways: the median of RETIME_REPS reps,
     each one call between CUDA events on an idle stream (as the measured
-    platforms time a rep), and the mean call of one window of WINDOW_CALLS
-    calls back to back between two events (``cuda_ms``).  Returns
+    platforms time a rep) REP_GAP_S after the last, and the mean call of
+    one window of WINDOW_CALLS calls back to back between two events
+    (``cuda_ms``).  Returns
     {"rep": (quiet, loaded), "window": (quiet, loaded)}, ms a call."""
     import torch
     from repro_torch.core import datagen
@@ -5000,8 +5002,8 @@ def interference_control(case, variant, scale, child):
     def rounds():
         rep, window = [], []
         for _ in range(RETIME_ROUNDS):
-            rep.append(float(np.median(call_times_ms(fn, inputs,
-                                                     RETIME_REPS))))
+            rep.append(float(np.median(call_times_ms(
+                fn, inputs, RETIME_REPS, gap_s=REP_GAP_S))))
             window.append(cuda_ms(lambda: fn(*inputs), reps=WINDOW_CALLS,
                                   warmup=1))
         return rep, window
@@ -5373,7 +5375,9 @@ def phase_fabric(report):
                 "below": max(loaded) < min(quiet) - spread}
             calls = WINDOW_CALLS if how == "window" else RETIME_REPS
             print(f"  interference control, {how} (gemm's winner through "
-                  f"K1 here, 5 rounds of {calls} calls): quiet "
+                  f"K1 here, 5 rounds of {calls} calls"
+                  + (f" {REP_GAP_S * 1e3:g} ms apart" if how == "rep" else "")
+                  + "): quiet "
                   f"{float(np.median(quiet)):.4f} ms a call (rounds "
                   f"{min(quiet):.4f}-{max(quiet):.4f}), while a second "
                   f"process launches K1 in a loop "
@@ -5381,7 +5385,8 @@ def phase_fabric(report):
                   f"{min(loaded):.4f}-{max(loaded):.4f})", flush=True)
         # a window of calls spans the card's time slices: the other
         # context's launches land inside it; a one-call rep moves too
-        # (either way: it is timed inside one slice or across two)
+        # (either way: it is timed inside one slice or across two; on the
+        # H100 it falls to the kernel's own time, REP_GAP_S's comment)
         w, r = out["interference"]["window"], out["interference"]["rep"]
         if not w["above"] or not (r["above"] or r["below"]):
             fail("the loaded readings do not move beyond the quiet ones' "
@@ -5536,6 +5541,11 @@ CP_LAYERS = None            # glm4-9b's depth (40); an int cuts it
 CP_SAMPLES = 8              # positions of each rank's shard held by logits
 CP_TRAIN_LAYERS = 4         # stablelm-3b at full width, cut to 4 layers
 CP_TRAIN_ROWS, CP_TRAIN_SEQ = 4, 256
+# (f) at full width (60 experts) cut to 1 of 24 layers for the run's time
+# cap (over gloo a 2-layer step took 21-26 s on an NVIDIA H100 80GB HBM3 at
+# 700.00 W): 1.19e9 f32 parameters, whose single-rank step and two ranks'
+# steps share the card
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "qwen2-moe-a2.7b", 1
 CP_PSUM_SHAPE = (4096, 1024)
 CP_DIR = OUT.parent / "distributed"
 CP_TIMEOUT_S = 420
@@ -5725,10 +5735,14 @@ def rank_child(rank: int, run_dir: str) -> None:
     checks["compressed_psum: the residual is the local formula"] = bool(
         torch.equal(res, x - q.float() * scale))
 
-    # (e) one sharded train step against the single-rank step
-    out["train"], train_checks = cp_train_step(ctx, mesh)
+    # (e) the fsdp step at rest and with whole weights, (f) the moe step
+    # at rest, each against the single-rank step
+    out["train"], train_checks = cp_train_steps(mesh, rank)
     checks.update(train_checks)
-    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # the train steps reset the peak: this rank's is the largest reading
+    out["peak_gib"] = max(
+        [out["cp"]["peak_gib"], *out["train"]["reference_peak_gib"].values()]
+        + [leg["step_peak_gib"] for leg in out["train"]["legs"].values()])
     out["seconds"] = time.perf_counter() - t0
     out["checks"] = checks
     (run / f"rank{rank}.json").write_text(json.dumps(out))
@@ -5738,88 +5752,215 @@ def rank_child(rank: int, run_dir: str) -> None:
         sys.exit(1)
 
 
-def cp_train_step(ctx, mesh):
-    """(e): stablelm-3b at full width cut to CP_TRAIN_LAYERS in f32 (TF32
-    off), one AdamW step on this rank's rows under the fsdp preset, the
-    gradients landing in the parameters' layouts, against the single-rank
-    step of the whole batch from the same weights in this process."""
+def reference_step(arch, layers, rows, seq, lay_ctx, rank):
+    """The single-rank step of the whole batch from ``served_model``'s
+    weights (f32) in this rank's turn (the ranks take turns, one reference
+    on the shared card at a time): this rank's pieces, in ``lay_ctx``'s
+    layouts, of its gradients, first moments and updated weights, moved to
+    the host; its metrics; its largest gradient and first moment."""
     import torch
+    import torch.distributed as dist
     from repro_torch.data import SyntheticLMData, make_global_batch
-    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.models.convert import axes_by_name
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    from repro_torch.train.steps import model_params
+    ref = None
+    for turn in range(CP_RANKS):
+        if turn == rank:
+            model = served_model(arch, layers, "float32")
+            lays = lay_ctx.tree_shardings(axes_by_name(
+                model.cfg, model.param_axes()), model_params(model))
+            ref = {"grads": {}}
+
+            def keep(grads):
+                ref["grad_top"] = max(float(t.abs().max())
+                                      for t in grads.values())
+                ref["grads"].update({n: lays[n].shard(t).cpu()
+                                     for n, t in grads.items()})
+                return grads
+            data = SyntheticLMData(model.cfg, seq, rows, seed=0)
+            step = make_train_step(model, AdamWConfig(**TRAIN_OPT),
+                                   grad_hook=keep)
+            params = model_params(model)
+            _, opt, metrics = step(params, init_state(params),
+                                   make_global_batch(data, 0))
+            ref["metrics"] = {k: float(v) for k, v in metrics.items()}
+            ref["mu_top"] = max(float(t.abs().max())
+                                for t in opt["mu"].values())
+            ref["mu"] = {n: lays[n].shard(t).cpu()
+                         for n, t in opt["mu"].items()}
+            ref["params"] = {n: lays[n].shard(t.detach()).cpu()
+                             for n, t in params.items()}
+            ref["moment_elements_whole"] = sum(
+                t.numel() for t in opt["mu"].values())
+            ref["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            del model, step, params, opt
+            free_card()
+        dist.barrier()
+    return ref
+
+
+def train_leg(model, rest, ref, batch):
+    """One AdamW step of ``model`` (its ctx's ranks, this rank's ``batch``)
+    against the single-rank step ``ref``: at rest (``rest_sharded``) or
+    with whole weights landing their gradients (``grad_shardings``).  The
+    gates of TRAIN_GRAD_TOL, TRAIN_METRIC_RTOL, TRAIN_MOMENT_TOL and
+    UPDATE_OFF_SHARE; ``max_memory_allocated`` over the step (from the
+    built model and its fresh moments); the collectives it made."""
+    import torch
     from repro_torch.sharding import comm
     from repro_torch.train import AdamWConfig, init_state, make_train_step
-    from repro_torch.train.steps import model_params, param_layouts
-    fsdp = make_ctx(mesh, preset="fsdp")
-    opt_cfg = AdamWConfig(**TRAIN_OPT)
-    ref = served_model(TRAIN_ARCH, CP_TRAIN_LAYERS, "float32")
-    data = SyntheticLMData(ref.cfg, CP_TRAIN_SEQ, CP_TRAIN_ROWS, seed=0)
-    g0 = {}
-    step0 = make_train_step(ref, opt_cfg, grad_hook=lambda g: g0.update(
-        {n: t.clone() for n, t in g.items()}) or g)
-    p0 = model_params(ref)
-    _, o0, m0 = step0(p0, init_state(p0), make_global_batch(data, 0))
-    model = served_model(TRAIN_ARCH, CP_TRAIN_LAYERS, "float32", ctx=fsdp)
+    from repro_torch.train.steps import (model_params, param_layouts,
+                                         rest_sharded)
+    if rest:
+        rest_sharded(model)
     layouts = param_layouts(model)
     g1 = {}
-    step1 = make_train_step(model, opt_cfg, grad_shardings=layouts,
-                            grad_hook=lambda g: g1.update(
-                                {n: t.clone() for n, t in g.items()}) or g)
+    step = make_train_step(model, AdamWConfig(**TRAIN_OPT),
+                           grad_shardings=None if rest else layouts,
+                           grad_hook=lambda g: g1.update(
+                               {n: t.clone() for n, t in g.items()}) or g)
     p1 = model_params(model)
+    opt = init_state(p1, layouts)
+    free_card()
+    held = torch.cuda.memory_allocated()
     calls = dict(comm.calls)
-    batch = make_global_batch(data, 0, sharding=fsdp.sharding(
-        ("batch", None), (CP_TRAIN_ROWS, CP_TRAIN_SEQ)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, o1, m1 = step1(p1, init_state(p1, layouts), batch)
+    _, o1, m1 = step(p1, opt, batch)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    top = max(float(t.abs().max()) for t in g0.values())
-    grad_ratio = max(float(((g1[n] - layouts[n].shard(g0[n])).abs()
-                            / (TRAIN_GRAD_TOL[0] * layouts[n].shard(
-                                g0[n]).abs() + TRAIN_GRAD_TOL[1] * top)
-                            ).max()) for n in g0)
-    metric_err = max(abs(float(m1[k]) - float(m0[k])) / abs(float(m0[k]))
-                     for k in ("loss", "grad_norm", "lr"))
-    mu_top = max(float(t.abs().max()) for t in o0["mu"].values())
-    moment_ratio = max(float((o1["mu"][n] - layouts[n].shard(o0["mu"][n])
-                              ).abs().max()) / (TRAIN_MOMENT_TOL * mu_top)
-                       for n in o0["mu"])
-    off = total = off_not_near_zero = 0
-    for n in p0:
-        w0, w1 = p0[n].detach(), p1[n].detach()
-        bad = (w1 - w0).abs() > (TRAIN_GRAD_TOL[0] * w0.abs()
-                                 + TRAIN_GRAD_TOL[1]
-                                 * float(w0.abs().max()))
+    peak = torch.cuda.max_memory_allocated()
+    made = {n: comm.calls[n] - calls[n] for n in calls}
+    top, mu_top = ref["grad_top"], ref["mu_top"]
+    cfg = AdamWConfig(**TRAIN_OPT)
+    lr = ref["metrics"]["lr"]
+    scale = min(1.0, cfg.clip_norm / (ref["metrics"]["grad_norm"] + 1e-9))
+
+    def first_delta(g):     # AdamW's first update of a gradient g, per lr
+        return g * scale / ((g * scale).abs() + cfg.eps)
+    grad_ratio = moment_ratio = 0.0
+    off = total = off_determined = off_not_near_zero = 0
+    examples = []
+    for n, g0 in ref["grads"].items():
+        g0 = g0.cuda()
+        gate = TRAIN_GRAD_TOL[0] * g0.abs() + TRAIN_GRAD_TOL[1] * top
+        grad_ratio = max(grad_ratio, float(((g1[n] - g0).abs()
+                                            / gate).max()))
+        moment_ratio = max(moment_ratio, float(
+            (o1["mu"][n] - ref["mu"][n].cuda()).abs().max())
+            / (TRAIN_MOMENT_TOL * mu_top))
+        w0 = ref["params"][n].cuda()
+        w1 = (p1[n].to_local() if rest else layouts[n].shard(p1[n])).detach()
+        tol = (TRAIN_GRAD_TOL[0] * w0.abs()
+               + TRAIN_GRAD_TOL[1] * float(w0.abs().max()))
+        bad = (w1 - w0).abs() > tol
+        # where a gradient anywhere in its gate moves the first step's
+        # update by more than the weights' tolerance (a sign undetermined,
+        # or a gradient near AdamW's eps), the weights may differ
+        determined = lr * (first_delta(g0 + gate)
+                           - first_delta(g0 - gate)) <= tol
         off += int(bad.sum())
         total += bad.numel()
-        off_not_near_zero += int((bad & (g0[n].abs()
-                                         > TRAIN_GRAD_TOL[1] * top)).sum())
+        off_determined += int((bad & determined).sum())
+        clear = bad & (g0.abs() > TRAIN_GRAD_TOL[1] * top)
+        off_not_near_zero += int(clear.sum())
+        for i in clear.flatten().nonzero()[
+                :UPDATE_OFF_PAST_GATE + 1 - len(examples)].flatten():
+            examples.append({"leaf": n, "index": int(i), **{
+                k: float(t.flatten()[i]) for k, t in (
+                    ("g0", g0), ("g1", g1[n]), ("w0", w0), ("w1", w1),
+                    ("tol", tol))}})
+    metric_err = max(abs(float(m1[k]) - ref["metrics"][k])
+                     / abs(ref["metrics"][k])
+                     for k in ("loss", "grad_norm", "lr"))
     res = {"rows_a_rank": int(batch["tokens"].shape[0]),
-           "loss": [float(m0["loss"]), float(m1["loss"])],
-           "grad_norm": [float(m0["grad_norm"]), float(m1["grad_norm"])],
+           "loss": [ref["metrics"]["loss"], float(m1["loss"])],
+           "grad_norm": [ref["metrics"]["grad_norm"],
+                         float(m1["grad_norm"])],
            "grad_tol_ratio": grad_ratio, "metric_rel_err": metric_err,
            "moment_tol_ratio": moment_ratio,
            "weights_off_share": off / total,
-           "weights_off_with_a_clear_gradient": off_not_near_zero,
+           "weights_off_where_the_update_is_determined": off_determined,
+           "weights_off_with_a_gradient_past_its_absolute_gate":
+               off_not_near_zero, "examples": examples,
+           "grad_top": top, "clip_scale": scale,
            "moment_elements_a_rank": sum(t.numel()
                                          for t in o1["mu"].values()),
-           "moment_elements_whole": sum(t.numel()
-                                        for t in o0["mu"].values()),
-           "collectives": {n: comm.calls[n] - calls[n] for n in calls},
-           "step_s": seconds}
+           "moment_elements_whole": ref["moment_elements_whole"],
+           "collectives": made, "step_s": seconds,
+           "held_before_step_gib": held / 2**30,
+           "step_peak_gib": peak / 2**30}
     checks = {
-        "train: gradients within TRAIN_GRAD_TOL": grad_ratio <= 1,
-        "train: loss, grad norm, lr within TRAIN_METRIC_RTOL":
+        "gradients within TRAIN_GRAD_TOL": grad_ratio <= 1,
+        "loss, grad norm, lr within TRAIN_METRIC_RTOL":
             metric_err <= TRAIN_METRIC_RTOL,
-        "train: moments within TRAIN_MOMENT_TOL": moment_ratio <= 1,
-        "train: updated weights agree but where the gradient is ~0":
-            res["weights_off_share"] <= UPDATE_OFF_SHARE
-            and off_not_near_zero == 0,
-        "train: gradients reduce-scattered into the layouts":
-            res["collectives"]["reduce_scatter"] > 0
+        "moments within TRAIN_MOMENT_TOL": moment_ratio <= 1,
+        "updated weights agree but where the gradient's gate leaves the "
+        "update open": res["weights_off_share"] <= UPDATE_OFF_SHARE
+            and off_determined == 0,
+        "at most UPDATE_OFF_PAST_GATE of the weights that differ have a "
+        "gradient past its absolute gate":
+            off_not_near_zero <= UPDATE_OFF_PAST_GATE,
+        "gradients reduce-scattered into the layouts":
+            made["reduce_scatter"] > 0
             and res["moment_elements_a_rank"] < res["moment_elements_whole"],
     }
+    del g1, p1, o1, opt, step
     return res, checks
+
+
+def cp_train_steps(mesh, rank):
+    """(e): stablelm-3b at full width cut to CP_TRAIN_LAYERS in f32 (TF32
+    off), one AdamW step under the fsdp preset on this rank's rows, twice
+    from the same weights: at rest, and with whole weights landing their
+    gradients (the control); each against the single-rank step of the
+    whole batch, and the at-rest step's peak memory below the control's.
+    (f): qwen2-moe-a2.7b at full width cut to MOE_TRAIN_LAYERS in f32 on
+    the mesh (data 2, model 1) under ``default`` with the MoE
+    combine-before-reduce (the moe train preset: the tokens split over
+    data), one AdamW step at rest against the single-rank step.  On one
+    model rank the combine's collectives are identities: the combine
+    across ranks is held by the CPU tests alone."""
+    import torch
+    from repro_torch.data import SyntheticLMData, make_global_batch
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.launch.specs import token_layout
+    from torch.distributed.device_mesh import init_device_mesh
+    out, checks = {}, {}
+    fsdp = make_ctx(mesh, preset="fsdp")
+    ref = reference_step(TRAIN_ARCH, CP_TRAIN_LAYERS, CP_TRAIN_ROWS,
+                         CP_TRAIN_SEQ, fsdp, rank)
+    for leg, rest in (("at rest", True), ("whole weights", False)):
+        model = served_model(TRAIN_ARCH, CP_TRAIN_LAYERS, "float32", ctx=fsdp)
+        data = SyntheticLMData(model.cfg, CP_TRAIN_SEQ, CP_TRAIN_ROWS, seed=0)
+        batch = make_global_batch(data, 0, sharding=token_layout(
+            fsdp, CP_TRAIN_ROWS, CP_TRAIN_SEQ))
+        out[leg], leg_checks = train_leg(model, rest, ref, batch)
+        checks.update({f"train {leg}: {k}": v for k, v in leg_checks.items()})
+        del model
+        free_card()
+    checks["train: the step at rest peaks below the whole-weight step"] = \
+        out["at rest"]["step_peak_gib"] < out["whole weights"]["step_peak_gib"]
+    ref_peak = ref["peak_gib"]
+    del ref
+    moe_mesh = init_device_mesh("cuda", (CP_RANKS, 1),
+                                mesh_dim_names=("data", "model"))
+    ctx = make_ctx(moe_mesh, preset="default", moe_impl="shard_map")
+    ref = reference_step(MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, CP_TRAIN_ROWS,
+                         CP_TRAIN_SEQ, ctx, rank)
+    model = served_model(MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, "float32",
+                         ctx=ctx)
+    data = SyntheticLMData(model.cfg, CP_TRAIN_SEQ, CP_TRAIN_ROWS, seed=0)
+    batch = make_global_batch(data, 0, sharding=token_layout(
+        ctx, CP_TRAIN_ROWS, CP_TRAIN_SEQ))
+    out["moe at rest"], leg_checks = train_leg(model, True, ref, batch)
+    checks.update({f"moe train at rest: {k}": v
+                   for k, v in leg_checks.items()})
+    peaks = {TRAIN_ARCH: ref_peak, MOE_TRAIN_ARCH: ref["peak_gib"]}
+    del model, ref
+    free_card()
+    return {"legs": out, "reference_peak_gib": peaks}, checks
 
 
 def phase_distributed(report):
@@ -5896,7 +6037,7 @@ def phase_distributed(report):
           f"single-rank reference {t_ref:.1f} s here, ranks {t_ranks:.1f} s "
           f"from their start", flush=True)
     for r in results:
-        cp, tr = r["cp"], r["train"]
+        cp = r["cp"]
         print(f"  rank {r['rank']}: cp prefill of {CP_ARCH} (bf16, "
               f"{cp['positions']} held positions of its shard at q_offset "
               f"{cp['q_offset']}): K2 launches {r['launches']} "
@@ -5907,18 +6048,32 @@ def phase_distributed(report):
               f"cache positions a rank) {cp['generate_s']:.2f} s, tokens "
               f"equal the single rank's: {cp['tokens_equal']}; collectives "
               f"{r['collectives']}; compressed_psum {r['psum']['shape']} f32 "
-              f"exact; train step (fsdp, stablelm-3b {CP_TRAIN_LAYERS} "
-              f"layers f32, {tr['rows_a_rank']} of {CP_TRAIN_ROWS} rows x "
-              f"{CP_TRAIN_SEQ}): loss {tr['loss'][1]:.6f} vs "
-              f"{tr['loss'][0]:.6f}, grads at {tr['grad_tol_ratio']:.3f} of "
-              f"their gate, metrics rel err {tr['metric_rel_err']:.3g}, "
-              f"moments at {tr['moment_tol_ratio']:.3f}, weights off "
-              f"{tr['weights_off_share']:.3g} (all where the gradient is "
-              f"~0), moments {tr['moment_elements_a_rank']} of "
-              f"{tr['moment_elements_whole']} elements, "
-              f"{tr['collectives']['reduce_scatter']} reduce-scatters, step "
-              f"{tr['step_s']:.2f} s; peak memory {r['peak_gib']:.2f} GiB; "
+              f"exact; peak memory {r['peak_gib']:.2f} GiB; "
               f"{r['seconds']:.1f} s", flush=True)
+        for leg, tr in r["train"]["legs"].items():
+            what = (f"{MOE_TRAIN_ARCH} {MOE_TRAIN_LAYERS} layers, default "
+                    f"(data {CP_RANKS}, model 1)" if leg.startswith("moe")
+                    else f"{TRAIN_ARCH} {CP_TRAIN_LAYERS} layers, fsdp")
+            print(f"    rank {r['rank']} train step {leg} ({what}, f32, "
+                  f"{tr['rows_a_rank']} of {CP_TRAIN_ROWS} rows x "
+                  f"{CP_TRAIN_SEQ}): loss {tr['loss'][1]:.6f} vs "
+                  f"{tr['loss'][0]:.6f}, grads at {tr['grad_tol_ratio']:.3f} "
+                  f"of their gate, metrics rel err "
+                  f"{tr['metric_rel_err']:.3g}, moments at "
+                  f"{tr['moment_tol_ratio']:.3f}, weights off "
+                  f"{tr['weights_off_share']:.3g} (where the update is "
+                  f"determined: "
+                  f"{tr['weights_off_where_the_update_is_determined']}; "
+                  f"with a gradient past its absolute gate: "
+                  f"{tr['weights_off_with_a_gradient_past_its_absolute_gate']}"
+                  f" {tr['examples']}), moments "
+                  f"{tr['moment_elements_a_rank']} of "
+                  f"{tr['moment_elements_whole']} elements, collectives "
+                  f"{tr['collectives']}, step {tr['step_s']:.2f} s; "
+                  f"max_memory_allocated over the step "
+                  f"{tr['step_peak_gib']:.3f} GiB "
+                  f"({tr['held_before_step_gib']:.3f} GiB held at its "
+                  f"start)", flush=True)
     report["distributed"] = {"ranks": results, "k2_offset_s": t_a,
                              "reference_s": t_ref, "ranks_s": t_ranks,
                              "k2_offset": [r for r, _ in rows],
@@ -5943,7 +6098,8 @@ def camp_ctx(camp):
 # the launch layer's dry run (phase 22): the production cells counted on
 # fake tensors, and the count held against phase 19's measured step
 # --------------------------------------------------------------------------
-DRYRUN_CELLS = (("whisper-medium", "decode_32k"), ("stablelm-3b", "train_4k"))
+DRYRUN_CELLS = (("whisper-medium", "decode_32k"), ("stablelm-3b", "train_4k"),
+                ("qwen2-moe-a2.7b", "train_4k"))
 DRYRUN_DIR = OUT.parent / "dryrun"
 DRYRUN_TIMEOUT_S = 300
 

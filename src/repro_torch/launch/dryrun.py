@@ -121,14 +121,15 @@ def cell_ctx(cfg, shape, mesh, rules_name: str, rec: Dict, *,
 def step_specs(cfg, shape, ctx, *, accum: Optional[int] = None,
                q_chunk: int = 256, remat: bool = True,
                loss_chunk: int = 1024, kv_quant: bool = False):
-    """The cell's model on ``"cpu"``, at rest in its layouts for serving,
-    and ``input_specs``' (fn, args, in_shardings, out_shardings, donate):
+    """The cell's model on ``"cpu"``, at rest in its layouts (a train
+    step trains the pieces, serving gathers a layer as it runs), and
+    ``input_specs``' (fn, args, in_shardings, out_shardings, donate):
     call under a ``FakeTensorMode``."""
     mkw = {"kv_quant": kv_quant} if cfg.family != "encdec" else {}
     model = get_model(cfg, "cpu", ctx=ctx, q_chunk=q_chunk, remat=remat,
                       loss_chunk=loss_chunk, **mkw)
-    if shape.kind != "train" and ctx.enabled:
-        rest_sharded(model)        # a train step takes whole weights
+    if ctx.enabled:
+        rest_sharded(model)
     return input_specs(cfg, shape, model, ctx, accum=accum)
 
 

@@ -16,10 +16,11 @@ model axis; the moments by their logical axes; the decode cache by rows
 and, under ``decode_kv``, by its sequence (``cache_specs``).  The
 parameter tree comes first in every step's arguments, as in the JAX
 package; it is ``train.model_params(model)``, the model's own tensors,
-which a train step takes whole on every rank (its in- and out-layouts are
-None: it lands the gradients in the parameters' layouts itself) and which
-serving holds at rest in their layouts (``train.rest_sharded``), read by
-the model rather than passed.  The port's decode takes its shared position
+at rest in their layouts (``train.rest_sharded``) under a ctx: a train
+step takes and updates the pieces, serving reads them through the model
+rather than as passed.  A model with whole weights (a null ctx, or one
+not put at rest) has its train step land the gradients in the
+parameters' layouts itself.  The port's decode takes its shared position
 as an int.  ``donate`` keeps the JAX package's tuples, though eager PyTorch
 has no donation: a train step commits into the model's parameters in
 place, and a serve step writes its cache in place.
@@ -35,8 +36,9 @@ from repro_torch.models.convert import axes_by_name, by_name
 from repro_torch.sharding.ctx import ShardCtx
 from repro_torch.train import optim
 from repro_torch.train.optim import AdamWConfig
-from repro_torch.train.steps import (make_prefill_step, make_serve_step,
-                                     make_train_step, model_params)
+from repro_torch.train.steps import (at_rest, make_prefill_step,
+                                     make_serve_step, make_train_step,
+                                     model_params)
 
 # grad-accumulation microbatch counts for the train_4k cells (memory fit;
 # recorded per-cell in EXPERIMENTS.md §Dry-run)
@@ -121,6 +123,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, model, ctx: ShardCtx, *,
         accum = accum if accum is not None else TRAIN_ACCUM.get(cfg.name, 1)
         opt_cfg = opt_cfg or AdamWConfig()
         layouts = p_sh if ctx.enabled else None
+        rest = ctx.enabled and at_rest(model)
         opt = optim.init_state(params, layouts)
         opt_sh = ctx.tree_shardings(optim.state_axes(axes), {
             "mu": {n: tuple(p.shape) for n, p in params.items()},
@@ -128,10 +131,10 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, model, ctx: ShardCtx, *,
             "step": ()})
         batch, batch_sh = batch_specs(cfg, B, S, ctx)
         fn = make_train_step(model, opt_cfg, accum=accum, grad_hook=grad_hook,
-                             grad_shardings=layouts)
+                             grad_shardings=None if rest else layouts)
         args = (params, opt, batch)
-        in_sh = (None, opt_sh, batch_sh)
-        out_sh = (None, opt_sh, None)
+        in_sh = (p_sh if rest else None, opt_sh, batch_sh)
+        out_sh = (p_sh if rest else None, opt_sh, None)
         return fn, args, in_sh, out_sh, (0, 1)
 
     cache, cache_sh = cache_specs(model, ctx, B, S)

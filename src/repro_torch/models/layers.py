@@ -16,7 +16,9 @@ through the ``attention`` site with its ``q_offset`` (an installed kernel
 receives it; the JAX twin drops it there, ROADMAP.md queue 3);
 ``flash_decode_sharded`` combines per-shard partial softmaxes of a cache
 whose sequence is split over mesh axes; ``moe_block``'s ``shard_map``
-branch sums the tp-sharded expert-ffn partials after the per-token gather.
+branch sums the tp-sharded expert-ffn partials after the per-token gather;
+``moe_aux_loss`` takes its means over the global batch.  Under autograd
+their collectives are ``comm``'s differentiable forms.
 The ``*_param_axes`` tables give each parameter's logical axes, the JAX
 twin's ``*_param_spec`` second halves.  ``constrain`` calls mark the JAX
 twin's layout points; on the plain local tensors here they change
@@ -244,8 +246,8 @@ def attention_context_parallel(q, k, v, *, ctx: ShardCtx, q_chunk: int = 256,
                                  softcap=softcap), k, v
     group = ctx.group(ctx.tp)
     s_local = q.shape[1]
-    kf = comm.all_gather(k, group, 1)
-    vf = comm.all_gather(v, group, 1)
+    kf = comm.gather_grad(k, group, 1)
+    vf = comm.gather_grad(v, group, 1)
     off = ctx.index(ctx.tp) * s_local
     out = attention_chunked(q, kf, vf, causal=True,
                             q_chunk=min(q_chunk, s_local), softcap=softcap,
@@ -488,7 +490,15 @@ def moe_block(x, p, cfg: ModelConfig, ctx: ShardCtx = _NULL):
     combine-before-reduce: each rank of the model axis applies its slice
     of the expert-ffn dim (columns of we1/we3, rows of we2), gathers its
     per-token partial outputs and sums them over the axis as [B, S, d]
-    instead of [B, E, C, d]."""
+    instead of [B, E, C, d].  It needs the model axis's ranks to hold the
+    same rows (``default``, ``ep``; ``cp``, whose MoE block runs on the
+    gathered sequence), so under ``fsdp``, where the model axis splits the
+    batch, the block computes every expert-ffn column itself.  Under
+    autograd the partial sum's gradient is the sum of the ranks'
+    (``comm.all_reduce_grad``) when each rank's loss reads its own shard
+    of the output (``cp``); else the region's inputs take the sum of the
+    ranks' partial gradients (``comm.sum_grads``) and its output passes
+    its gradient on (``comm.reduce_partials``)."""
     m = cfg.moe
     B, S, d = x.shape
     E, K = m.n_experts, m.top_k
@@ -523,9 +533,20 @@ def moe_block(x, p, cfg: ModelConfig, ctx: ShardCtx = _NULL):
         buf.index_add_(0, slot.reshape(-1),
                        (xk * keep[..., None]).reshape(B * T, d))
         buf = buf.view(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
+        gk = gf * keep
         we1, we3, we2 = p["we1"], p["we3"], p["we2"]
-        combine = ctx.enabled and ctx.moe_impl == "shard_map"
+        # the model axis's ranks must hold the same rows (not under fsdp)
+        combine = (ctx.enabled and ctx.moe_impl == "shard_map"
+                   and ctx.tp not in ctx.dp)
         if combine:           # this rank's slice of the expert-ffn dim
+            group = ctx.group(ctx.tp)
+            # under cp each rank's loss reads its own shard of the output
+            # (its gradient there is partial); else the ranks of the model
+            # axis go on alike, and the region's inputs take the sum of
+            # their partial gradients
+            own_shards = ctx.tp in ctx.batch_axes
+            if not own_shards:
+                buf, gk = comm.sum_grads(buf, group), comm.sum_grads(gk, group)
             n = ctx.axis_size(ctx.tp)
             f = we1.shape[-1] // n
             lo = ctx.index(ctx.tp) * f
@@ -533,10 +554,11 @@ def moe_block(x, p, cfg: ModelConfig, ctx: ShardCtx = _NULL):
             we2 = we2[:, lo:lo + f]
         h = a(torch.bmm(buf, we1)) * torch.bmm(buf, we3)
         ye = torch.bmm(h, we2).view(E, B, C, d)
-        yk = ye[ef, rows, pos_c] * (gf * keep)[..., None]   # [B, T, d]
+        yk = ye[ef, rows, pos_c] * gk[..., None]           # [B, T, d]
         out = yk.reshape(B, S, K, d).sum(dim=2)
         if combine:
-            out = comm.all_reduce(out, ctx.group(ctx.tp))
+            out = (comm.all_reduce_grad(out, group) if own_shards
+                   else comm.reduce_partials(out, group))
 
     if m.n_shared:
         h = a(x @ p["ws1"]) * (x @ p["ws3"])
@@ -545,9 +567,26 @@ def moe_block(x, p, cfg: ModelConfig, ctx: ShardCtx = _NULL):
     return ctx.constrain(out, "batch", "seq", None)
 
 
-def moe_aux_loss(x, p, cfg: ModelConfig) -> torch.Tensor:
-    """Load-balancing auxiliary loss (Switch-style)."""
+def moe_aux_loss(x, p, cfg: ModelConfig, ctx: ShardCtx = _NULL
+                 ) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style) of the global batch:
+    the routed fractions ``frac`` and the mean router probabilities
+    ``imp`` are means over every token.  Under a ctx whose ``batch_axes``
+    split the tokens, each is summed over this rank's tokens (``x`` is its
+    shard), all-reduced over those axes (``imp`` by
+    ``comm.all_reduce_grad``, ``frac`` has no gradient) and divided by
+    the global count, so every rank returns the global term; each token
+    counts once (under cp ``x`` is the rank's own shard of the
+    sequence)."""
     m = cfg.moe
     probs, _, eidx = moe_route(x, p, m)
-    frac = F.one_hot(eidx, m.n_experts).float().mean(dim=(0, 1, 2))
-    return m.n_experts * (frac * probs.mean(dim=(0, 1))).sum()
+    hot = F.one_hot(eidx, m.n_experts).float()
+    if not (ctx.enabled and ctx.axis_size(ctx.batch_axes) > 1):
+        frac = hot.mean(dim=(0, 1, 2))
+        return m.n_experts * (frac * probs.mean(dim=(0, 1))).sum()
+    group = ctx.group(ctx.batch_axes)
+    tokens = probs.shape[0] * probs.shape[1] * ctx.axis_size(ctx.batch_axes)
+    frac = comm.all_reduce(hot.sum(dim=(0, 1, 2)), group) / (
+        tokens * m.top_k)
+    imp = comm.all_reduce_grad(probs.sum(dim=(0, 1)), group) / tokens
+    return m.n_experts * (frac * imp).sum()

@@ -37,7 +37,13 @@ cache's sequence split over the model / data axes (``init_cache`` and
 ``param_axes`` and ``cache_axes`` give the JAX twin's logical axes over
 its stacked tree (``param_shapes``, ``cache_shapes``).  ``loss`` under a
 ctx that splits the tokens returns the rank's share of the global loss
-(its summed NLL over the global count); the shares sum to the loss.
+(its summed NLL over the global count, and a moe model's share of the
+global batch's aux term); the shares sum to the loss.  Weights at rest
+(``train.steps.rest_sharded``) are gathered a layer at a time inside the
+layer's remat body, differentiably under grad (``sharding.gathered``:
+the backward lands each gradient in its weight's layout), so a train step
+at rest holds one layer whole at a time, as the JAX twin's FSDP scan
+does.
 
 Parameters are made with ``requires_grad=False``, so serving builds no
 autograd graph; ``train.steps.make_train_step`` switches it on for the
@@ -60,7 +66,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
-from repro_torch.sharding import ShardCtx, comm, full
+from repro_torch.sharding import ShardCtx, comm, full, gathered
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the cache entries held per position (written at [:S] by prefill and at
@@ -294,17 +300,28 @@ class LM(nn.Module):
         return param_shapes(self.cfg)
 
     def _top(self, name: str) -> torch.Tensor:
-        """A top-level weight to compute with (a DTensor gathered whole)."""
-        return full(getattr(self.top, name))
+        """A top-level weight to compute with (a DTensor gathered whole by
+        ``gathered``: under grad its gradient lands in its layout)."""
+        return gathered(getattr(self.top, name), self.ctx.batch_axes)
 
     def _layer_params(self, layer) -> Dict[str, torch.Tensor]:
         """One layer's weights to compute with: under a ctx, a DTensor
-        weight is gathered whole (``gather_fsdp``, then the rest)."""
+        weight is gathered whole; under grad by ``gathered``, its gradient
+        landing in its layout, else (serving) by ``gather_fsdp`` and then
+        the rest, the collectives that the dry run's serving rows count."""
         p = layer.tensors()
         if not self.ctx.enabled:
             return p
+        if torch.is_grad_enabled():
+            return {n: gathered(w, self.ctx.batch_axes) for n, w in p.items()}
         return {n: full(w) for n, w in
                 self.ctx.gather_params(p, self._layer_axes).items()}
+
+    def _head(self) -> torch.Tensor:
+        """The [d, V] logits weight to compute with (the embedding's
+        transpose when tied)."""
+        return (self._top("embed").T if self.cfg.tie_embeddings
+                else self._top("lm_head"))
 
     def _whole_sequence(self, fn, x):
         """``fn`` (returning (out, state)) on the whole sequence of this
@@ -313,7 +330,7 @@ class LM(nn.Module):
         if not self._cp:
             return fn(x)
         S = x.shape[1]
-        out, state = fn(comm.all_gather(x, self.ctx.group(self.ctx.tp), 1))
+        out, state = fn(comm.gather_grad(x, self.ctx.group(self.ctx.tp), 1))
         lo = self.ctx.index(self.ctx.tp) * S
         return out[:, lo:lo + S], state
 
@@ -407,7 +424,7 @@ class LM(nn.Module):
         h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         if cfg.family == "moe":
             if want_aux:
-                new["aux"] = L.moe_aux_loss(h2, p, cfg)
+                new["aux"] = L.moe_aux_loss(h2, p, cfg, ctx)
             if not ctx.enabled:
                 return x + L.moe_block(h2, p, cfg), new
             moe_out, _ = self._whole_sequence(
@@ -451,8 +468,10 @@ class LM(nn.Module):
         ``collect_cache`` (k/v [B, S, KV, hd]; the recurrent state at the
         end of the row), else None; with ``want_aux`` also the moe
         load-balancing loss summed over the layers (f32 0-d, 0 outside the
-        moe family) third.  Under grad with ``remat`` each layer runs in
-        ``torch.utils.checkpoint``."""
+        moe family; the global batch's on every rank) third.  Under grad
+        with ``remat`` each layer runs in ``torch.utils.checkpoint``, its
+        weights gathered inside (``_layer_params``): a layer at rest is
+        whole only while it runs, and again in its recompute."""
         x = self._embed(tokens)
         S = tokens.shape[1]
         off = self.ctx.index(self.ctx.tp) * S if self._cp else 0
@@ -460,8 +479,9 @@ class LM(nn.Module):
         caches: List[Dict[str, torch.Tensor]] = []
         aux = x.new_zeros((), dtype=torch.float32)
         for layer in self.layers:
-            def one(x, p=self._layer_params(layer)):
-                return self._block(x, p, positions, need_state=collect_cache,
+            def one(x, layer=layer):
+                return self._block(x, self._layer_params(layer), positions,
+                                   need_state=collect_cache,
                                    want_aux=want_aux)
             x, new = remat_layer(one, x) if self.remat else one(x)
             if "aux" in new:
@@ -473,10 +493,11 @@ class LM(nn.Module):
             return x, (caches if collect_cache else None), aux
         return x, (caches if collect_cache else None)
 
-    def logits_fn(self, hidden):
+    def logits_fn(self, hidden, head: Optional[torch.Tensor] = None):
+        """f32 logits of ``hidden``; ``head`` (``_head()``) when the caller
+        gathered it already."""
         cfg = self.cfg
-        head = (self._top("embed").T if cfg.tie_embeddings
-                else self._top("lm_head"))
+        head = self._head() if head is None else head
         logits = (hidden @ head).float()
         vp = cfg.padded_vocab()
         if vp != cfg.vocab_size:
@@ -486,26 +507,31 @@ class LM(nn.Module):
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {'tokens': [B,S], 'targets': [B,S]} (-1 = padding).
         Returns (loss, {"nll", "aux"}): the mean NLL over valid targets, to
-        which a moe model adds ``0.01 * aux / n_layers``."""
+        which a moe model adds ``0.01 * aux / n_layers``.  The head is
+        gathered once for every chunk.  Under a ctx whose ``batch_axes``
+        split the tokens over n ranks, ``nll`` is the rank's share (its
+        summed NLL over the global count) and ``aux`` the global batch's
+        (``layers.moe_aux_loss``), which enters the share as ``0.01 * aux
+        / n_layers / n``: the shares sum to the global loss, and since the
+        all-reduce under ``aux`` sums the ranks' gradients in its backward,
+        the ranks' gradients sum to the global loss's."""
         tokens, targets = batch["tokens"], batch["targets"]
-        split = self.ctx.enabled and self.ctx.axis_size(
-            self.ctx.batch_axes) > 1
-        if split and self.cfg.family == "moe":
-            raise NotImplementedError(
-                "the moe aux loss is not a sum over token shards: a moe loss "
-                "under a ctx that splits the tokens is not ported")
+        n = self.ctx.axis_size(self.ctx.batch_axes) if self.ctx.enabled \
+            else 1
         hidden, _, aux = self.forward(tokens, want_aux=True)
         Sq = hidden.shape[1]
         c = min(self.loss_chunk, Sq)
         assert Sq % c == 0
-        total, count = chunked_nll(self.logits_fn, hidden, targets, c)
-        if split:
+        head = self._head()
+        total, count = chunked_nll(lambda h: self.logits_fn(h, head), hidden,
+                                   targets, c)
+        if n > 1:
             count = comm.all_reduce(count, self.ctx.group(
                 self.ctx.batch_axes))
         nll = total / count.clamp(min=1.0)
         loss = nll
         if self.cfg.family == "moe":
-            loss = loss + 0.01 * aux / self.cfg.n_layers
+            loss = loss + 0.01 * aux / self.cfg.n_layers / n
         return loss, {"nll": nll, "aux": aux}
 
     # ------------------------------------------------------------------

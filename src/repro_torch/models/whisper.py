@@ -32,7 +32,9 @@ site takes each of them, as in the reference; decode self-attention is
 under grad runs each encoder and decoder layer in
 ``torch.utils.checkpoint``, as ``LM`` does.  Under a ``ShardCtx`` the
 model runs data-parallel on the rank's batch rows (every layer's weights
-through ``gather_params``, whole; activations unsplit otherwise), and
+whole: through ``gather_params``, or under grad gathered inside the
+layer's remat body by ``sharding.gathered``; activations unsplit
+otherwise), and
 ``loss`` returns the rank's share of the global loss, as ``LM``'s does;
 ``param_axes`` and ``cache_axes`` give the JAX twin's logical axes.
 """
@@ -49,7 +51,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.lm import (_DTYPES, ParamGroup, chunked_nll,
                                    remat_layer, stacked)
-from repro_torch.sharding import ShardCtx, comm, full
+from repro_torch.sharding import ShardCtx, comm, full, gathered
 
 MAX_DECODER_POS = 32768  # learned positions table bound (largest assigned shape)
 
@@ -185,14 +187,19 @@ class EncDecLM(nn.Module):
         return local_len
 
     def _top(self, name: str) -> torch.Tensor:
-        """A top-level weight to compute with (a DTensor gathered whole)."""
-        return full(getattr(self.top, name))
+        """A top-level weight to compute with (a DTensor gathered whole by
+        ``gathered``: under grad its gradient lands in its layout)."""
+        return gathered(getattr(self.top, name), self.ctx.batch_axes)
 
     def _layer_params(self, layer, axes) -> Dict[str, torch.Tensor]:
-        """One layer's weights to compute with (DTensors gathered)."""
+        """One layer's weights to compute with (DTensors gathered whole;
+        under grad by ``gathered``, else by ``gather_fsdp`` and then the
+        rest, as ``LM._layer_params``)."""
         p = layer.tensors()
         if not self.ctx.enabled:
             return p
+        if torch.is_grad_enabled():
+            return {n: gathered(w, self.ctx.batch_axes) for n, w in p.items()}
         return {n: full(w) for n, w in
                 self.ctx.gather_params(p, axes).items()}
 
@@ -242,8 +249,9 @@ class EncDecLM(nn.Module):
         x = frames.to(self.dtype) + self._top("enc_pos").to(self.dtype)
         x = self.ctx.constrain(x, "batch", None, None)
         for layer in self.enc_layers:
-            def one(x, p=self._layer_params(layer, self._enc_axes)):
-                return self._enc_block(x, p)
+            def one(x, layer=layer):
+                return self._enc_block(
+                    x, self._layer_params(layer, self._enc_axes))
             x = remat_layer(one, x) if self.remat else one(x)
         return L.layer_norm(x, self._top("enc_final_ln"),
                             self._top("enc_final_ln_b"),
@@ -287,7 +295,8 @@ class EncDecLM(nn.Module):
         x = self._dec_embed(tokens, 0)
         caches: List[Dict[str, torch.Tensor]] = []
         for layer in self.dec_layers:
-            def one(x, p=self._layer_params(layer, self._dec_axes)):
+            def one(x, layer=layer):
+                p = self._layer_params(layer, self._dec_axes)
                 xk, xv = self._cross_kv(p, enc_out)
                 x, (k, v) = self._dec_block(x, p, xk, xv)
                 return x, {"k": k, "v": v, "xk": xk, "xv": xv}
@@ -298,11 +307,18 @@ class EncDecLM(nn.Module):
                          self.cfg.norm_eps)
         return x, (caches if collect_cache else None)
 
-    def logits_fn(self, hidden):
-        """Tied embeddings; the padded vocabulary's logits are -1e30."""
+    def _embed_whole(self) -> torch.Tensor:
+        """The embedding to take logits with (tied), gathered as
+        ``_layer_params`` gathers a layer's weights."""
+        if torch.is_grad_enabled():
+            return self._top("embed")
+        return full(self.ctx.gather_fsdp(self.top.embed, ("vocab", "d_model")))
+
+    def logits_fn(self, hidden, embed: Optional[torch.Tensor] = None):
+        """Tied embeddings; the padded vocabulary's logits are -1e30.
+        ``embed`` (``_embed_whole()``) when the caller gathered it."""
         cfg = self.cfg
-        embed = full(self.ctx.gather_fsdp(self.top.embed,
-                                          ("vocab", "d_model")))
+        embed = self._embed_whole() if embed is None else embed
         logits = (hidden @ embed.T).float()
         if cfg.padded_vocab() != cfg.vocab_size:
             logits[..., cfg.vocab_size:] = L.NEG_INF
@@ -315,7 +331,9 @@ class EncDecLM(nn.Module):
         hidden, _ = self.decode_parallel(batch["tokens"], enc_out)
         c = min(self.loss_chunk, hidden.shape[1])
         assert hidden.shape[1] % c == 0
-        total, count = chunked_nll(self.logits_fn, hidden, batch["targets"], c)
+        embed = self._embed_whole()               # once for every chunk
+        total, count = chunked_nll(lambda h: self.logits_fn(h, embed),
+                                   hidden, batch["targets"], c)
         if self.ctx.enabled and self.ctx.axis_size(self.ctx.batch_axes) > 1:
             count = comm.all_reduce(count, self.ctx.group(
                 self.ctx.batch_axes))

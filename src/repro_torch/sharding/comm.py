@@ -16,6 +16,15 @@ two ranks on one device), so nothing is staged through host memory.  The
 ``fake`` backend (``torch.testing._internal.distributed.fake_pg``: one
 process standing for every rank, as the dry run uses it) issues no
 transfer, so it is direct as well.
+
+Under autograd the models use the differentiable forms: ``gather_grad``
+(an all-gather whose backward reduce-scatters the ranks' gradients),
+``all_reduce_grad`` (a sum whose backward sums the ranks' gradients),
+and the pair ``sum_grads`` / ``reduce_partials`` around a region whose
+partial results the ranks sum (identity forward with summed gradients,
+summed forward with the gradient passed on), as tensor-parallel code
+brackets its region.  Each makes the same collective as its plain form,
+and the plain form when autograd does not record the tensor.
 """
 from __future__ import annotations
 
@@ -105,3 +114,67 @@ def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
             dist.reduce_scatter_tensor(out, t, group=group)
         return out
     return _run(xt.contiguous(), group, run).movedim(0, dim)
+
+
+def _records(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, group, dim):
+        fctx.group, fctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return reduce_scatter(g, fctx.group, fctx.dim), None, None
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, group, forward_sums, backward_sums):
+        fctx.group, fctx.backward_sums = group, backward_sums
+        return all_reduce(x, group) if forward_sums else x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return (all_reduce(g, fctx.group) if fctx.backward_sums else g,
+                None, None, None)
+
+
+def gather_grad(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``all_gather`` whose backward hands each rank its piece of the sum
+    of the ranks' gradients (a reduce-scatter): the ranks' ``x`` are
+    pieces of one tensor and each rank's gradient of the whole is its own
+    loss's."""
+    if _size(group) == 1 or not _records(x):
+        return all_gather(x, group, dim)
+    return _Gather.apply(x, group, dim)
+
+
+def all_reduce_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the ranks' ``x``, whose backward is the sum of the ranks'
+    gradients: every rank uses the sum in its own loss, and the gradient
+    of the sum of those losses reaches each rank's ``x`` whole."""
+    if _size(group) == 1 or not _records(x):
+        return all_reduce(x, group)
+    return _Sum.apply(x, group, True, True)
+
+
+def sum_grads(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is, whose backward sums the ranks' gradients: the entry
+    of a region where each rank computes a partial result from the same
+    ``x`` (the ranks' gradients of ``x`` are partial too)."""
+    if _size(group) == 1 or not _records(x):
+        return x
+    return _Sum.apply(x, group, False, True)
+
+
+def reduce_partials(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the ranks' partial ``x``, whose backward passes the
+    gradient on: the exit of such a region when every rank goes on with
+    the same sum (its gradient is every rank's whole)."""
+    if _size(group) == 1 or not _records(x):
+        return all_reduce(x, group)
+    return _Sum.apply(x, group, True, False)

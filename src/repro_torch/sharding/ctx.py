@@ -23,10 +23,13 @@ under the ``cp`` preset, the decode cache's sequence under ``tp_seq`` /
 combine-before-reduce branch; every other computation is replicated over
 the axes that do not split its data.  GSPMD's implicit layout changes
 have no counterpart: ``constrain`` and ``gather_fsdp`` redistribute a
-``DTensor`` (the train step's and the checkpoints' sharded state) and
+``DTensor`` (the weights at rest and the checkpoints' sharded state) and
 leave a plain tensor, whose layout the branch that made it fixes, as it
-is.  Both are no-ops under ``ShardCtx.null()``.  Every collective goes
-through ``sharding.comm``.
+is.  Both are no-ops under ``ShardCtx.null()``.  A weight at rest is
+computed with whole: ``full`` gathers it, and ``gathered`` does so under
+autograd with a backward that lands its gradient in the weight's layout
+(``Layout.land``), the FSDP step's gather and reduce-scatter.  Every
+collective goes through ``sharding.comm``.
 """
 from __future__ import annotations
 
@@ -433,6 +436,39 @@ def full(t):
     if not _is_dtensor(t):
         return t
     return Layout.of(t).gather(t.to_local())
+
+
+class _GatherLanded(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, w, summed):
+        fctx.layout, fctx.summed = Layout.of(w), summed
+        return fctx.layout.gather(w.to_local())
+
+    @staticmethod
+    def backward(fctx, g):
+        piece = fctx.layout.land(g.float(), fctx.summed)
+        return fctx.layout.dtensor(piece), None
+
+
+def gathered(w, summed: Sequence[str]):
+    """The whole value of the weight ``w`` to compute with, as ``full``
+    gives it; when autograd records a DTensor ``w`` (a parameter at rest,
+    ``train.steps.rest_sharded``), differentiably: the backward hands the
+    whole-size gradient, in f32, to ``Layout.of(w).land(g, summed)``, so
+    the gradient autograd leaves on ``w`` is this rank's piece of the sum
+    over the mesh axes ``summed`` (those that split the tokens,
+    ``ShardCtx.batch_axes``): a reduce-scatter over the axes that both
+    split the tokens and shard ``w``, a cut for the others, an all-reduce
+    over the rest of ``summed``.  Autograd casts the piece to ``w``'s
+    dtype.  The FSDP gather as the JAX package's layer scan makes it:
+    called inside a remat body, the forward holds the layer whole only
+    while it runs, the recompute gathers again, and the backward
+    reduce-scatters each layer's gradient as it is done."""
+    if not _is_dtensor(w):
+        return w
+    if not (torch.is_grad_enabled() and w.requires_grad):
+        return full(w)
+    return _GatherLanded.apply(w, tuple(summed))
 
 
 def is_axes_leaf(x) -> bool:

@@ -14,9 +14,10 @@ the top-level parameters of rank 2 or more.  The port keeps each layer's
 parameters unstacked (``layers.3.ln1`` is ``(d,)``), so ``decays`` counts
 the layer index in the name as the stack's axis (ROADMAP.md queue 3).
 ``state_axes`` gives the moments their parameters' logical axes; under
-a sharded train step (``train.steps``, ``grad_shardings``) the moments are
-each rank's pieces of those layouts (``init_state``'s ``layouts``) and the
-clipping norm is the global one, handed to ``apply_update``.
+a sharded train step (``train.steps``: weights at rest, or
+``grad_shardings``) the moments are each rank's pieces of those layouts
+(``init_state``'s ``layouts``) and the clipping norm is the global one,
+handed to ``apply_update``.
 """
 from __future__ import annotations
 

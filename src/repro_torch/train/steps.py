@@ -15,16 +15,23 @@ no kernel has a backward, and K2, K6 and K7 refuse to run under grad
 (``kernels.no_backward``).
 
 Sharded (the model's ``ctx`` on a mesh of ranks), each rank computes the
-gradients of its share of the loss (``LM.loss``) on its tokens, with the
-whole weights it holds.  Without ``grad_shardings`` they are summed over
-the ranks that hold different tokens (an all-reduce) and every rank takes
-the same whole update.  With ``grad_shardings`` (``param_layouts``) each
-gradient lands in its parameter's layout: a reduce-scatter over the mesh
-axes that both split the tokens and shard the parameter (the FSDP
-gradient), a cut over the others; AdamW then updates this rank's pieces
-with moments laid out alike (``optim.init_state(..., layouts)``) and the
-global clipping norm, and the updated pieces are all-gathered into the
-model's weights.
+gradients of its share of the loss (``LM.loss``) on its tokens.  A model
+at rest (``rest_sharded``: its parameters are this rank's pieces, as
+DTensors) trains at rest, as the JAX package's FSDP step does: the forward
+gathers each layer inside its remat body (``sharding.gathered``), whose
+backward reduce-scatters the layer's gradient into its layout, so the
+gradients arrive as pieces, ``accum`` sums pieces, AdamW updates each
+piece in place with moments laid out alike (``optim.init_state(...,
+param_layouts(model))``) and the global clipping norm, and no weight or
+gradient is ever whole on a rank but the layer that runs.  A model with
+whole weights holds them on every rank and computes whole gradients:
+without ``grad_shardings`` they are summed over the ranks that hold
+different tokens (an all-reduce) and every rank takes the same whole
+update; with ``grad_shardings`` (``param_layouts``) each gradient lands in
+its parameter's layout (a reduce-scatter over the mesh axes that both
+split the tokens and shard the parameter, a cut over the others), AdamW
+updates this rank's pieces, and the updated pieces are all-gathered into
+the model's weights.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ import torch
 
 from repro_torch.models.convert import axes_by_name
 from repro_torch.sharding import comm
+from repro_torch.sharding.ctx import _is_dtensor
 from repro_torch.train import optim
 from repro_torch.train.optim import AdamWConfig
 
@@ -55,10 +63,9 @@ def param_layouts(model):
 def rest_sharded(model) -> None:
     """Puts each of the model's parameters at rest in its layout
     (``param_layouts``): this rank's piece, as a DTensor.  The model's
-    forward gathers a layer's weights whole as it runs the layer
-    (``gather_params``), so serving holds one layer's whole weights at a
-    time; a train step takes whole weights (it lands the gradients in the
-    layouts itself)."""
+    forward gathers a layer's weights whole as it runs the layer, so
+    serving holds one layer's whole weights at a time, and a train step
+    trains the pieces (``make_train_step``)."""
     import torch.nn as nn
     for name, layout in param_layouts(model).items():
         owner, leaf = name.rsplit(".", 1)
@@ -88,6 +95,11 @@ def _trainable(leaves):
             p.requires_grad_(flag)
 
 
+def at_rest(model) -> bool:
+    """Whether the model's parameters are at rest (DTensor pieces)."""
+    return any(_is_dtensor(p) for p in model.parameters())
+
+
 def make_train_step(model, opt_cfg: AdamWConfig, *, accum: int = 1,
                     grad_hook: Optional[Callable] = None,
                     grad_shardings: Optional[Dict] = None):
@@ -96,9 +108,11 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, accum: int = 1,
     splits the batch on the leading axis into microbatches whose gradients
     are summed in f32 buffers, as the reference's scan does.  ``grad_hook``
     (e.g. ``runtime.compress.make_compression_hook``) is applied to the
-    final gradient dict.  ``grad_shardings`` (``param_layouts(model)``):
-    gradients land in the parameters' layouts, and ``opt_state`` holds
-    this rank's pieces of the moments."""
+    final gradient dict.  A model at rest trains its pieces: its gradients
+    and ``opt_state``'s moments are this rank's pieces of the layouts its
+    DTensors carry.  With whole weights, ``grad_shardings``
+    (``param_layouts(model)``) lands the gradients in the parameters'
+    layouts, and ``opt_state`` holds this rank's pieces of the moments."""
     loss_fn = make_loss_fn(model)
     ctx = model.ctx
     summed = ctx.batch_axes if ctx.enabled else ()
@@ -108,6 +122,18 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, accum: int = 1,
     own = model_params(model)
     names = list(own)
     leaves = [own[n] for n in names]
+    rest = ctx.enabled and at_rest(model)
+    if rest and grad_shardings is not None:
+        raise ValueError("a model at rest lands its gradients in its "
+                         "DTensors' layouts: pass no grad_shardings")
+    if rest:
+        from repro_torch.sharding import Layout
+        layouts = {n: Layout.of(p) for n, p in own.items()}
+    else:
+        layouts = grad_shardings if ctx.enabled else None
+
+    def piece(t):
+        return t.to_local() if rest else t
 
     def grads_of(batch):
         loss, metrics = loss_fn(batch)
@@ -123,40 +149,38 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, accum: int = 1,
         with _trainable(leaves):
             if accum == 1:
                 loss, _, g = grads_of(batch)
-                grads = {n: t.float() for n, t in zip(names, g)}
+                grads = {n: piece(t).float() for n, t in zip(names, g)}
             else:
                 rows = next(iter(batch.values())).shape[0]
                 if rows % accum:
                     raise ValueError(f"a batch of {rows} rows does not split "
                                      f"into {accum} microbatches")
                 m = rows // accum
-                grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                        device=p.device)
+                grads = {n: torch.zeros(piece(p).shape, dtype=torch.float32,
+                                        device=piece(p).device)
                          for n, p in own.items()}
                 loss = torch.zeros((), dtype=torch.float32,
-                                   device=leaves[0].device)
+                                   device=piece(leaves[0]).device)
                 for i in range(accum):
                     mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
                     l, _, g = grads_of(mb)
                     for n, t in zip(names, g):
-                        grads[n].add_(t)
+                        grads[n].add_(piece(t))
                     loss = loss + l
                     del g
                 grads = {n: t.div_(accum) for n, t in grads.items()}
                 loss = loss / accum
         loss = comm.all_reduce(loss, group) if ctx.enabled else loss
-        gnorm, pieces = None, params
-        if ctx.enabled and grad_shardings is None:
+        gnorm, pieces = None, {n: piece(p) for n, p in params.items()}
+        if ctx.enabled and layouts is None:
             grads = {n: comm.all_reduce(g, group) for n, g in grads.items()}
-        elif ctx.enabled:
-            grads = {n: grad_shardings[n].land(g, summed)
-                     for n, g in grads.items()}
-            pieces = {n: grad_shardings[n].shard(p)
-                      for n, p in params.items()}
+        elif ctx.enabled and not rest:
+            grads = {n: layouts[n].land(g, summed) for n, g in grads.items()}
+            pieces = {n: layouts[n].shard(p) for n, p in params.items()}
         if grad_hook is not None:
             grads = grad_hook(grads)
-        if ctx.enabled and grad_shardings is not None:
-            sq = sum(torch.sum(torch.square(g)) / grad_shardings[n].replicas()
+        if layouts is not None:
+            sq = sum(torch.sum(torch.square(g)) / layouts[n].replicas()
                      for n, g in grads.items())
             gnorm = torch.sqrt(comm.all_reduce(sq, everyone))
         new_params, opt_state, opt_metrics = optim.apply_update(
@@ -165,8 +189,11 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, accum: int = 1,
         with torch.no_grad():
             for n in names:
                 new = new_params.pop(n)
-                if ctx.enabled and grad_shardings is not None:
-                    new = grad_shardings[n].gather(new)
+                if rest:
+                    own[n].to_local().copy_(new)
+                    continue
+                if layouts is not None:
+                    new = layouts[n].gather(new)
                 own[n].copy_(new)
         return params, opt_state, {"loss": loss, **opt_metrics}
 

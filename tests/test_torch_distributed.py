@@ -30,7 +30,12 @@ import torch
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 CP_ARCHS = ("glm4-9b", "hymba-1.5b", "rwkv6-7b", "command-r-35b")
 RANK_JOBS = ("cp", "rest", "moe", "decode", "train", "psum", "batch",
-             "ckpt_save")
+             "moe_train", "rest_train", "rest_families", "ckpt_save")
+MOE_ARCH = "qwen2-moe-a2.7b"
+# one config of each family, trained at rest against the JAX package's
+# single-device step and the port's own single-process step
+FAMILY_ARCHS = ("glm4-9b", "chameleon-34b", "dbrx-132b", "rwkv6-7b",
+                "hymba-1.5b", "whisper-medium")
 SPAWN_TIMEOUT_S = 300
 CP_TOL = 3e-3                      # tests/test_perf_variants.py's
 TRAIN_LOSS_TOL = 1e-3              # tests/test_distributed.py's
@@ -245,6 +250,149 @@ def job_train(mesh, rank, tmp):
     return out
 
 
+def train_once(model, batch, *, accum=1, grad_shardings=None):
+    """One AdamW step (lr 1e-3) of ``model`` on ``batch``: (metrics as
+    floats, the whole updated parameters (every rank gathers them), the
+    moment elements this rank holds, the collectives made)."""
+    from repro_torch.sharding import comm, full
+    from repro_torch.train import optim
+    from repro_torch.train.steps import (make_train_step, model_params,
+                                         param_layouts)
+    params = model_params(model)
+    layouts = param_layouts(model) if model.ctx.enabled else None
+    opt = optim.init_state(params, layouts)
+    step = make_train_step(model, optim.AdamWConfig(lr=1e-3), accum=accum,
+                           grad_shardings=grad_shardings)
+    calls = dict(comm.calls)
+    _, opt, metrics = step(params, opt, batch)
+    made = {k: comm.calls[k] - calls[k] for k in calls}
+    return ({k: float(v) for k, v in metrics.items()},
+            {n: full(p).detach().clone() for n, p in params.items()},
+            sum(t.numel() for t in opt["mu"].values()), made)
+
+
+def job_moe_train(mesh, rank, tmp):
+    """qwen2-moe-a2.7b's loss shares and one AdamW step, its weights at
+    rest, under ``default`` (rows over data, the MoE combine-before-reduce
+    over model) and ``cp`` (the sequence over model too); and under
+    ``default`` with whole weights landing their gradients."""
+    from repro_torch.data import SyntheticLMData, make_global_batch
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.launch.specs import token_layout
+    from repro_torch.models import get_model
+    from repro_torch.sharding import comm
+    from repro_torch.train.steps import param_layouts, rest_sharded
+    cfg = port_cfg(MOE_ARCH)
+    data = SyntheticLMData(cfg, 32, 8, seed=2)
+    out = {}
+    for name, preset, rest in (("default", "default", True),
+                               ("cp", "cp", True),
+                               ("default_whole", "default", False)):
+        ctx = make_ctx(mesh, preset=preset, moe_impl="shard_map")
+        model = get_model(cfg, "cpu", ctx=ctx)
+        model.load_state_dict(load(tmp, f"params_{MOE_ARCH}"))
+        if rest:
+            rest_sharded(model)
+        batch = make_global_batch(data, 0, "cpu",
+                                  sharding=token_layout(ctx, 8, 32))
+        with torch.no_grad():
+            share, metrics = model.loss(batch)
+        loss = float(comm.all_reduce(share, ctx.group(ctx.batch_axes)))
+        m, params, mu, made = train_once(
+            model, batch, grad_shardings=None if rest
+            else param_layouts(model))
+        out[name] = {"loss_fn": loss, "aux": float(metrics["aux"]),
+                     "metrics": m, "mu_numel": mu, "calls": made,
+                     "params": params if rank == 0 else None}
+    return out
+
+
+def job_rest_train(mesh, rank, tmp):
+    """stablelm-3b at rest under ``fsdp`` and ``default`` with accum 1 and
+    2, beside the same step with whole weights landing their gradients;
+    and one step of whisper-medium at rest under ``fsdp``."""
+    from repro_torch.data import SyntheticLMData, make_global_batch
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.launch.specs import token_layout
+    from repro_torch.models import get_model
+    from repro_torch.train.steps import param_layouts, rest_sharded
+    cfg = port_cfg("stablelm-3b")
+    data = SyntheticLMData(cfg, 32, 8, seed=1)
+    out = {}
+    for preset in ("fsdp", "default"):
+        ctx = make_ctx(mesh, preset=preset)
+        batch = make_global_batch(data, 0, "cpu",
+                                  sharding=token_layout(ctx, 8, 32))
+        for accum in (1, 2):
+            for rest in (True, False):
+                model = get_model(cfg, "cpu", ctx=ctx)
+                model.load_state_dict(load(tmp, "params_stablelm-3b"))
+                if rest:
+                    rest_sharded(model)
+                m, params, mu, made = train_once(
+                    model, batch, accum=accum, grad_shardings=None if rest
+                    else param_layouts(model))
+                out[(preset, accum, rest)] = {
+                    "metrics": m, "mu_numel": mu, "calls": made,
+                    "params": params if rank == 0 else None}
+    wcfg = port_cfg("whisper-medium")
+    ctx = make_ctx(mesh, preset="fsdp")
+    model = get_model(wcfg, "cpu", ctx=ctx)
+    model.load_state_dict(load(tmp, "params_whisper-medium"))
+    rest_sharded(model)
+    whole = load(tmp, "batch_whisper-medium")
+    rows = token_layout(ctx, *whole["tokens"].shape)
+    r0, r1 = rows.bounds(tuple(whole["tokens"].shape))[0]
+    m, params, mu, made = train_once(model, {k: v[r0:r1]
+                                             for k, v in whole.items()})
+    out["whisper"] = {"metrics": m, "mu_numel": mu, "calls": made,
+                      "params": params if rank == 0 else None}
+    return out
+
+
+def job_rest_families(mesh, rank, tmp):
+    """One config of each family at rest under ``fsdp`` and ``cp`` (whisper
+    under ``fsdp`` only: its sequence is never split) on the JAX side's
+    weights and batch, beside the port's single-process step on the whole
+    batch; and under ``fsdp`` with accum 2."""
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.launch.specs import token_layout
+    from repro_torch.models import get_model
+    from repro_torch.train.steps import rest_sharded
+    out = {}
+    for arch in FAMILY_ARCHS:
+        cfg = port_cfg(arch)
+        start = load(tmp, f"params_{arch}")
+        batch = load(tmp, f"family_batch_{arch}")
+        plain = get_model(cfg, "cpu")
+        plain.load_state_dict(start)
+        want_m, want, _, _ = train_once(plain, batch)
+        rows, seq = batch["tokens"].shape
+        for preset, accum in (("fsdp", 1), ("cp", 1), ("fsdp", 2)):
+            if cfg.family == "encdec" and preset == "cp":
+                continue
+            ctx = make_ctx(mesh, preset=preset)
+            model = get_model(cfg, "cpu", ctx=ctx)
+            model.load_state_dict(start)
+            rest_sharded(model)
+            lay = token_layout(ctx, rows, seq)
+            mine = {k: lay.shard(v) if k != "frames" else
+                    v[slice(*lay.bounds((rows, seq))[0])]
+                    for k, v in batch.items()}
+            m, params, _, _ = train_once(model, mine, accum=accum)
+            if accum > 1:
+                out[(arch, preset, accum)] = {
+                    "metrics": m, "params": params if rank == 0 else None}
+                continue
+            out[(arch, preset)] = {
+                "metrics": m, "want_metrics": want_m,
+                "params": params if rank == 0 else None,
+                "tol_ratio": max(float(((params[n] - want[n]).abs() / (
+                    TRAIN_RTOL * want[n].abs() + TRAIN_ATOL)).max())
+                    for n in want)}
+    return out
+
+
 def job_psum(mesh, rank, tmp):
     """compressed_psum of this rank's rows over all four ranks, twice (the
     second call carrying the first's residual)."""
@@ -406,12 +554,16 @@ def jax_side(tmp):
         return dataclasses.replace(get_config(arch).reduced(),
                                    param_dtype="float32")
 
+    made = {}
+
     def model_and_params(arch):
-        m = get_model(jcfg(arch))
-        params = m.init_params(jax.random.PRNGKey(0))
-        save(f"params_{arch}", params_from_jax(
-            port_cfg(arch), jax.tree.map(np.asarray, params)))
-        return m, params
+        if arch not in made:
+            m = get_model(jcfg(arch))
+            params = m.init_params(jax.random.PRNGKey(0))
+            save(f"params_{arch}", params_from_jax(
+                port_cfg(arch), jax.tree.map(np.asarray, params)))
+            made[arch] = m, params
+        return made[arch]
 
     ref = {}
     for arch, shape, key in [(a, (4, 32), "cp") for a in CP_ARCHS] + [
@@ -437,14 +589,65 @@ def jax_side(tmp):
         ref[f"decode_{name}"] = np.asarray(
             m.decode_step(params, cache, tok, jnp.int32(16))[0])
 
+    def one_step(arch, m, params, batch, accum=1):
+        p_ref, _, m_ref = jax.jit(make_train_step(
+            m, AdamWConfig(lr=1e-3), accum=accum))(params, init_state(params),
+                                                    batch)
+        return {"loss": float(m_ref["loss"]),
+                "grad_norm": float(m_ref["grad_norm"]),
+                "params": params_from_jax(port_cfg(arch), jax.tree.map(
+                    np.asarray, p_ref))}
+
     m, params = model_and_params("stablelm-3b")
     data = SyntheticLMData(jcfg("stablelm-3b"), 32, 8, seed=1)
-    p_ref, _, m_ref = jax.jit(make_train_step(m, AdamWConfig(lr=1e-3)))(
-        params, init_state(params), data.batch(0))
-    ref["train_loss"] = float(m_ref["loss"])
-    ref["train_grad_norm"] = float(m_ref["grad_norm"])
-    ref["train_params"] = params_from_jax(port_cfg("stablelm-3b"),
-                                          jax.tree.map(np.asarray, p_ref))
+    step = one_step("stablelm-3b", m, params, data.batch(0))
+    ref["train_loss"] = step["loss"]
+    ref["train_grad_norm"] = step["grad_norm"]
+    ref["train_params"] = step["params"]
+    ref["train_accum2"] = one_step("stablelm-3b", m, params, data.batch(0),
+                                   accum=2)
+    m, params = model_and_params(MOE_ARCH)
+    batch = SyntheticLMData(jcfg(MOE_ARCH), 32, 8, seed=2).batch(0)
+    ref["moe_train"] = one_step(MOE_ARCH, m, params, batch)
+    ref["moe_train"]["loss_fn"] = float(jax.jit(m.loss)(params, batch)[0])
+    m, params = model_and_params("whisper-medium")
+    wcfg = jcfg("whisper-medium")
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, wcfg.vocab_size, (8, 8)),
+             "targets": rng.integers(0, wcfg.vocab_size, (8, 8)),
+             "frames": rng.standard_normal((8, wcfg.encoder.n_frames,
+                                            wcfg.d_model))}
+    batch["targets"][0, :3] = -1
+    save("batch_whisper-medium", {
+        k: torch.from_numpy(v.astype(np.float32 if k == "frames"
+                                     else np.int64))
+        for k, v in batch.items()})
+    ref["whisper_train"] = one_step("whisper-medium", m, params, {
+        k: jnp.asarray(v, jnp.float32 if k == "frames" else jnp.int32)
+        for k, v in batch.items()})
+    for arch in FAMILY_ARCHS:
+        m, params = model_and_params(arch)
+        cfg = jcfg(arch)
+        rng = np.random.default_rng(5)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (8, 32)),
+                 "targets": rng.integers(0, cfg.vocab_size, (8, 32))}
+        if cfg.family == "encdec":
+            batch["frames"] = rng.standard_normal(
+                (8, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
+        save(f"family_batch_{arch}", {k: torch.from_numpy(
+            v if k == "frames" else v.astype(np.int64))
+            for k, v in batch.items()})
+        jbatch = {k: jnp.asarray(v, jnp.float32 if k == "frames"
+                                 else jnp.int32) for k, v in batch.items()}
+        ref[f"family_{arch}"] = one_step(arch, m, params, jbatch)
+        # a sharded step's microbatch i is each rank's i-th row (fsdp: 2
+        # rows a rank), so JAX's microbatches are taken from the same rows
+        # (ROADMAP, "Differences kept on purpose": a moe aux term and its
+        # expert capacity are the microbatch's)
+        mine = np.arange(8).reshape(4, 2).T.reshape(-1)
+        ref[f"family_{arch}_accum2"] = one_step(
+            arch, m, params, {k: v[mine] for k, v in jbatch.items()},
+            accum=2)
     ref["batch"] = SyntheticLMData(jcfg("stablelm-3b"), 16, 8,
                                    seed=5).batch(3)
     return ref
@@ -600,6 +803,122 @@ def test_sharded_train_step_matches_single_device_jax(runs, name):
         assert calls["reduce_scatter"] == 0 and results[0]["mu_numel"] == full
     assert sum(r["rows"] for r in results) == (16 if name.startswith(
         "default") else 8)            # data 2 x model 2 (replicated) / 4
+
+
+def assert_params_close(got, want, **kw):
+    for n, w in want.items():
+        np.testing.assert_allclose(got[n].numpy(), w.numpy(), err_msg=n,
+                                   **kw)
+
+
+@pytest.mark.parametrize("name", ["default", "cp", "default_whole"])
+def test_moe_loss_and_step_under_a_token_split_match_jax(runs, name):
+    """qwen2-moe-a2.7b on four ranks: the loss shares (each with the global
+    batch's aux term over the ranks that split the tokens) sum to the JAX
+    package's loss, and one AdamW step at rest under ``default`` (the
+    combine-before-reduce over the model axis) and ``cp`` (the sequence
+    split too), and with whole weights, equals the JAX single-device
+    step."""
+    out, ref = runs
+    want = ref["moe_train"]
+    results = [r[name] for r in out["moe_train"]]
+    for r in results:
+        assert abs(r["loss_fn"] - want["loss_fn"]) < TRAIN_LOSS_TOL
+        assert abs(r["metrics"]["loss"] - want["loss"]) < TRAIN_LOSS_TOL
+        assert abs(r["metrics"]["grad_norm"] - want["grad_norm"]) < 1e-4 * \
+            max(1.0, want["grad_norm"])
+        assert r["aux"] > 0
+    assert len({r["aux"] for r in results}) == 1     # the global term
+    assert_params_close(results[0]["params"], want["params"],
+                        rtol=TRAIN_RTOL, atol=TRAIN_ATOL)
+    full = sum(p.numel() for p in want["params"].values())
+    assert results[0]["mu_numel"] < full
+    assert results[0]["calls"]["reduce_scatter"] > 0
+
+
+@pytest.mark.parametrize("preset", ["fsdp", "default"])
+@pytest.mark.parametrize("accum", [1, 2])
+def test_step_at_rest_matches_jax_and_the_whole_weight_step(runs, preset,
+                                                            accum):
+    """stablelm-3b with its weights at rest: one AdamW step equals the JAX
+    single-device step and the step with whole weights, with accum 1 and
+    2; its gradients arrive as pieces (no all-gather of updated weights)
+    and its moments are pieces."""
+    out, ref = runs
+    want = ref["train_params"] if accum == 1 else ref["train_accum2"][
+        "params"]
+    want_loss = ref["train_loss"] if accum == 1 else ref["train_accum2"][
+        "loss"]
+    rest = [r[(preset, accum, True)] for r in out["rest_train"]]
+    whole = [r[(preset, accum, False)] for r in out["rest_train"]]
+    for r, w in zip(rest, whole):
+        assert abs(r["metrics"]["loss"] - want_loss) < TRAIN_LOSS_TOL
+        for k in ("loss", "grad_norm", "lr"):
+            assert abs(r["metrics"][k] - w["metrics"][k]) <= 1e-6 * abs(
+                w["metrics"][k])
+        assert r["mu_numel"] == w["mu_numel"]
+    assert_params_close(rest[0]["params"], want, rtol=TRAIN_RTOL,
+                        atol=TRAIN_ATOL)
+    assert_params_close(rest[0]["params"], whole[0]["params"], rtol=1e-5,
+                        atol=1e-6)
+    # at rest every gather is a microbatch's (a weight gathered for its
+    # forward and its recompute), none gathers the updated pieces back;
+    # with whole weights the gathers are the update's alone
+    gathers = {(a, r): out["rest_train"][0][(preset, a, r)]["calls"][
+        "all_gather"] for a in (1, 2) for r in (True, False)}
+    assert gathers[(2, True)] == 2 * gathers[(1, True)] > 0
+    assert gathers[(2, False)] == gathers[(1, False)] > 0
+    assert rest[0]["calls"]["reduce_scatter"] > 0
+
+
+def test_whisper_step_at_rest_matches_jax(runs):
+    out, ref = runs
+    want = ref["whisper_train"]
+    results = [r["whisper"] for r in out["rest_train"]]
+    for r in results:
+        assert abs(r["metrics"]["loss"] - want["loss"]) < TRAIN_LOSS_TOL
+        assert abs(r["metrics"]["grad_norm"] - want["grad_norm"]) < 1e-4 * \
+            max(1.0, want["grad_norm"])
+    assert_params_close(results[0]["params"], want["params"],
+                        rtol=TRAIN_RTOL, atol=TRAIN_ATOL)
+    assert results[0]["mu_numel"] < sum(p.numel()
+                                        for p in want["params"].values())
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_every_family_trains_at_rest(runs, arch):
+    """Each family at rest (``fsdp``; ``cp`` too for the decoder-only
+    ones: attention's K/V gather, the recurrent scans' and the MoE block's
+    gathered sequence reduce-scatter their gradients) equals the JAX
+    single-device step (``tests/test_distributed.py:30``'s tolerances) and
+    the port's single-process step; under ``fsdp`` with accum 2, the JAX
+    step with accum 2 over the same microbatches."""
+    out, ref = runs
+    want = ref[f"family_{arch}"]
+    want2 = ref[f"family_{arch}_accum2"]
+    for i, r in enumerate(out["rest_families"]):
+        got = r[(arch, "fsdp", 2)]
+        assert abs(got["metrics"]["loss"] - want2["loss"]) < TRAIN_LOSS_TOL
+        assert abs(got["metrics"]["grad_norm"] - want2["grad_norm"]) \
+            < 1e-4 * max(1.0, want2["grad_norm"])
+        if i == 0:
+            assert_params_close(got["params"], want2["params"],
+                                rtol=TRAIN_RTOL, atol=TRAIN_ATOL)
+        keys = [k for k in r if k[0] == arch and len(k) == 2]
+        assert len(keys) == (1 if arch == "whisper-medium" else 2)
+        for k in keys:
+            got = r[k]
+            assert abs(got["metrics"]["loss"] - want["loss"]) \
+                < TRAIN_LOSS_TOL, k
+            assert abs(got["metrics"]["grad_norm"] - want["grad_norm"]) \
+                < 1e-4 * max(1.0, want["grad_norm"]), k
+            for m in ("loss", "grad_norm"):
+                assert abs(got["metrics"][m] - got["want_metrics"][m]) \
+                    < 1e-5 * max(1.0, abs(got["want_metrics"][m])), (k, m)
+            assert got["tol_ratio"] <= 1.0, k
+            if i == 0:
+                assert_params_close(got["params"], want["params"],
+                                    rtol=TRAIN_RTOL, atol=TRAIN_ATOL)
 
 
 def test_compressed_psum_matches_jax_under_shard_map(runs):

@@ -6,7 +6,10 @@ mesh and rules name; a SKIP cell's record is the JAX package's; and the
 JAX package's own slow cell, whisper-medium x decode_32k on the single
 pod, runs end to end in a subprocess (a ``fake`` group of 256 ranks, fake
 tensors) to ``OK`` with ``fits_hbm`` true and the record's keys, which
-``--resume`` then skips.
+``--resume`` then skips.  On fake tensors, the train step at rest tracks a
+lower peak than the step with whole weights by at least the f32 bytes of
+the weights a rank does not hold; a layer gathered outside its remat body
+loses that.
 """
 import json
 import os
@@ -149,3 +152,113 @@ def test_decoder_decode_cells_in_one_process(runs):
         assert rec["rules"] == "default" and rec["kv_quant"] is False
         kinds = rec["roofline"]["collective_count_by_kind"]
         assert kinds["all-gather"] > 0 and kinds["all-reduce"] > 0
+
+
+MEMORY = r"""
+import dataclasses, json, math, sys, warnings
+warnings.simplefilter("ignore")
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_config
+from repro_torch.launch import hlo_cost
+from repro_torch.launch.dryrun import fake_ranks
+from repro_torch.launch.mesh import make_ctx
+from repro_torch.launch.specs import token_layout
+from repro_torch.models import get_model
+from repro_torch.train import optim
+from repro_torch.train.steps import (make_train_step, model_params,
+                                     param_layouts, rest_sharded)
+
+fake_ranks(16)
+mesh = init_device_mesh("cpu", (4, 4), mesh_dim_names=("data", "model"))
+
+
+def gathered_before_the_layers(model):
+    # every layer gathered before the first runs, as a remat body's
+    # default argument evaluated outside it would: all held to the backward
+    forward, layer_params = model.forward, model._layer_params
+
+    def outside(*a, **kw):
+        held = {id(layer): layer_params(layer) for layer in model.layers}
+        model._layer_params = lambda layer: held[id(layer)]
+        try:
+            return forward(*a, **kw)
+        finally:
+            del model._layer_params
+    model.forward = outside
+
+
+def tracked(cfg, ctx, variant):
+    with FakeTensorMode():
+        model = get_model(cfg, "cpu", ctx=ctx)
+        if variant != "whole":
+            rest_sharded(model)
+        if variant == "outside":
+            gathered_before_the_layers(model)
+        params, layouts = model_params(model), param_layouts(model)
+        opt = optim.init_state(params, layouts)
+        step = make_train_step(model, optim.AdamWConfig(),
+                               grad_shardings=layouts if variant == "whole"
+                               else None)
+        lay = token_layout(ctx, ctx.axis_size(ctx.batch_axes), 8)
+        batch = {k: torch.zeros(lay.local_shape(
+            (ctx.axis_size(ctx.batch_axes), 8)), dtype=torch.int64)
+            for k in ("tokens", "targets")}
+        live = hlo_cost.LiveBytes((params, opt, batch))
+        with hlo_cost.Counter(live):
+            step(params, opt, batch)
+        held = sum(math.prod(layouts[n].local_shape(p.shape))
+                   for n, p in params.items())
+        whole = sum(p.numel() for p in params.values())
+        return live.peak, whole - held
+
+
+out = {}
+for arch, preset in json.loads(sys.argv[1]):
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              param_dtype="float32", n_layers=8)
+    ctx = make_ctx(mesh, preset=preset)
+    out[f"{arch} {preset}"] = {v: tracked(cfg, ctx, v)
+                               for v in ("whole", "rest", "outside")}
+print(json.dumps(out))
+"""
+MEMORY_CASES = (("glm4-9b", "fsdp"), ("glm4-9b", "default"),
+                ("qwen2-moe-a2.7b", "default"), ("rwkv6-7b", "cp"))
+
+
+@pytest.fixture(scope="module")
+def memory():
+    """Each case's three tracked steps, the cases in processes side by
+    side."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(__file__), "..", "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", MEMORY,
+                               json.dumps([case])], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for case in MEMORY_CASES]
+    out = {}
+    for proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        assert proc.returncode == 0, stderr[-3000:]
+        out.update(json.loads(stdout.splitlines()[-1]))
+    return out
+
+
+@pytest.mark.parametrize("arch,preset", MEMORY_CASES)
+def test_step_at_rest_tracks_less_than_whole_weights(memory, arch, preset):
+    """Reduced in f32 to 8 layers on 16 fake ranks (mesh 4 x 4), a row of 8
+    tokens a rank: ``LiveBytes``' tracked peak of the step at rest is below
+    the whole-weight step's (gradients landed in the same layouts) by at
+    least 4 bytes x the parameters a rank does not hold at rest; with every
+    layer gathered before the layers run (outside the remat body) it is
+    not."""
+    got = memory[f"{arch} {preset}"]
+    (whole, away), (rest, _), (outside, _) = (got[v] for v in (
+        "whole", "rest", "outside"))
+    assert away > 0
+    assert whole - rest >= 4 * away, (whole, rest, away)
+    assert whole - outside < 4 * away, (whole, outside, away)

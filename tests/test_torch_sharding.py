@@ -5,11 +5,13 @@ offset (``q_offset``) in its plain version and at the ``attention`` site.
 
 Everything here runs in one process: layouts need only a mesh's shape
 (``launch.mesh.LayoutMesh``; the JAX side a namespace with ``shape``, as
-its dry run's fake mesh).  The multi-rank behaviour is in
+its dry run's fake mesh); the differentiable gather alone runs on four gloo
+ranks in subprocesses.  The rest of the multi-rank behaviour is in
 ``test_torch_distributed.py``.
 """
 import dataclasses
 import functools
+import json
 import math
 from types import SimpleNamespace
 
@@ -361,3 +363,86 @@ def test_production_mesh_on_the_fake_process_group():
     assert out.stdout.splitlines() == [
         "('data', 'model') (16, 16) 2 5 ('data', 'model')",
         "('pod', 'data', 'model') (2, 16, 16) 2 5 (('pod', 'data'), 'model')"]
+
+
+GATHER = r"""
+import json, sys, warnings
+from datetime import timedelta
+warnings.simplefilter("ignore")
+import torch
+import torch.distributed as dist
+from repro_torch.launch.mesh import make_ctx, make_smoke_mesh
+from repro_torch.sharding import full, gathered
+
+CASES = (("default", ("d_model", "heads")), ("fsdp", ("d_model", "heads")),
+         ("default", (None, None)))
+rank, path = int(sys.argv[1]), sys.argv[2]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", store=dist.FileStore(path + "/store", 4),
+                        rank=rank, world_size=4, timeout=timedelta(seconds=60))
+mesh = make_smoke_mesh(device_type="cpu")
+out = []
+for preset, axes in CASES:
+    ctx = make_ctx(mesh, preset=preset)
+    lay = ctx.sharding(axes, (8, 12))
+    for dtype in (torch.float32, torch.bfloat16):
+        whole = torch.randn(8, 12, generator=torch.Generator().manual_seed(
+            1)).to(dtype)
+        w = torch.nn.Parameter(lay.dtensor(lay.shard(whole).clone()))
+        # each rank's loss weights the whole value by its batch index's own
+        # draw: ranks that share tokens share their gradient
+        r = torch.randn(8, 12, generator=torch.Generator().manual_seed(
+            10 + ctx.index(ctx.batch_axes)))
+        (g,) = torch.autograd.grad((gathered(w, ctx.batch_axes).float()
+                                    * r).sum(), [w])
+        want = sum(torch.randn(8, 12, generator=torch.Generator().manual_seed(
+            10 + i)).to(dtype).float()
+            for i in range(ctx.axis_size(ctx.batch_axes))).to(dtype)
+        with torch.no_grad():
+            value = torch.equal(full(w), whole)
+        out.append({"case": [preset, list(axes), str(dtype)],
+                    "spec": repr(lay.spec), "dtype": str(g.dtype),
+                    "err": float((g.to_local().float() - lay.shard(
+                        want).float()).abs().max() / want.float().abs().max()),
+                    "value": value})
+with open(f"{path}/{rank}.json", "w") as f:
+    json.dump(out, f)
+dist.destroy_process_group()
+"""
+
+
+def test_differentiable_gather_lands_the_whole_gradient(tmp_path):
+    """``sharding.gathered`` on four gloo ranks (mesh (2, 2)): the gradient
+    autograd leaves on a DTensor parameter is ``land`` of the ranks' whole
+    gradients: a dim over the axes that split the tokens is summed and cut
+    (``default``'s d_model over data; ``fsdp``'s over both axes), a dim
+    over an axis that does not split them is cut (``default``'s heads
+    over model), a replicated weight is summed whole; in f32 and, cast by
+    autograd to the parameter's dtype, in bf16 (within a rounding of the
+    sum, whose order the ranks choose); the forward is the whole value."""
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(__file__), "..", "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", GATHER, str(r),
+                               str(tmp_path)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(4)]
+    for proc in procs:
+        try:
+            _, err = proc.communicate(timeout=180)
+        finally:
+            proc.kill()
+        assert proc.returncode == 0, err[-3000:]
+    ranks = [json.loads((tmp_path / f"{r}.json").read_text())
+             for r in range(4)]
+    specs = [r["spec"] for r in ranks[0][::2]]
+    assert specs == ["('data', 'model')", "(('data', 'model'),)", "()"]
+    for rows in ranks:
+        assert len(rows) == 6
+        for r in rows:
+            # four ranks' terms may sum in another order than here's
+            tol = 2.0 ** -8 if r["dtype"] == "torch.bfloat16" else 1e-7
+            assert r["err"] <= tol and r["value"], r
+            assert r["dtype"] == r["case"][2]

@@ -74,7 +74,7 @@ Phases, each fatal on failure (exit 1, no result line):
    ``mma`` body at both column slices (16 and 32 columns), the ``simt``
    body and the plain version by CUDA events, and the bodies by CUDA-graph
    replay (their device time without the wrapper's host time).
-9. Serve rwkv6-7b at full width (cut to 8 of its 32 layers for the
+9. Serve rwkv6-7b at full width (cut to 4 of its 32 layers for the
    run's time cap, printed ``reduced:``; bf16, random weights
    from a seeded generator) with K6 at ``rwkv_wkv``: a
    BatchedServer (4 slots, exact-length packing) answers 8 requests of 16
@@ -90,7 +90,7 @@ Phases, each fatal on failure (exit 1, no result line):
    tokens/s, peak memory and where one decode step and one 2x256 prefill
    spend their time.  K6 is held against its plain version at every
    (B, S) of the run.
-10. The same for hymba-1.5b (cut to 8 of its 32 layers, printed; bf16,
+10. The same for hymba-1.5b (cut to 4 of its 32 layers, printed; bf16,
    max_len 272) with
    K7 at ``ssm_chunk`` and K2 at ``attention`` (H 25, KV 5, hd 64): both
    launch counts (K2 and K7 all on ``mma``), the final ``ssm`` state, and
@@ -99,7 +99,7 @@ Phases, each fatal on failure (exit 1, no result line):
 11. The paper's Table 4 hotspots: a ``Campaign`` on ``h100`` over
    ``rwkv_wkv`` and ``mamba_ssd`` (every candidate FE-checked and timed
    through K6 or K7), then each winner's ``integrated_speedup`` into
-   rwkv6-7b / hymba-1.5b at full width in float32 (cut to 4 and 8 of
+   rwkv6-7b / hymba-1.5b at full width in float32 (cut to 2 and 4 of
    their 32 layers, the cuts printed)
    over 2x256 tokens against the naive sequential recurrence; ``fe_ok``
    must be true, and every K7 call of the case and the integration must
@@ -132,7 +132,7 @@ Phases, each fatal on failure (exit 1, no result line):
    ``moe_grouped_gemm``, as phase 5 (adi and gramschm cut to one round of
    R 10, adi's MEP pinned at scale 256, each cut printed); then each
    winner re-timed against its
-   baseline in this process, alternating 3 rounds of 30 calls (cut from
+   baseline in this process, alternating 2 rounds of 30 calls (cut from
    5 for the run's time cap, printed ``reduced:``) (a winner
    whose build is the baseline's is marked: it can win only timing
    spread); each case's speedup and the suites' means, campaign and
@@ -180,8 +180,8 @@ Phases, each fatal on failure (exit 1, no result line):
    (K6 at the served chunk, 128) must install with the tokens unchanged,
    the naive sequential build must be rolled back for regression with the
    registry restored, and a build off by x 1e3 refused at ``fe_fail``
-   (cut to 8 of its 32 layers, printed); (d) hymba-1.5b on graphs against
-   eager (3 rounds; cut to 8 of its 32 layers, printed).  K2 and K6 must launch
+   (cut to 4 of its 32 layers, printed); (d) hymba-1.5b on graphs against
+   eager (3 rounds; cut to 4 of its 32 layers, printed).  K2 and K6 must launch
    on the phase's paths.  The phase's wall time on its own line; the
    journal in chiprun_out/autotune.jsonl.
 17. The rest of the decoder-only models through K2 at ``attention``
@@ -364,11 +364,26 @@ Phases, each fatal on failure (exit 1, no result line):
    mesh (data 2, model 1) under ``default`` with the MoE
    combine-before-reduce (the moe train preset: the tokens split over the
    data axis, the aux loss of the global batch), one AdamW step at rest
-   against its single-rank step under the same gates.  With one model rank
-   the combine's sum and reduce are identities here: the combine across
-   ranks is held only by the CPU tests on four gloo ranks.  Each rank's peak
-   memory and seconds; a rank that fails fails the run.  The phase's wall
-   time on its own line.
+   against its single-rank step under the same gates (with one model rank
+   the combine's sum and reduce are identities there).  Then tensor
+   parallelism on the model axis, mesh (1, 2), ``default``, weights at
+   rest: (g) glm4-9b at full width and depth in bf16 (``tp_seq`` decode,
+   the dry run's decode layout), K2 at ``attention`` with its counts zeroed
+   just before: the forward of the whole 2048-token prompt on each rank
+   (its 16 query heads and the 1 KV head they use; its half of the
+   sequence between layers), whose logits at the held positions must lie
+   within LOGITS_RTOL of the single rank's, and ``generate()``'s 16
+   greedy tokens, which must equal the single rank's; every K2 launch on
+   ``mma`` with (16, 1) heads, two a layer; the rank's weight bytes at rest
+   (about half the whole) and its peak memory; (h) (e)'s stablelm-3b step
+   under tensor parallelism against the same single-rank step and gates;
+   (i) (f)'s qwen2-moe-a2.7b step under tensor parallelism (its ctx's
+   ``moe_impl`` ``shard_map``, which selects nothing there: both run
+   ``layers.tp_moe``, the combine's partial sums reduce-scattered over the
+   two model ranks) against (f)'s single-rank step and gates.  Every leg
+   prints its collectives by kind and bytes.  Each rank's peak memory and
+   seconds; a rank that fails fails the run.  The phase's wall time on its
+   own line.
 22. The launch layer's dry run (``repro_torch.launch``; every earlier
    model freed): (a) the production dry run, ``python -m
    repro_torch.launch.dryrun --single-pod``, of whisper-medium x decode_32k,
@@ -380,7 +395,8 @@ Phases, each fatal on failure (exit 1, no result line):
    chiprun_out/dryrun/), collected after (b): each must read ``OK``; their
    fit, a rank's peak GiB, the three roofline terms and ``count_s`` are
    printed, and the card's ``total_memory`` beside ``hw.HBM_BYTES``.  (b)
-   Here, stablelm-3b's train step at phase 19's shape (8 x 1024,
+   Here, on the CPU while phase 21's ranks run (after its reference left
+   the card), stablelm-3b's train step at phase 19's shape (8 x 1024,
    accum 2, bf16, remat, one card) and the prefill of phase 19 (c)'s
    256-token prompt counted on fake tensors: flops, ideal and upper bytes,
    compute and memory seconds and the bound against the measured time
@@ -1261,16 +1277,20 @@ TABLE4_CASES = {"rwkv_wkv": ("wkv", "rwkv6-7b"),
 # sequential recurrence took 3.8 s a forward at 32 layers on the H100, 26 s
 # of the phase over its 7 forwards, and its layers are alike, so the
 # Integrated Speedup is close to a per-layer ratio; hymba-1.5b's likewise,
-# for the run's time cap
-TABLE4_CUTS = {"rwkv6-7b": 4, "hymba-1.5b": 8}
+# for the run's time cap (halved again with phase 21's tensor-parallel
+# legs: 4 and 8 layers took 4.0 and 2.3 s on an NVIDIA H100 80GB HBM3 at
+# 700.00 W)
+TABLE4_CUTS = {"rwkv6-7b": 2, "hymba-1.5b": 4}
 # phase 16's rwkv6-7b and hymba-1.5b legs (graphs against eager, a
 # replayed decode step; rwkv6-7b's guarded installs) cut in depth at full
 # width, for the run's time cap (rwkv6-7b's leg took 20.9-26.4 s at 32
-# layers on an NVIDIA H100 80GB HBM3, 700.00 W)
-ONLINE_CUTS = {"rwkv6-7b": 8, "hymba-1.5b": 8}
+# layers on an NVIDIA H100 80GB HBM3, 700.00 W; 8 layers, then 4 with
+# phase 21's tensor-parallel legs)
+ONLINE_CUTS = {"rwkv6-7b": 4, "hymba-1.5b": 4}
 # phases 9 and 10 (the recurrent models served, their f32 gates) cut in
-# depth at full width, for the run's time cap with phase 21
-SERVE_CUTS = {"rwkv6-7b": 8, "hymba-1.5b": 8}
+# depth at full width, for the run's time cap with phase 21 (13.6 and
+# 6.9 s at 8 layers on an NVIDIA H100 80GB HBM3, 700.00 W)
+SERVE_CUTS = {"rwkv6-7b": 4, "hymba-1.5b": 4}
 
 
 def kernel_pair(name):
@@ -2634,7 +2654,9 @@ TABLES_PINNED = {"adi": 256}
 # baseline, then of the winner; calls above 10 ms take 5 a round
 RETIME_ROUNDS, RETIME_REPS = 5, 30
 # phase 14's re-timing of Tables 1-3's winners, cut for the run's time cap
-TABLES_RETIME_ROUNDS = 3
+# (3 rounds took ~9 s on an NVIDIA H100 80GB HBM3 at 700.00 W, adi's
+# 163 ms calls ~5 s of it)
+TABLES_RETIME_ROUNDS = 2
 
 
 def same_build(f, g) -> bool:
@@ -5677,7 +5699,7 @@ def rank_child(rank: int, run_dir: str) -> None:
     flash_attention.launches = 0
     flash_attention.launches_by_path = {"mma": 0, "simt": 0}
     flash_attention.launches_by_offset = {}
-    calls = dict(comm.calls)
+    calls, volume = dict(comm.calls), dict(comm.volume)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     with ops.use_impl("attention", flash_attention), torch.no_grad():
@@ -5692,6 +5714,7 @@ def rank_child(rank: int, run_dir: str) -> None:
     out["launches_by_offset"] = {str(o): n for o, n in
                                  flash_attention.launches_by_offset.items()}
     out["collectives"] = {n: comm.calls[n] - calls[n] for n in calls}
+    out["collective_bytes"] = {n: comm.volume[n] - volume[n] for n in volume}
     idx = [p - lo for p in ref["positions"] if lo <= p < lo + mine.shape[1]]
     with torch.no_grad():
         logits = model.logits_fn(hidden[:, idx])[0].float().cpu()
@@ -5735,13 +5758,19 @@ def rank_child(rank: int, run_dir: str) -> None:
     checks["compressed_psum: the residual is the local formula"] = bool(
         torch.equal(res, x - q.float() * scale))
 
+    # (g) tensor-parallel serving at rest against the same single rank
+    out["tp"], tp_checks = tp_serve(mesh, ref)
+    checks.update(tp_checks)
+
     # (e) the fsdp step at rest and with whole weights, (f) the moe step
-    # at rest, each against the single-rank step
+    # at rest, (h), (i) the tensor-parallel steps at rest, each against the
+    # single-rank step
     out["train"], train_checks = cp_train_steps(mesh, rank)
     checks.update(train_checks)
     # the train steps reset the peak: this rank's is the largest reading
     out["peak_gib"] = max(
-        [out["cp"]["peak_gib"], *out["train"]["reference_peak_gib"].values()]
+        [out["cp"]["peak_gib"], out["tp"]["peak_gib"],
+         *out["train"]["reference_peak_gib"].values()]
         + [leg["step_peak_gib"] for leg in out["train"]["legs"].values()])
     out["seconds"] = time.perf_counter() - t0
     out["checks"] = checks
@@ -5752,31 +5781,106 @@ def rank_child(rank: int, run_dir: str) -> None:
         sys.exit(1)
 
 
-def reference_step(arch, layers, rows, seq, lay_ctx, rank):
+def tp_serve(mesh, ref):
+    """(g): glm4-9b at full width and depth in bf16 under ``default``
+    tensor parallelism (mesh (1, 2)), at rest, ``decode_kv`` ``tp_seq``
+    (the dry run's decode layout), K2 at ``attention``, its counts zeroed
+    just before: the forward of the whole prompt (each rank computes its
+    16 query heads and the KV head they use, and holds its half of the
+    sequence between layers), whose logits at the held positions must lie
+    within LOGITS_RTOL of the single rank's, and ``generate()``'s 16
+    greedy tokens (the prefill through K2 again, 15 decode steps over a
+    cache split over the two ranks), which must equal the single rank's;
+    each K2 launch on ``mma`` with (16, 1) heads; the rank's weight bytes
+    at rest against the whole model's; peak memory; the collectives made,
+    by kind and bytes."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.serve import generate
+    from repro_torch.sharding import DEFAULT_RULES, comm
+    from repro_torch.train.steps import rest_sharded
+    ctx = make_ctx(mesh, preset="default").replace(
+        rules=dict(DEFAULT_RULES, kv_seq="__tp__", kv_heads=None),
+        decode_kv="tp_seq")
+    model = served_model(CP_ARCH, n_layers=CP_LAYERS, ctx=ctx)
+    whole = sum(p.numel() * p.element_size() for p in model.parameters())
+    rest_sharded(model)
+    free_card()
+    held = sum(p.to_local().numel() * p.element_size()
+               for p in model.parameters())
+    tokens = ref["prompt"].cuda()
+    heads = set()
+
+    def k2(q, k, v, **kw):
+        heads.add((q.shape[2], k.shape[2]))
+        return flash_attention(q, k, v, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    flash_attention.launches_by_path = {"mma": 0, "simt": 0}
+    calls, volume = dict(comm.calls), dict(comm.volume)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ops.use_impl("attention", k2), torch.no_grad():
+        hidden, _ = model.forward(tokens)
+        hidden = comm.all_gather(hidden, ctx.group(ctx.tp), 1)
+        logits = model.logits_fn(hidden[:, ref["positions"]])[0].float()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        new = generate(model, tokens.cpu().numpy(), max_new=CP_NEW)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n_layers = model.cfg.n_layers
+    out = {"launches": flash_attention.launches,
+           "launches_by_path": dict(flash_attention.launches_by_path),
+           "heads": sorted(heads), "sequence_parallel":
+               model._tp(tokens.shape[1]).sp,
+           "weight_bytes_at_rest": held, "weight_bytes_whole": whole,
+           "logits_rel_err": rel_err(logits.cpu(), ref["logits"]),
+           "forward_s": t1 - t0, "generate_s": t2 - t1,
+           "tokens_equal": new.tolist() == ref["tokens"],
+           "collectives": {n: comm.calls[n] - calls[n] for n in calls},
+           "collective_bytes": {n: comm.volume[n] - volume[n]
+                                for n in volume},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    checks = {
+        "(g) every layer's attention through K2, twice":
+            out["launches"] == 2 * n_layers,
+        "(g) every K2 launch on mma": out["launches_by_path"]["simt"] == 0,
+        "(g) K2 on the rank's 16 query heads and the 1 KV head they use":
+            out["heads"] == [(16, 1)],
+        "(g) the rank holds about half the weights":
+            0.45 < held / whole < 0.55,
+        "(g) logits within LOGITS_RTOL": out["logits_rel_err"] <= LOGITS_RTOL,
+        "(g) greedy tokens equal the single rank's": out["tokens_equal"],
+    }
+    del model, hidden
+    free_card()
+    return out, checks
+
+
+def reference_step(arch, layers, rows, seq, rank):
     """The single-rank step of the whole batch from ``served_model``'s
     weights (f32) in this rank's turn (the ranks take turns, one reference
-    on the shared card at a time): this rank's pieces, in ``lay_ctx``'s
-    layouts, of its gradients, first moments and updated weights, moved to
-    the host; its metrics; its largest gradient and first moment."""
+    on the shared card at a time): its gradients, first moments and
+    updated weights, whole, moved to the host (each leg cuts its pieces);
+    its metrics; its largest gradient and first moment."""
     import torch
     import torch.distributed as dist
     from repro_torch.data import SyntheticLMData, make_global_batch
-    from repro_torch.models.convert import axes_by_name
     from repro_torch.train import AdamWConfig, init_state, make_train_step
     from repro_torch.train.steps import model_params
     ref = None
     for turn in range(CP_RANKS):
         if turn == rank:
             model = served_model(arch, layers, "float32")
-            lays = lay_ctx.tree_shardings(axes_by_name(
-                model.cfg, model.param_axes()), model_params(model))
             ref = {"grads": {}}
 
             def keep(grads):
                 ref["grad_top"] = max(float(t.abs().max())
                                       for t in grads.values())
-                ref["grads"].update({n: lays[n].shard(t).cpu()
-                                     for n, t in grads.items()})
+                ref["grads"].update({n: t.cpu() for n, t in grads.items()})
                 return grads
             data = SyntheticLMData(model.cfg, seq, rows, seed=0)
             step = make_train_step(model, AdamWConfig(**TRAIN_OPT),
@@ -5787,10 +5891,8 @@ def reference_step(arch, layers, rows, seq, lay_ctx, rank):
             ref["metrics"] = {k: float(v) for k, v in metrics.items()}
             ref["mu_top"] = max(float(t.abs().max())
                                 for t in opt["mu"].values())
-            ref["mu"] = {n: lays[n].shard(t).cpu()
-                         for n, t in opt["mu"].items()}
-            ref["params"] = {n: lays[n].shard(t.detach()).cpu()
-                             for n, t in params.items()}
+            ref["mu"] = {n: t.cpu() for n, t in opt["mu"].items()}
+            ref["params"] = {n: t.detach().cpu() for n, t in params.items()}
             ref["moment_elements_whole"] = sum(
                 t.numel() for t in opt["mu"].values())
             ref["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -5824,7 +5926,7 @@ def train_leg(model, rest, ref, batch):
     opt = init_state(p1, layouts)
     free_card()
     held = torch.cuda.memory_allocated()
-    calls = dict(comm.calls)
+    calls, volume = dict(comm.calls), dict(comm.volume)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, o1, m1 = step(p1, opt, batch)
@@ -5832,6 +5934,7 @@ def train_leg(model, rest, ref, batch):
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     made = {n: comm.calls[n] - calls[n] for n in calls}
+    moved = {n: comm.volume[n] - volume[n] for n in volume}
     top, mu_top = ref["grad_top"], ref["mu_top"]
     cfg = AdamWConfig(**TRAIN_OPT)
     lr = ref["metrics"]["lr"]
@@ -5843,14 +5946,14 @@ def train_leg(model, rest, ref, batch):
     off = total = off_determined = off_not_near_zero = 0
     examples = []
     for n, g0 in ref["grads"].items():
-        g0 = g0.cuda()
+        g0 = layouts[n].shard(g0).cuda()
         gate = TRAIN_GRAD_TOL[0] * g0.abs() + TRAIN_GRAD_TOL[1] * top
         grad_ratio = max(grad_ratio, float(((g1[n] - g0).abs()
                                             / gate).max()))
         moment_ratio = max(moment_ratio, float(
-            (o1["mu"][n] - ref["mu"][n].cuda()).abs().max())
+            (o1["mu"][n] - layouts[n].shard(ref["mu"][n]).cuda()).abs().max())
             / (TRAIN_MOMENT_TOL * mu_top))
-        w0 = ref["params"][n].cuda()
+        w0 = layouts[n].shard(ref["params"][n]).cuda()
         w1 = (p1[n].to_local() if rest else layouts[n].shard(p1[n])).detach()
         tol = (TRAIN_GRAD_TOL[0] * w0.abs()
                + TRAIN_GRAD_TOL[1] * float(w0.abs().max()))
@@ -5888,7 +5991,7 @@ def train_leg(model, rest, ref, batch):
            "moment_elements_a_rank": sum(t.numel()
                                          for t in o1["mu"].values()),
            "moment_elements_whole": ref["moment_elements_whole"],
-           "collectives": made, "step_s": seconds,
+           "collectives": made, "collective_bytes": moved, "step_s": seconds,
            "held_before_step_gib": held / 2**30,
            "step_peak_gib": peak / 2**30}
     checks = {
@@ -5919,54 +6022,68 @@ def cp_train_steps(mesh, rank):
     (f): qwen2-moe-a2.7b at full width cut to MOE_TRAIN_LAYERS in f32 on
     the mesh (data 2, model 1) under ``default`` with the MoE
     combine-before-reduce (the moe train preset: the tokens split over
-    data), one AdamW step at rest against the single-rank step.  On one
-    model rank the combine's collectives are identities: the combine
-    across ranks is held by the CPU tests alone."""
-    import torch
+    data), one AdamW step at rest against the single-rank step (on one
+    model rank the combine's collectives are identities).  (h), (i): the
+    same two steps at rest under tensor parallelism on ``mesh`` (data 1,
+    model 2), against the same single-rank steps: (i)'s combine a sum over
+    the two model ranks."""
     from repro_torch.data import SyntheticLMData, make_global_batch
     from repro_torch.launch.mesh import make_ctx
     from repro_torch.launch.specs import token_layout
     from torch.distributed.device_mesh import init_device_mesh
     out, checks = {}, {}
-    fsdp = make_ctx(mesh, preset="fsdp")
-    ref = reference_step(TRAIN_ARCH, CP_TRAIN_LAYERS, CP_TRAIN_ROWS,
-                         CP_TRAIN_SEQ, fsdp, rank)
-    for leg, rest in (("at rest", True), ("whole weights", False)):
-        model = served_model(TRAIN_ARCH, CP_TRAIN_LAYERS, "float32", ctx=fsdp)
+
+    def leg(name, arch, layers, ctx, rest, ref, key):
+        model = served_model(arch, layers, "float32", ctx=ctx)
         data = SyntheticLMData(model.cfg, CP_TRAIN_SEQ, CP_TRAIN_ROWS, seed=0)
         batch = make_global_batch(data, 0, sharding=token_layout(
-            fsdp, CP_TRAIN_ROWS, CP_TRAIN_SEQ))
-        out[leg], leg_checks = train_leg(model, rest, ref, batch)
-        checks.update({f"train {leg}: {k}": v for k, v in leg_checks.items()})
+            ctx, CP_TRAIN_ROWS, CP_TRAIN_SEQ))
+        out[name], leg_checks = train_leg(model, rest, ref, batch)
+        if name.startswith("tp"):
+            leg_checks["the model ran tensor parallelism"] = \
+                model._tp(CP_TRAIN_SEQ) is not None
+        checks.update({f"{key}: {k}": v for k, v in leg_checks.items()})
         del model
         free_card()
+
+    fsdp = make_ctx(mesh, preset="fsdp")
+    ref = reference_step(TRAIN_ARCH, CP_TRAIN_LAYERS, CP_TRAIN_ROWS,
+                         CP_TRAIN_SEQ, rank)
+    for name, rest in (("at rest", True), ("whole weights", False)):
+        leg(name, TRAIN_ARCH, CP_TRAIN_LAYERS, fsdp, rest, ref,
+            f"train {name}")
     checks["train: the step at rest peaks below the whole-weight step"] = \
         out["at rest"]["step_peak_gib"] < out["whole weights"]["step_peak_gib"]
-    ref_peak = ref["peak_gib"]
+    # (h) the same step under tensor parallelism (mesh (1, 2), default)
+    leg("tp at rest", TRAIN_ARCH, CP_TRAIN_LAYERS,
+        make_ctx(mesh, preset="default"), True, ref, "(h) tp train at rest")
+    peaks = {TRAIN_ARCH: ref["peak_gib"]}
     del ref
     moe_mesh = init_device_mesh("cuda", (CP_RANKS, 1),
                                 mesh_dim_names=("data", "model"))
-    ctx = make_ctx(moe_mesh, preset="default", moe_impl="shard_map")
     ref = reference_step(MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, CP_TRAIN_ROWS,
-                         CP_TRAIN_SEQ, ctx, rank)
-    model = served_model(MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, "float32",
-                         ctx=ctx)
-    data = SyntheticLMData(model.cfg, CP_TRAIN_SEQ, CP_TRAIN_ROWS, seed=0)
-    batch = make_global_batch(data, 0, sharding=token_layout(
-        ctx, CP_TRAIN_ROWS, CP_TRAIN_SEQ))
-    out["moe at rest"], leg_checks = train_leg(model, True, ref, batch)
-    checks.update({f"moe train at rest: {k}": v
-                   for k, v in leg_checks.items()})
-    peaks = {TRAIN_ARCH: ref_peak, MOE_TRAIN_ARCH: ref["peak_gib"]}
-    del model, ref
+                         CP_TRAIN_SEQ, rank)
+    leg("moe at rest", MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS,
+        make_ctx(moe_mesh, preset="default", moe_impl="shard_map"), True,
+        ref, "moe train at rest")
+    # (i) its combine-before-reduce a sum over the two model ranks
+    leg("tp moe at rest", MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS,
+        make_ctx(mesh, preset="default", moe_impl="shard_map"), True, ref,
+        "(i) tp moe train at rest")
+    checks["(i) tp moe train at rest: the combine's partial sums "
+           "reduce-scattered over the two model ranks"] = out[
+               "tp moe at rest"]["collectives"]["reduce_scatter"] > 0
+    peaks[MOE_TRAIN_ARCH] = ref["peak_gib"]
+    del ref
     free_card()
     return {"legs": out, "reference_peak_gib": peaks}, checks
 
 
-def phase_distributed(report):
+def phase_distributed(report, meanwhile=None):
     """Phase 21 (see the docstring): (a) here, then the single-rank
-    reference of (b)-(c) here, then two rank processes for (b)-(e).
-    Returns (K2's rank launches, (a)'s rows with their calls)."""
+    reference of (b)-(c) here, then two rank processes for (b)-(i), and
+    ``meanwhile()`` here (CPU work) while they run.  Returns (K2's rank
+    launches, (a)'s rows with their calls)."""
     import gc
     import torch
     t0 = time.perf_counter()
@@ -6000,6 +6117,8 @@ def phase_distributed(report):
         torch.cuda.empty_cache()
         (CP_DIR / "go").touch()
         deadline = time.monotonic() + CP_TIMEOUT_S
+        if meanwhile is not None:
+            meanwhile()
         codes = []
         for p in procs:
             try:
@@ -6047,13 +6166,37 @@ def phase_distributed(report):
               f"{CP_NEW} tokens (tp_seq, {cp['cache_positions_a_rank']} "
               f"cache positions a rank) {cp['generate_s']:.2f} s, tokens "
               f"equal the single rank's: {cp['tokens_equal']}; collectives "
-              f"{r['collectives']}; compressed_psum {r['psum']['shape']} f32 "
-              f"exact; peak memory {r['peak_gib']:.2f} GiB; "
-              f"{r['seconds']:.1f} s", flush=True)
+              f"{r['collectives']}, bytes {r['collective_bytes']}; "
+              f"compressed_psum {r['psum']['shape']} f32 exact; peak memory "
+              f"{r['peak_gib']:.2f} GiB; {r['seconds']:.1f} s", flush=True)
+        tp = r["tp"]
+        print(f"  rank {r['rank']}: (g) tensor-parallel {CP_ARCH} (bf16, "
+              f"default, at rest, sequence parallel "
+              f"{tp['sequence_parallel']}, tp_seq decode): weights at rest "
+              f"{tp['weight_bytes_at_rest'] / 2**30:.3f} GiB of "
+              f"{tp['weight_bytes_whole'] / 2**30:.3f} whole "
+              f"({tp['weight_bytes_at_rest'] / tp['weight_bytes_whole']:.3f});"
+              f" K2 launches {tp['launches']} {tp['launches_by_path']} on "
+              f"(q heads, KV heads) {tp['heads']}; logits rel err "
+              f"{tp['logits_rel_err']:.3g} (gate {LOGITS_RTOL}); forward "
+              f"{tp['forward_s']:.2f} s, generate {CP_NEW} tokens "
+              f"{tp['generate_s']:.2f} s, tokens equal the single rank's: "
+              f"{tp['tokens_equal']}; collectives {tp['collectives']}, bytes "
+              f"{tp['collective_bytes']}; peak memory {tp['peak_gib']:.2f} "
+              f"GiB", flush=True)
         for leg, tr in r["train"]["legs"].items():
-            what = (f"{MOE_TRAIN_ARCH} {MOE_TRAIN_LAYERS} layers, default "
-                    f"(data {CP_RANKS}, model 1)" if leg.startswith("moe")
-                    else f"{TRAIN_ARCH} {CP_TRAIN_LAYERS} layers, fsdp")
+            what = {"moe at rest": f"{MOE_TRAIN_ARCH} {MOE_TRAIN_LAYERS} "
+                                   f"layers, default (data {CP_RANKS}, "
+                                   "model 1)",
+                    "tp at rest": f"(h) {TRAIN_ARCH} {CP_TRAIN_LAYERS} "
+                                  f"layers, default (data 1, model "
+                                  f"{CP_RANKS}), tensor parallel",
+                    "tp moe at rest": f"(i) {MOE_TRAIN_ARCH} "
+                                      f"{MOE_TRAIN_LAYERS} layers, default "
+                                      f"(data 1, model {CP_RANKS}), tensor "
+                                      "parallel (layers.tp_moe under "
+                                      "either moe_impl)"}.get(
+                leg, f"{TRAIN_ARCH} {CP_TRAIN_LAYERS} layers, fsdp")
             print(f"    rank {r['rank']} train step {leg} ({what}, f32, "
                   f"{tr['rows_a_rank']} of {CP_TRAIN_ROWS} rows x "
                   f"{CP_TRAIN_SEQ}): loss {tr['loss'][1]:.6f} vs "
@@ -6069,7 +6212,8 @@ def phase_distributed(report):
                   f" {tr['examples']}), moments "
                   f"{tr['moment_elements_a_rank']} of "
                   f"{tr['moment_elements_whole']} elements, collectives "
-                  f"{tr['collectives']}, step {tr['step_s']:.2f} s; "
+                  f"{tr['collectives']}, bytes {tr['collective_bytes']}, "
+                  f"step {tr['step_s']:.2f} s; "
                   f"max_memory_allocated over the step "
                   f"{tr['step_peak_gib']:.3f} GiB "
                   f"({tr['held_before_step_gib']:.3f} GiB held at its "
@@ -6156,19 +6300,18 @@ def finish_dryruns(runs):
     return recs
 
 
-def phase_dryrun(report, runs, started):
+def phase_dryrun(report, runs, started, one_card):
     """Phase 22: (a) the production dry run of DRYRUN_CELLS in processes
     of their own (``runs``, started at ``started`` beside phase 21: they
-    use the CPU only); here (b), stablelm-3b's train step at phase 19's
+    use the CPU only); (b) (``one_card``, ``one_card_reading``'s, made
+    while phase 21's ranks ran), stablelm-3b's train step at phase 19's
     shape and the prefill of phase 19 (c)'s prompt counted on fake tensors
     under a null ctx (one card), each held against its measured time: a
     measured time under its counted bound is an impossible reading and
     fails.  Then (a)'s records.  Returns the phase's record."""
-    from repro_torch.kernels import ops
     t0 = time.perf_counter()
     out = report["dryrun"] = {}
-    ops.clear_all()                  # the count is of the model's own path
-    out["one_card"] = one_card_reading(report)
+    out["one_card"] = one_card
     recs = finish_dryruns(runs)
     out["production"] = recs
     out["production_wall_s"] = time.perf_counter() - started
@@ -6200,6 +6343,9 @@ def phase_dryrun(report, runs, started):
 
 def one_card_reading(report):
     """Phase 22 (b): the counter's bound against phase 19's readings."""
+    from repro_torch.kernels import ops
+    ops.clear_all()                  # the count is of the model's own path
+    t0 = time.perf_counter()
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import roofline as rl
@@ -6255,8 +6401,12 @@ def one_card_reading(report):
           f"{step['peak_bytes'] / 2**30:.2f} GiB beside phase 19's "
           f"max_memory_allocated {train['peak_memory_bytes'] / 2**30:.2f} "
           f"GiB", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"phase 22 (b) took {seconds:.1f} s beside phase 21's ranks",
+          flush=True)
     return {"rows": rows, "six_n_tokens": six_n,
-            "measured_peak_bytes": train["peak_memory_bytes"]}
+            "measured_peak_bytes": train["peak_memory_bytes"],
+            "seconds": seconds}
 
 
 def main() -> None:
@@ -6337,12 +6487,15 @@ def main() -> None:
     lap("training")
     fabric_launches, fabric_checks = phase_fabric(report)
     lap("fabric")
-    # phase 22 (a) counts on the CPU only: it runs beside phase 21
+    # phase 22 (a) and (b) count on the CPU only: they run beside phase 21
     dryruns, dry_t0 = start_dryruns(), time.perf_counter()
+    one_card = {}
     try:
-        cp_ranks, cp_rows = phase_distributed(report)
+        cp_ranks, cp_rows = phase_distributed(
+            report, meanwhile=lambda: one_card.update(one_card_reading(
+                report)))
         lap("distributed")
-        phase_dryrun(report, dryruns, dry_t0)
+        phase_dryrun(report, dryruns, dry_t0, one_card)
         lap("dry run")
     finally:
         stop_dryruns(dryruns)
@@ -6385,7 +6538,8 @@ def main() -> None:
     k2_by_path = {body: sum(report[f"serve_{a}"]["launches_by_path"][
         "flash_attention"][body] for a in ("glm4-9b", "hymba-1.5b"))
         + zoo_by_path[body] + whisper_launches[body] + train_launches[body]
-        + sum(r["launches_by_path"][body] for r in cp_ranks)
+        + sum(r["launches_by_path"][body] + r["tp"]["launches_by_path"][body]
+              for r in cp_ranks)
         for body in ("mma", "simt")}
 
     k7_by_path = {body: report["serve_hymba-1.5b"]["launches_by_path"][
@@ -6406,7 +6560,7 @@ def main() -> None:
         "launches": glm_launches["flash_attention"]
         + hymba_launches["flash_attention"] + zoo_launches
         + whisper_launches["total"] + train_launches["total"]
-        + sum(r["launches"] for r in cp_ranks),
+        + sum(r["launches"] + r["tp"]["launches"] for r in cp_ranks),
         "launches_by_path": k2_by_path,
         "main_shape_path": main_shape["path"],
         "max_abs_err": max(r["max_abs_err"] for r in

@@ -24,7 +24,7 @@ jaxpr, so it runs the step once and counts the products that actually run:
 the attention einsums → ``attention`` at ``'attention'``, the recurrent
 ones → ``scan`` at ``'rwkv_wkv / ssm_chunk'``, the MoE expert products
 (the reference's ``becd,edf`` specs; the port's batched products of
-``moe_block``) → ``matmul`` at ``'moe_gemm'``, every other product
+``layers._moe_experts``) → ``matmul`` at ``'moe_gemm'``, every other product
 ``matmul``.  Unlike the reference, elementwise operations are not counted
 (it counts them at one FLOP an element, family ``elementwise``).
 
@@ -191,7 +191,7 @@ _ATTENTION_SPECS = ("bckgh", "bkgct", "bkgt", "bskgh", "bkgst")
 _SCAN_SPECS = ("bnhk", "bnhkv", "bnts", "bnthp", "bnshp", "bhkv", "bhpn")
 _MOE_SPECS = ("becd", "becf", "bsef", "emk", "edf", "efd")
 # call sites whose batched products (bmm) are the MoE expert GEMMs
-_GROUPED_SITES = {"moe_block": "moe_gemm"}
+_GROUPED_SITES = {"_moe_experts": "moe_gemm"}
 
 
 def classify(spot: Hotspot) -> Hotspot:

@@ -82,8 +82,10 @@ def batch_specs(cfg: ModelConfig, B: int, S: int, ctx: ShardCtx):
 def cache_specs(model, ctx: ShardCtx, B: int, S: int):
     """(this rank's piece of a [B, S] decode cache, its layouts): rows over
     the data axes, the K/V sequence over the axes ``ctx.decode_kv`` names,
-    every other dim whole, as the port's ranks hold it (they compute
-    everything outside batch and sequence whole)."""
+    every other dim whole, as the port's ranks hold it (a tensor-parallel
+    rank holds every KV head of a cache whose sequence is split, and
+    only its own of one that is whole: the dry run's decode cells split
+    it)."""
     seq = {"tp_seq": ctx.tp, "dp_seq": ctx.dp}.get(ctx.decode_kv)
     whole = ctx.replace(rules={**{k: None for k in ctx.rules},
                                "batch": "__dp__", "kv_seq": seq})

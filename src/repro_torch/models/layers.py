@@ -19,6 +19,17 @@ whose sequence is split over mesh axes; ``moe_block``'s ``shard_map``
 branch sums the tp-sharded expert-ffn partials after the per-token gather;
 ``moe_aux_loss`` takes its means over the global batch.  Under autograd
 their collectives are ``comm``'s differentiable forms.
+
+Tensor parallelism (``TensorParallel``, a model at rest under a ctx whose
+``tensor_parallel`` holds) splits the work GSPMD splits over the model
+axis in the JAX twin (Megatron's layers): q, k and v (``_project_qkv``
+on the rank's columns) and the MLP's ``w1``/``w3`` are column-parallel,
+``wo`` and ``w2`` row-parallel (``tp_mlp``), the MoE block's experts run
+on the rank's expert-ffn slice or its experts (``tp_moe``, whichever
+``moe_impl``), and the embedding and the head on the
+rank's vocabulary rows (``vocab_embed``, ``vocab_logits``,
+``vocab_parallel_nll``).  Each region is bracketed by
+``TensorParallel.enter`` and ``exit``.
 The ``*_param_axes`` tables give each parameter's logical axes, the JAX
 twin's ``*_param_spec`` second halves.  ``constrain`` calls mark the JAX
 twin's layout points; on the plain local tensors here they change
@@ -27,7 +38,8 @@ nothing.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +82,157 @@ def init_from_spec(params: Dict[str, torch.Tensor],
             p.zero_()
         else:
             p.normal_(0.0, std, generator=generator)
+
+
+# --------------------------------------------------------------------------
+# tensor parallelism on the model axis
+# --------------------------------------------------------------------------
+@dataclass(frozen=True)
+class TensorParallel:
+    """One call's tensor parallelism over ``ctx``'s model axis (Megatron's,
+    as GSPMD lays out the JAX twin's ``constrain`` points).  With ``sp``
+    (sequence parallelism: ``ctx.seq_shard`` and a sequence that splits
+    over the axis) the residual stream between regions is this rank's
+    S/n of the sequence, all-gathered on the way into a region
+    (``layers.py:151-153``, ``:402`` in the JAX twin) and reduce-scattered
+    on the way out (``lm.py:216,224``); without it the residual is whole
+    on every rank and a region's partial sums are all-reduced.  Within a
+    region every rank computes with its pieces of the weights
+    (``ShardCtx.fsdp_spec``) and holds a partial sum of the output.
+    Gradients follow Megatron's convention: every rank of the axis
+    computes the same loss, a tensor every rank holds alike carries the
+    whole gradient, and the brackets sum the partial gradients of a
+    region's inputs."""
+    ctx: ShardCtx
+    sp: bool
+
+    @property
+    def group(self):
+        return self.ctx.group(self.ctx.tp)
+
+    @property
+    def n(self) -> int:
+        return self.ctx.axis_size(self.ctx.tp)
+
+    @property
+    def rank(self) -> int:
+        return self.ctx.index(self.ctx.tp)
+
+    def enter(self, x):
+        """A region's input: the whole sequence from this rank's S/n under
+        ``sp`` (its backward reduce-scatters the ranks' partial
+        gradients), else ``x`` (its backward sums them)."""
+        if self.sp:
+            return comm.gather_grad(x, self.group, 1)
+        return comm.sum_grads(x, self.group)
+
+    def exit(self, y):
+        """A region's output from the ranks' partial ``y`` (``partial_mm``'s
+        f32 when serving a bf16 model: the caller casts the sum): this
+        rank's S/n of the sum under ``sp``, else the whole sum."""
+        if self.sp:
+            return comm.scatter_partials(y, self.group, 1)
+        return comm.reduce_partials(y, self.group)
+
+    def whole(self, x):
+        """The whole sequence, which every rank then uses alike (no
+        region's input: its gradient is the whole one on every rank)."""
+        if self.sp:
+            return comm.gather_replicated(x, self.group, 1)
+        return x
+
+    def sum_grads(self, x):
+        """A region's input that every rank holds alike already."""
+        return comm.sum_grads(x, self.group)
+
+    def kv_range(self, cfg: ModelConfig, rank: Optional[int] = None
+                 ) -> Tuple[int, int]:
+        """[lo, hi) of the KV heads this rank's H/n query heads use:
+        global query head ``r·H/n + i`` reads KV head ``(r·H/n + i) //
+        (H/KV)``."""
+        r = self.rank if rank is None else rank
+        hn, G = cfg.n_heads // self.n, cfg.n_heads // cfg.n_kv_heads
+        return (r * hn) // G, ((r + 1) * hn - 1) // G + 1
+
+    def splits_heads(self, cfg: ModelConfig) -> bool:
+        """Whether every rank's query heads split evenly and use whole KV
+        heads in the same pattern."""
+        H, KV, n = cfg.n_heads, cfg.n_kv_heads, self.n
+        if H % n:
+            return False
+        hn, G = H // n, H // KV
+        return not (hn % G and G % hn)
+
+    def kv_columns(self, w, cfg: ModelConfig):
+        """The columns of a KV projection (``wk``, ``wv``: [d, KV·hd];
+        ``bk``, ``bv``) for this rank's KV heads, from its piece: the piece
+        itself when it is those columns, else cut from the whole weight
+        (gathered over the model axis when split: its backward
+        reduce-scatters the ranks' gradients)."""
+        hd = cfg.resolved_head_dim
+        lo, hi = self.kv_range(cfg)
+        cols = w.shape[-1]
+        if cols != cfg.kv_dim:
+            if (self.rank * cols, (self.rank + 1) * cols) == (lo * hd,
+                                                              hi * hd):
+                return w
+            w = comm.gather_grad(w, self.group, w.dim() - 1)
+        return w[..., lo * hd:hi * hd]
+
+    def _pick_kv(self, got, per: int, cfg: ModelConfig):
+        """Every KV head from the ranks' gathered [B, S, n·per, hd], each
+        taken from the first rank that holds it."""
+        pick: List[int] = []
+        for j in range(cfg.n_kv_heads):
+            r = next(r for r in range(self.n)
+                     if self.kv_range(cfg, r)[0] <= j
+                     < self.kv_range(cfg, r)[1])
+            pick.append(r * per + j - self.kv_range(cfg, r)[0])
+        if pick == list(range(got.shape[2])):
+            return got
+        return got[:, :, pick]
+
+    def all_kv_heads(self, k, cfg: ModelConfig):
+        """[B, S, KV, hd] from every rank's KV heads (``kv_range``)."""
+        return self._pick_kv(comm.all_gather(k, self.group, 2), k.shape[2],
+                             cfg)
+
+    def all_qkv_heads(self, q, k, v, cfg: ModelConfig):
+        """Every query and KV head of one token from the ranks' (one
+        all-gather for the three), as the JAX twin's sharded flash-decode
+        takes q whole over the model axis (``layers.py:352-370``)."""
+        hq, hk = q.shape[2], k.shape[2]
+        got = comm.all_gather(torch.cat([q, k, v], dim=2),
+                              self.group, 2)
+        got = got.unflatten(2, (self.n, hq + 2 * hk))
+        qa = got[:, :, :, :hq].flatten(2, 3)
+        ka = got[:, :, :, hq:hq + hk].flatten(2, 3)
+        va = got[:, :, :, hq + hk:].flatten(2, 3)
+        return qa, self._pick_kv(ka, hk, cfg), self._pick_kv(va, hk, cfg)
+
+    def own_heads(self, att, n_heads: int):
+        """This rank's H/n heads of [B, S, H, hd]."""
+        hn = n_heads // self.n
+        return att[:, :, self.rank * hn:(self.rank + 1) * hn]
+
+
+def partial_mm(x, w):
+    """``x @ w`` (or a batched ``bmm``) whose result one rank's partial sum
+    is.  Serving a bf16 or fp16 model (autograd not recording) it is f32,
+    the GEMM's f32 accumulator kept (``out_dtype``), so the ranks' sum is
+    rounded once, where one rank's whole product is: tensor-parallel
+    serving then agrees with one rank's to f32 summation order.  Under
+    autograd (``mm.dtype`` has no derivative) and in f32 it is ``x @ w``."""
+    if x.dtype == torch.float32 or (torch.is_grad_enabled() and (
+            x.requires_grad or w.requires_grad)):
+        return x @ w
+    from torch._subclasses.fake_tensor import is_fake
+    if not (x.is_cuda or is_fake(x)):    # no out_dtype matmul on the CPU
+        return x.float() @ w.float()
+    if w.dim() == 3:
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    return torch.mm(x.reshape(-1, x.shape[-1]), w,
+                    out_dtype=torch.float32).view(*x.shape[:-1], w.shape[-1])
 
 
 # --------------------------------------------------------------------------
@@ -163,14 +326,18 @@ def attn_param_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
 
 
 def _project_qkv(x, p, cfg: ModelConfig, positions, ctx: ShardCtx = _NULL):
+    """q, k, v of ``x``, normed and rotated: [B, S, heads, hd] each, the
+    heads those ``p``'s columns hold (under tensor parallelism the rank's
+    query heads and, ``TensorParallel.kv_columns``, the KV heads they
+    use)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_scale"], cfg.norm_eps)
         k = rms_norm(k, p["k_scale"], cfg.norm_eps)
@@ -427,6 +594,21 @@ def mlp(x, p, cfg: ModelConfig, ctx: ShardCtx = _NULL):
     return out
 
 
+def tp_mlp(x, p, cfg: ModelConfig):
+    """The MLP's partial sum on this rank's ffn slice of ``x`` (the
+    region's input; ``partial_mm``'s dtype): ``w1``/``w3``
+    column-parallel, ``w2`` row-parallel; ``b2`` is the caller's, after
+    the region's exit."""
+    a = act_fn(cfg.act)
+    h = x @ p["w1"]
+    if cfg.mlp_bias:
+        h = h + p["b1"]
+    h = a(h)
+    if cfg.act == "swiglu":
+        h = h * (x @ p["w3"])
+    return partial_mm(h, p["w2"])
+
+
 # --------------------------------------------------------------------------
 # Mixture of Experts (capacity-based per-sequence local dispatch)
 # --------------------------------------------------------------------------
@@ -477,6 +659,103 @@ def moe_route(x, p, m):
     return probs, gate / gate.sum(dim=-1, keepdim=True), eidx
 
 
+def _moe_dispatch(x, eidx, gate, m):
+    """The capacity dispatch of a parallel call: (the expert buffer [E,
+    B·C, d], the kept gates [B, T], expert and queue indices [B, T], row
+    indices [B, 1], C)."""
+    B, S, d = x.shape
+    E, K = m.n_experts, m.top_k
+    C = _moe_capacity(S, m)
+    T = S * K
+    ef = eidx.reshape(B, T)                                 # [B, T]
+    gf = gate.reshape(B, T)
+    # a token's place in its expert's queue, in sequence order; the scan
+    # runs along the contiguous axis (along T as the middle axis CUDA
+    # scans one column a thread: among a prefill's slowest kernels)
+    onehot = F.one_hot(ef, E).transpose(1, 2).contiguous()  # [B, E, T]
+    pos = ((onehot.cumsum(dim=-1) - onehot) * onehot).sum(dim=1)
+    keep = (pos < C).to(x.dtype)                            # [B, T]
+    xk = x[:, :, None].expand(B, S, K, d).reshape(B, T, d)  # s*K + j
+    pos_c = pos.clamp(max=C - 1)
+    rows = torch.arange(B, device=x.device)[:, None]
+    slot = (rows * E + ef) * C + pos_c                      # [B, T]
+    buf = torch.zeros((B * E * C, d), dtype=x.dtype, device=x.device)
+    buf.index_add_(0, slot.reshape(-1),
+                   (xk * keep[..., None]).reshape(B * T, d))
+    buf = buf.view(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
+    return buf, gf * keep, ef, pos_c, rows, C
+
+
+def _moe_experts(xe, p, a, mm=torch.bmm):
+    """Every expert of ``p`` (``we1``/``we3``/``we2``, [E, ...]) on its
+    rows of ``xe`` [E, N, d]: [E, N, d], ``mm`` the last product."""
+    return mm(a(torch.bmm(xe, p["we1"])) * torch.bmm(xe, p["we3"]), p["we2"])
+
+
+def _moe_gates(eidx, gate, E: int):
+    """A decode token's gate of each of the E experts, 0 where it was not
+    routed: [B, E]."""
+    return torch.zeros((eidx.shape[0], E), dtype=gate.dtype,
+                       device=gate.device).scatter(-1, eidx[:, 0], gate[:, 0])
+
+
+def _moe_decode(x0, p, a, w, mm=torch.bmm):
+    """Decode's all-expert compute and combine: every expert of ``p`` on
+    the token ``x0`` [B, d], weighted by ``w`` [B, E] (``_moe_gates``):
+    [B, 1, d]."""
+    ye = _moe_experts(x0.expand(p["we1"].shape[0], *x0.shape), p, a, mm)
+    return torch.einsum("ebd,be->bd", ye, w.to(ye.dtype))[:, None]
+
+
+def _moe_combine(ye, ef, pos_c, rows, gk, S: int, K: int):
+    """A parallel call's combine: each token's top-k expert outputs, read
+    at its queue slots of ``ye`` [E, B, C, d] and weighted by its kept
+    gates ``gk``: [B, S, d]."""
+    yk = ye[ef, rows, pos_c] * gk[..., None]                # [B, T, d]
+    return yk.reshape(yk.shape[0], S, K, yk.shape[-1]).sum(dim=2)
+
+
+def tp_moe(x, p, cfg: ModelConfig, tp: TensorParallel):
+    """The MoE block's partial sum on this rank (``moe_block``'s routing
+    and dispatch, on ``x`` that every rank holds alike): under ``default``
+    each expert on the rank's expert-ffn slice (``we1``/``we3`` columns,
+    ``we2`` rows), under ``ep`` the rank's E/n experts on their part of
+    the dispatch buffer (a token routed elsewhere adds zero); the shared
+    expert on its ffn slice.  The router is whole on every rank, as in the
+    JAX twin.  The dispatch buffer, the gates and the shared expert's
+    input enter the region (their gradients summed over the ranks); the
+    caller's ``exit`` sums the partials (combine before reduce;
+    ``partial_mm``'s dtype).  Both ``moe_impl``s run this: under tensor
+    parallelism the weights are the rank's pieces already, so the choice
+    selects nothing."""
+    m = cfg.moe
+    B, S, d = x.shape
+    E, K = m.n_experts, m.top_k
+    a = act_fn(cfg.act)
+    _, gate, eidx = moe_route(x, p, m)
+    gate = gate.to(x.dtype)
+    El = p["we1"].shape[0]
+    e_lo = 0 if El == E else tp.rank * El         # ep: this rank's experts
+    if S == 1:
+        w = tp.sum_grads(_moe_gates(eidx, gate, E))[:, e_lo:e_lo + El]
+        out = _moe_decode(tp.sum_grads(x)[:, 0], p, a, w, partial_mm)
+    else:
+        buf, gk, ef, pos_c, rows, C = _moe_dispatch(x, eidx, gate, m)
+        buf = tp.sum_grads(buf)[e_lo:e_lo + El]
+        gk = tp.sum_grads(gk)
+        ye = _moe_experts(buf, p, a, partial_mm).view(El, B, C, d)
+        if El != E:
+            gk = gk * ((ef >= e_lo) & (ef < e_lo + El)).to(gk.dtype)
+            ef = (ef - e_lo).clamp(0, El - 1)
+        out = _moe_combine(ye, ef, pos_c, rows, gk, S, K)
+    if m.n_shared:
+        xs = tp.sum_grads(x)
+        h = a(xs @ p["ws1"]) * (xs @ p["ws3"])
+        sgate = torch.sigmoid((x @ p["ws_gate"]).float()).to(x.dtype)
+        out = out + partial_mm(h, p["ws2"]) * tp.sum_grads(sgate)
+    return out
+
+
 def moe_block(x, p, cfg: ModelConfig, ctx: ShardCtx = _NULL):
     """x: [B, S, d].  Tokens are routed within their own sequence, top k of
     E experts each.  Decode (S == 1) runs every expert and combines by the
@@ -508,33 +787,10 @@ def moe_block(x, p, cfg: ModelConfig, ctx: ShardCtx = _NULL):
 
     if S == 1:
         # decode: all-expert dense compute then weighted combine
-        xe = x[:, 0].expand(E, B, d)                        # [E, B, d]
-        h = a(torch.bmm(xe, p["we1"])) * torch.bmm(xe, p["we3"])
-        ye = torch.bmm(h, p["we2"])                         # [E, B, d]
-        w = torch.zeros((B, E), dtype=x.dtype, device=x.device).scatter_(
-            -1, eidx[:, 0], gate[:, 0])                     # [B, E]
-        out = torch.einsum("ebd,be->bd", ye, w)[:, None]
+        out = _moe_decode(x[:, 0], p, a, _moe_gates(eidx, gate, E))
     else:
-        C = _moe_capacity(S, m)
-        T = S * K
-        ef = eidx.reshape(B, T)                             # [B, T]
-        gf = gate.reshape(B, T)
-        # a token's place in its expert's queue, in sequence order; the
-        # scan runs along the contiguous axis (along T as the middle axis
-        # CUDA scans one column a thread: among a prefill's slowest kernels)
-        onehot = F.one_hot(ef, E).transpose(1, 2).contiguous()  # [B, E, T]
-        pos = ((onehot.cumsum(dim=-1) - onehot) * onehot).sum(dim=1)
-        keep = (pos < C).to(x.dtype)                        # [B, T]
-        xk = x[:, :, None].expand(B, S, K, d).reshape(B, T, d)  # s*K + j
-        pos_c = pos.clamp(max=C - 1)
-        rows = torch.arange(B, device=x.device)[:, None]
-        slot = (rows * E + ef) * C + pos_c                  # [B, T]
-        buf = torch.zeros((B * E * C, d), dtype=x.dtype, device=x.device)
-        buf.index_add_(0, slot.reshape(-1),
-                       (xk * keep[..., None]).reshape(B * T, d))
-        buf = buf.view(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
-        gk = gf * keep
-        we1, we3, we2 = p["we1"], p["we3"], p["we2"]
+        buf, gk, ef, pos_c, rows, C = _moe_dispatch(x, eidx, gate, m)
+        we = {n: p[n] for n in ("we1", "we3", "we2")}
         # the model axis's ranks must hold the same rows (not under fsdp)
         combine = (ctx.enabled and ctx.moe_impl == "shard_map"
                    and ctx.tp not in ctx.dp)
@@ -548,14 +804,13 @@ def moe_block(x, p, cfg: ModelConfig, ctx: ShardCtx = _NULL):
             if not own_shards:
                 buf, gk = comm.sum_grads(buf, group), comm.sum_grads(gk, group)
             n = ctx.axis_size(ctx.tp)
-            f = we1.shape[-1] // n
+            f = we["we1"].shape[-1] // n
             lo = ctx.index(ctx.tp) * f
-            we1, we3 = we1[..., lo:lo + f], we3[..., lo:lo + f]
-            we2 = we2[:, lo:lo + f]
-        h = a(torch.bmm(buf, we1)) * torch.bmm(buf, we3)
-        ye = torch.bmm(h, we2).view(E, B, C, d)
-        yk = ye[ef, rows, pos_c] * gk[..., None]           # [B, T, d]
-        out = yk.reshape(B, S, K, d).sum(dim=2)
+            we = {"we1": we["we1"][..., lo:lo + f],
+                  "we3": we["we3"][..., lo:lo + f],
+                  "we2": we["we2"][:, lo:lo + f]}
+        ye = _moe_experts(buf, we, a).view(E, B, C, d)
+        out = _moe_combine(ye, ef, pos_c, rows, gk, S, K)
         if combine:
             out = (comm.all_reduce_grad(out, group) if own_shards
                    else comm.reduce_partials(out, group))
@@ -590,3 +845,46 @@ def moe_aux_loss(x, p, cfg: ModelConfig, ctx: ShardCtx = _NULL
         tokens * m.top_k)
     imp = comm.all_reduce_grad(probs.sum(dim=(0, 1)), group) / tokens
     return m.n_experts * (frac * imp).sum()
+
+
+# --------------------------------------------------------------------------
+# vocab-parallel embedding, head and loss: GSPMD's reading of the JAX
+# twin's ``lm.py`` ``_embed``, ``logits_fn`` and ``loss`` (``:230-300``)
+# with ``vocab`` on the model axis
+# --------------------------------------------------------------------------
+def vocab_embed(tokens, w, lo: int):
+    """This rank's part of the embedding lookup from its rows [lo, lo +
+    len(w)) of the table: a token outside them reads zero (the caller's
+    ``exit`` sums the ranks' parts)."""
+    n = w.shape[0]
+    local = tokens - lo
+    inside = (local >= 0) & (local < n)
+    e = F.embedding(local.clamp(0, n - 1), w)
+    return e * inside[..., None].to(e.dtype)
+
+
+def vocab_logits(hidden, head, lo: int, vocab_size: int):
+    """f32 logits of this rank's vocabulary columns [lo, lo + V/n) of the
+    head; the padded vocabulary's columns (global index ≥
+    ``vocab_size``) read ``NEG_INF``."""
+    logits = (hidden @ head).float()
+    if lo + head.shape[-1] > vocab_size:
+        logits[..., max(vocab_size - lo, 0):] = NEG_INF
+    return logits
+
+
+def vocab_parallel_nll(logits, t, lo: int, group):
+    """The NLL of targets ``t`` (valid indices) from each rank's
+    vocabulary columns [lo, lo + V/n) of the logits: the max and the sum
+    of exponentials are reduced over ``group`` and the target's logit
+    read by the rank that holds it.  Every rank returns the whole NLL and
+    the gradient of its columns."""
+    n = logits.shape[-1]
+    mx = comm.all_reduce(logits.detach().amax(dim=-1), group, "max")
+    z = torch.exp(logits - mx[..., None]).sum(dim=-1)
+    lse = torch.log(comm.reduce_partials(z, group)) + mx
+    local = t - lo
+    own = (local >= 0) & (local < n)
+    picked = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    picked = comm.reduce_partials(torch.where(own, picked, 0.0), group)
+    return lse - picked

@@ -45,6 +45,21 @@ the backward lands each gradient in its weight's layout), so a train step
 at rest holds one layer whole at a time, as the JAX twin's FSDP scan
 does.
 
+Tensor parallelism (the JAX twin's GSPMD layout of its rules on the
+model axis): a dense, vlm or moe model at rest under a ctx whose
+``tensor_parallel`` holds (``default``, ``ep``) gathers each weight over
+its FSDP axes alone and computes with its model-axis piece
+(``ShardCtx.fsdp_spec``): attention on the rank's H/n query heads and
+the KV heads they use, the MLP and the experts on its ffn slice (or its
+experts under ``ep``), the embedding, head and NLL on its vocabulary
+rows (``layers.TensorParallel``).  Entry points take the rank's rows and
+the whole sequence; under sequence parallelism (``seq_shard``, a
+sequence that splits) the residual stream and ``forward``'s hidden
+states are the rank's S/n of the sequence, and ``prefill``,
+``decode_step`` and ``generate()`` hand back the whole logits.  The
+recurrent and encoder–decoder families, and a model with whole weights,
+compute whole rows on every model rank.
+
 Parameters are made with ``requires_grad=False``, so serving builds no
 autograd graph; ``train.steps.make_train_step`` switches it on for the
 length of a step.  With ``remat`` (the default, as in the JAX twin) a
@@ -66,12 +81,20 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
-from repro_torch.sharding import ShardCtx, comm, full, gathered
+from repro_torch.sharding import Layout, ShardCtx, comm, gathered
+from repro_torch.sharding.ctx import _is_dtensor, _names
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the cache entries held per position (written at [:S] by prefill and at
 # ``pos`` by decode); every other entry is a recurrent state, whole per row
 KV_ENTRIES = ("k", "v", "k_scale", "v_scale")
+# the families tensor parallelism splits (the others compute whole rows)
+TP_FAMILIES = ("dense", "vlm", "moe")
+# under tensor parallelism: weights every model rank holds whole whose
+# gradient is partial on each (used on the rank's own heads), and those
+# used on the rank's own S/n of the sequence under sequence parallelism
+_TP_MODEL_SUMMED = ("q_scale", "k_scale", "wk", "wv", "bk", "bv")
+_TP_SEQ_SUMMED = ("ln1", "ln2", "final_ln", "b2")
 
 
 def layer_spec(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
@@ -210,20 +233,27 @@ class ParamGroup(nn.Module):
         return dict(self.named_parameters(recurse=False))
 
 
-def chunked_nll(logits_fn, hidden, targets, chunk: int):
+def chunked_nll(logits_fn, hidden, targets, chunk: int, vocab=None):
     """(summed NLL, count of valid targets), both f32 0-d, of ``hidden``
     [B, S, d] against ``targets`` [B, S] (``-1`` = padding), taking the
     logits of ``chunk`` positions at a time, as the JAX twins' ``loss``
-    scans over chunks (the caller checks that ``chunk`` divides S)."""
+    scans over chunks (the caller checks that ``chunk`` divides S).
+    ``vocab`` (lo, group): ``logits_fn`` gives the rank's vocabulary
+    columns from ``lo`` on, and the NLL is vocab-parallel over ``group``
+    (``layers.vocab_parallel_nll``)."""
     total = hidden.new_zeros((), dtype=torch.float32)
     count = hidden.new_zeros((), dtype=torch.float32)
     for start in range(0, hidden.shape[1], chunk):
         t = targets[:, start:start + chunk].long()
-        logp = torch.log_softmax(logits_fn(hidden[:, start:start + chunk]),
-                                 dim=-1)
+        logits = logits_fn(hidden[:, start:start + chunk])
         valid = t >= 0
-        nll = -torch.gather(logp, -1, torch.where(valid, t, 0)[..., None])
-        total = total + (nll[..., 0] * valid).sum()
+        tsafe = torch.where(valid, t, 0)
+        if vocab is None:
+            nll = -torch.gather(torch.log_softmax(logits, dim=-1), -1,
+                                tsafe[..., None])[..., 0]
+        else:
+            nll = L.vocab_parallel_nll(logits, tsafe, *vocab)
+        total = total + (nll * valid).sum()
         count = count + valid.sum()
     return total, count
 
@@ -265,6 +295,8 @@ class LM(nn.Module):
         self.ctx = ctx or ShardCtx.null()
         self._cp = self.ctx.enabled and self.ctx.attn_impl == "cp"
         self._layer_axes = layer_axes(cfg)
+        self._top_axes = top_axes(cfg)
+        self._tp_splits: Optional[bool] = None
         # int8 KV cache with per-(position, kv-head) bf16 scales: 130/256
         # of a bf16 cache's bytes at head_dim 128
         self.kv_quant = kv_quant
@@ -299,29 +331,88 @@ class LM(nn.Module):
     def param_shapes(self):
         return param_shapes(self.cfg)
 
-    def _top(self, name: str) -> torch.Tensor:
-        """A top-level weight to compute with (a DTensor gathered whole by
-        ``gathered``: under grad its gradient lands in its layout)."""
-        return gathered(getattr(self.top, name), self.ctx.batch_axes)
+    def _weight(self, name: str, w, axes, tp=None) -> torch.Tensor:
+        """A weight to compute with, gathered in one pass by ``gathered``
+        (under grad its gradient lands in its layout): whole, or under
+        tensor parallelism (``tp``) this rank's piece of its
+        ``fsdp_spec`` layout, gathered over its FSDP axes alone (the
+        router whole), its gradient summed over the model axis too where
+        every model rank holds it whole but computes a part with it."""
+        ctx = self.ctx
+        if tp is None:
+            return gathered(w, ctx.batch_axes)
+        kept = None if name == "router" else Layout(
+            ctx, ctx.fsdp_spec(axes, w.shape))
+        summed = tuple(ctx.batch_axes)
+        split = kept is not None and any(ctx.tp in _names(e)
+                                         for e in kept.spec)
+        if not split and (name in _TP_MODEL_SUMMED
+                          or (tp.sp and name in _TP_SEQ_SUMMED)):
+            summed += (ctx.tp,)
+        return gathered(w, summed, kept)
 
-    def _layer_params(self, layer) -> Dict[str, torch.Tensor]:
-        """One layer's weights to compute with: under a ctx, a DTensor
-        weight is gathered whole; under grad by ``gathered``, its gradient
-        landing in its layout, else (serving) by ``gather_fsdp`` and then
-        the rest, the collectives that the dry run's serving rows count."""
+    def _top(self, name: str, tp=None) -> torch.Tensor:
+        """A top-level weight to compute with (``_weight``)."""
+        return self._weight(name, getattr(self.top, name),
+                            self._top_axes[name], tp)
+
+    def _layer_params(self, layer, tp=None) -> Dict[str, torch.Tensor]:
+        """One layer's weights to compute with (``_weight``); under no ctx
+        the parameters as they are."""
         p = layer.tensors()
         if not self.ctx.enabled:
             return p
-        if torch.is_grad_enabled():
-            return {n: gathered(w, self.ctx.batch_axes) for n, w in p.items()}
-        return {n: full(w) for n, w in
-                self.ctx.gather_params(p, self._layer_axes).items()}
+        return {n: self._weight(n, w, self._layer_axes[n], tp)
+                for n, w in p.items()}
 
-    def _head(self) -> torch.Tensor:
+    def _head(self, tp=None) -> torch.Tensor:
         """The [d, V] logits weight to compute with (the embedding's
-        transpose when tied)."""
-        return (self._top("embed").T if self.cfg.tie_embeddings
-                else self._top("lm_head"))
+        transpose when tied); under ``tp`` this rank's [d, V/n]."""
+        return (self._top("embed", tp).T if self.cfg.tie_embeddings
+                else self._top("lm_head", tp))
+
+    # ------------------------------------------------------------------
+    # tensor parallelism
+    # ------------------------------------------------------------------
+    def _tp(self, S: int) -> Optional[L.TensorParallel]:
+        """This call's ``layers.TensorParallel`` over ``S`` positions of
+        each row, or None: the model's family splits, its weights are at
+        rest, its ctx's ``tensor_parallel`` holds and its heads, (expert)
+        ffn dim or experts and vocabulary split over the model axis (else
+        the whole-row path, as GSPMD's divisibility fallback computes a dim
+        that does not split whole).  Sequence parallel when the ctx's
+        ``seq_shard`` is on and S splits over the axis."""
+        ctx = self.ctx
+        if not (ctx.tensor_parallel and self.cfg.family in TP_FAMILIES
+                and _is_dtensor(self.top.embed)):
+            return None
+        n = ctx.axis_size(ctx.tp)
+        if n == 1:
+            return None
+        tp = L.TensorParallel(ctx, sp=ctx.seq_shard and S % n == 0)
+        if self._tp_splits is None:
+            self._tp_splits = self._splits(tp)
+        return tp if self._tp_splits else None
+
+    def _splits(self, tp) -> bool:
+        """Whether the heads (``TensorParallel.splits_heads``), the (expert)
+        ffn dim or the experts, and the vocabulary split over the model
+        axis."""
+        cfg, ctx = self.cfg, self.ctx
+        if not tp.splits_heads(cfg):
+            return False
+        names = ["wq", "wo", "we1", "we2"] if cfg.family == "moe" else [
+            "wq", "wo", "w1", "w2"]
+        spec = layer_spec(cfg)
+        wants = [(self._layer_axes[n], spec[n]) for n in names]
+        wants.append((self._top_axes["embed"], top_spec(cfg)["embed"]))
+        return all(any(ctx.tp in _names(e)
+                       for e in ctx.fsdp_spec(axes, shape))
+                   for axes, shape in wants)
+
+    def _vocab_lo(self, tp) -> int:
+        """The first vocabulary row of this rank's piece."""
+        return tp.rank * (self.cfg.padded_vocab() // tp.n)
 
     def _whole_sequence(self, fn, x):
         """``fn`` (returning (out, state)) on the whole sequence of this
@@ -351,8 +442,81 @@ class LM(nn.Module):
     # ------------------------------------------------------------------
     # blocks
     # ------------------------------------------------------------------
+    def _decode_attention(self, q, k, v, cache, pos):
+        """One token's attention at ``pos``: K/V written into this layer's
+        ``cache`` in place (quantized under ``kv_quant``; on the rank that
+        holds ``pos`` when the cache's sequence is split), then attended
+        over the cache (the shards' partial softmaxes combined when
+        split)."""
+        cfg, ctx = self.cfg, self.ctx
+        kv = {"k": k, "v": v}
+        if self.kv_quant:
+            for name in ("k", "v"):
+                kv[name], kv[f"{name}_scale"] = L.kv_quantize(kv[name])
+        seq_axes = self._kv_seq_axes()
+        for name, t in kv.items():
+            if seq_axes is None:
+                L.cache_update(cache[name], t, pos)
+            else:
+                L.sharded_cache_update(
+                    cache[name], t, pos,
+                    ctx.index(seq_axes) * cache[name].shape[1])
+        length = L.decode_lengths(pos, q.shape[0], q.device)
+        scales = {n: cache[n] for n in ("k_scale", "v_scale") if n in kv}
+        if seq_axes is None:
+            return L.attention_decode(q, cache["k"], cache["v"], length,
+                                      cfg.logit_softcap, **scales)
+        return L.flash_decode_sharded(q, cache["k"], cache["v"], ctx,
+                                      length, seq_axes=seq_axes, **scales)
+
+    def _tp_block(self, x, p, positions, tp, cache=None, pos=None,
+                  want_aux: bool = False):
+        """``_block`` under tensor parallelism (``tp``): ``x`` is this
+        rank's S/n of the sequence under sequence parallelism, else the
+        whole rows.  Attention is column-parallel into the rank's heads
+        and row-parallel out of ``wo``; the MLP (or the MoE block) alike;
+        a parallel block (command-r) shares one region's entry and exit
+        between them.  At decode the cache holds the rank's KV heads, or,
+        its sequence split (``tp_seq``), every head: q and the new K/V are
+        then gathered over the model axis, and the rank multiplies its own
+        heads of the attention by its rows of ``wo``."""
+        cfg, ctx = self.cfg, self.ctx
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        h_in = tp.enter(h)
+        B, S, _ = h_in.shape
+        kv = {n: tp.kv_columns(p[n], cfg) for n in ("wk", "wv", "bk", "bv")
+              if n in p}
+        q, k, v = L._project_qkv(h_in, {**p, **kv}, cfg, positions)
+        new = {"k": k, "v": v}
+        if cache is None:
+            att = L.attention_chunked(q, k, v, causal=True,
+                                      q_chunk=self.q_chunk,
+                                      softcap=cfg.logit_softcap)
+        elif self._kv_seq_axes() is None:
+            att = self._decode_attention(q, k, v, cache, pos)
+        else:
+            att = tp.own_heads(self._decode_attention(
+                *tp.all_qkv_heads(q, k, v, cfg), cache, pos), cfg.n_heads)
+        part = L.partial_mm(att.reshape(B, S, -1), p["wo"])
+        if cfg.parallel_block:
+            out = tp.exit(part + L.tp_mlp(h_in, p, cfg)).to(x.dtype)
+            if cfg.mlp_bias:
+                out = out + p["b2"]
+            return x + out, new
+        x = x + tp.exit(part).to(x.dtype)
+        h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        if cfg.family == "moe":
+            xw = tp.whole(h2)
+            if want_aux:
+                new["aux"] = L.moe_aux_loss(xw, p, cfg, ctx)
+            return x + tp.exit(L.tp_moe(xw, p, cfg, tp)).to(x.dtype), new
+        out = tp.exit(L.tp_mlp(tp.enter(h2), p, cfg)).to(x.dtype)
+        if cfg.mlp_bias:
+            out = out + p["b2"]
+        return x + out, new
+
     def _block(self, x, p, positions, cache=None, pos=None,
-               need_state: bool = False, want_aux: bool = False):
+               need_state: bool = False, want_aux: bool = False, tp=None):
         """One block.  With ``cache`` (this layer's slice of the decode
         cache) it decodes one token: K/V are written at ``pos`` in place,
         attention runs over the cache, and the recurrent state continues
@@ -361,6 +525,8 @@ class LM(nn.Module):
         the recurrent state of a parallel call (prefill).  ``want_aux``: a
         moe layer adds its load-balancing loss (f32 0-d) as ``new["aux"]``.
         """
+        if tp is not None:
+            return self._tp_block(x, p, positions, tp, cache, pos, want_aux)
         cfg, ctx = self.cfg, self.ctx
         B, S, _ = x.shape
         if cfg.family == "ssm":
@@ -379,27 +545,7 @@ class LM(nn.Module):
                                       q_chunk=self.q_chunk,
                                       softcap=cfg.logit_softcap)
         else:
-            kv = {"k": k, "v": v}
-            if self.kv_quant:
-                for name in ("k", "v"):
-                    kv[name], kv[f"{name}_scale"] = L.kv_quantize(kv[name])
-            seq_axes = self._kv_seq_axes()
-            for name, t in kv.items():
-                if seq_axes is None:
-                    L.cache_update(cache[name], t, pos)
-                else:
-                    L.sharded_cache_update(
-                        cache[name], t, pos,
-                        ctx.index(seq_axes) * cache[name].shape[1])
-            length = L.decode_lengths(pos, B, x.device)
-            scales = {n: cache[n] for n in ("k_scale", "v_scale") if n in kv}
-            if seq_axes is None:
-                att = L.attention_decode(q, cache["k"], cache["v"], length,
-                                         cfg.logit_softcap, **scales)
-            else:
-                att = L.flash_decode_sharded(q, cache["k"], cache["v"], ctx,
-                                             length, seq_axes=seq_axes,
-                                             **scales)
+            att = self._decode_attention(q, k, v, cache, pos)
         attn_out = att.reshape(B, S, -1) @ p["wo"]
         new = {"k": k, "v": v}
         if cfg.family == "hybrid":
@@ -458,8 +604,14 @@ class LM(nn.Module):
     # ------------------------------------------------------------------
     # forward passes
     # ------------------------------------------------------------------
-    def _embed(self, tokens):
-        return F.embedding(tokens, self._top("embed")).to(self.dtype)
+    def _embed(self, tokens, tp=None):
+        """The tokens' embeddings; under ``tp`` vocab-parallel (this rank's
+        rows of the table, the ranks' parts summed: this rank's S/n of the
+        sequence under sequence parallelism)."""
+        if tp is None:
+            return F.embedding(tokens, self._top("embed")).to(self.dtype)
+        e = L.vocab_embed(tokens, self._top("embed", tp), self._vocab_lo(tp))
+        return tp.exit(e).to(self.dtype)
 
     def forward(self, tokens, *, collect_cache: bool = False,
                 want_aux: bool = False):
@@ -471,33 +623,45 @@ class LM(nn.Module):
         moe family; the global batch's on every rank) third.  Under grad
         with ``remat`` each layer runs in ``torch.utils.checkpoint``, its
         weights gathered inside (``_layer_params``): a layer at rest is
-        whole only while it runs, and again in its recompute."""
-        x = self._embed(tokens)
+        whole only while it runs, and again in its recompute.  Under tensor
+        parallelism with sequence parallelism ``hidden`` is this rank's S/n
+        of the sequence (the caches' K/V the whole sequence's, of the KV
+        heads the rank's query heads use)."""
         S = tokens.shape[1]
+        tp = self._tp(S)
+        x = self._embed(tokens, tp)
         off = self.ctx.index(self.ctx.tp) * S if self._cp else 0
         positions = off + torch.arange(S, device=tokens.device)[None, :]
         caches: List[Dict[str, torch.Tensor]] = []
         aux = x.new_zeros((), dtype=torch.float32)
         for layer in self.layers:
             def one(x, layer=layer):
-                return self._block(x, self._layer_params(layer), positions,
-                                   need_state=collect_cache,
-                                   want_aux=want_aux)
+                return self._block(x, self._layer_params(layer, tp),
+                                   positions, need_state=collect_cache,
+                                   want_aux=want_aux, tp=tp)
             x, new = remat_layer(one, x) if self.remat else one(x)
             if "aux" in new:
                 aux = aux + new.pop("aux")
             if collect_cache:
                 caches.append(new)
-        x = L.rms_norm(x, self._top("final_ln"), self.cfg.norm_eps)
+        x = L.rms_norm(x, self._top("final_ln", tp), self.cfg.norm_eps)
         if want_aux:
             return x, (caches if collect_cache else None), aux
         return x, (caches if collect_cache else None)
 
     def logits_fn(self, hidden, head: Optional[torch.Tensor] = None):
         """f32 logits of ``hidden``; ``head`` (``_head()``) when the caller
-        gathered it already."""
+        gathered it already.  Under tensor parallelism (no ``head``) each
+        rank's vocabulary columns (``layers.vocab_logits``) gathered over
+        the model axis, so every rank picks the same token."""
         cfg = self.cfg
-        head = self._head() if head is None else head
+        if head is None:
+            tp = self._tp(1)
+            if tp is not None:
+                part = L.vocab_logits(hidden, self._head(tp),
+                                      self._vocab_lo(tp), cfg.vocab_size)
+                return comm.all_gather(part, tp.group, part.dim() - 1)
+            head = self._head()
         logits = (hidden @ head).float()
         vp = cfg.padded_vocab()
         if vp != cfg.vocab_size:
@@ -519,12 +683,21 @@ class LM(nn.Module):
         n = self.ctx.axis_size(self.ctx.batch_axes) if self.ctx.enabled \
             else 1
         hidden, _, aux = self.forward(tokens, want_aux=True)
+        tp = self._tp(tokens.shape[1])
+        if tp is not None:     # the rows' whole sequence, on the rank's vocab
+            hidden = tp.enter(hidden)
         Sq = hidden.shape[1]
         c = min(self.loss_chunk, Sq)
         assert Sq % c == 0
-        head = self._head()
-        total, count = chunked_nll(lambda h: self.logits_fn(h, head), hidden,
-                                   targets, c)
+        head = self._head(tp)
+        if tp is None:
+            total, count = chunked_nll(lambda h: self.logits_fn(h, head),
+                                       hidden, targets, c)
+        else:
+            lo = self._vocab_lo(tp)
+            total, count = chunked_nll(
+                lambda h: L.vocab_logits(h, head, lo, self.cfg.vocab_size),
+                hidden, targets, c, vocab=(lo, tp.group))
         if n > 1:
             count = comm.all_reduce(count, self.ctx.group(
                 self.ctx.batch_axes))
@@ -551,10 +724,19 @@ class LM(nn.Module):
         if max_len % n:
             raise ValueError(f"max_len {max_len} does not split over {n} "
                              f"ranks of {seq_axes}")
+        # under tensor parallelism a cache whose sequence is whole holds
+        # the KV heads of the rank's query heads
+        tp = self._tp(1) if seq_axes is None else None
+        kv_heads = None
+        if tp is not None:
+            lo, hi = tp.kv_range(self.cfg)
+            kv_heads = hi - lo
         cache = {}
         for name, (shape, dtype) in self.cache_shapes(batch, max_len).items():
             if name in KV_ENTRIES:
                 shape = shape[:2] + (max_len // n,) + shape[3:]
+                if kv_heads is not None:
+                    shape = shape[:3] + (kv_heads,) + shape[4:]
             cache[name] = torch.zeros(shape, dtype=dtype, device=self.device)
         return cache
 
@@ -574,8 +756,10 @@ class LM(nn.Module):
         ``kv_quant`` the cache stores the quantized K/V and their scales.
         """
         B, Sq = tokens.shape
+        tp = self._tp(Sq)
         hidden, caches = self.forward(tokens, collect_cache=True)
-        if self._cp:                      # the whole sequence of the rows
+        if self._cp or (tp is not None and tp.sp):
+            # the whole sequence of the rows
             hidden = comm.all_gather(hidden, self.ctx.group(self.ctx.tp), 1)
             Sq = hidden.shape[1]
         max_len = max_len or Sq
@@ -593,6 +777,9 @@ class LM(nn.Module):
         for i, new in enumerate(caches):
             for name, t in new.items():
                 if name in KV_ENTRIES:
+                    if tp is not None and seq_axes is not None:
+                        # every head (every rank takes part in the gather)
+                        t = tp.all_kv_heads(t, self.cfg)
                     if b <= a:
                         continue
                     t = t[:, a:b]
@@ -609,18 +796,19 @@ class LM(nn.Module):
         row) or a [B] tensor of per-slot cache lengths (ragged decode).
         Writes the new K/V and recurrent state into ``cache`` in place.
         Returns (logits [B,1,V], cache)."""
-        x = self._embed(token)
+        tp = self._tp(token.shape[1])
+        x = self._embed(token, tp)
         if L.is_shared_pos(pos):
             positions = torch.full((1, 1), int(pos), device=x.device)
         else:
             pos = torch.as_tensor(pos, device=x.device).long()
             positions = pos[:, None]                        # [B, 1] per slot
         for i, layer in enumerate(self.layers):
-            x, new = self._block(x, self._layer_params(layer), positions,
+            x, new = self._block(x, self._layer_params(layer, tp), positions,
                                  cache={n: c[i] for n, c in cache.items()},
-                                 pos=pos)
+                                 pos=pos, tp=tp)
             for name, t in new.items():
                 if name not in KV_ENTRIES:  # K/V were written at pos
                     cache[name][i].copy_(t)
-        x = L.rms_norm(x, self._top("final_ln"), self.cfg.norm_eps)
+        x = L.rms_norm(x, self._top("final_ln", tp), self.cfg.norm_eps)
         return self.logits_fn(x), cache

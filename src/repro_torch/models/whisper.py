@@ -32,9 +32,8 @@ site takes each of them, as in the reference; decode self-attention is
 under grad runs each encoder and decoder layer in
 ``torch.utils.checkpoint``, as ``LM`` does.  Under a ``ShardCtx`` the
 model runs data-parallel on the rank's batch rows (every layer's weights
-whole: through ``gather_params``, or under grad gathered inside the
-layer's remat body by ``sharding.gathered``; activations unsplit
-otherwise), and
+whole: gathered in one pass by ``sharding.gathered``, under grad inside
+the layer's remat body; activations unsplit otherwise), and
 ``loss`` returns the rank's share of the global loss, as ``LM``'s does;
 ``param_axes`` and ``cache_axes`` give the JAX twin's logical axes.
 """
@@ -51,7 +50,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.lm import (_DTYPES, ParamGroup, chunked_nll,
                                    remat_layer, stacked)
-from repro_torch.sharding import ShardCtx, comm, full, gathered
+from repro_torch.sharding import ShardCtx, comm, gathered
 
 MAX_DECODER_POS = 32768  # learned positions table bound (largest assigned shape)
 
@@ -148,8 +147,6 @@ class EncDecLM(nn.Module):
                              f"encoder {cfg.encoder}")
         self.cfg = cfg
         self.ctx = ctx or ShardCtx.null()
-        self._enc_axes = enc_layer_axes(cfg)
-        self._dec_axes = dec_layer_axes(cfg)
         self.q_chunk = q_chunk
         self.loss_chunk = loss_chunk
         self.remat = remat
@@ -191,17 +188,14 @@ class EncDecLM(nn.Module):
         ``gathered``: under grad its gradient lands in its layout)."""
         return gathered(getattr(self.top, name), self.ctx.batch_axes)
 
-    def _layer_params(self, layer, axes) -> Dict[str, torch.Tensor]:
-        """One layer's weights to compute with (DTensors gathered whole;
-        under grad by ``gathered``, else by ``gather_fsdp`` and then the
-        rest, as ``LM._layer_params``)."""
+    def _layer_params(self, layer) -> Dict[str, torch.Tensor]:
+        """One layer's weights to compute with (DTensors gathered whole in
+        one pass by ``gathered``, as ``LM._layer_params`` gathers a family
+        that tensor parallelism leaves whole)."""
         p = layer.tensors()
         if not self.ctx.enabled:
             return p
-        if torch.is_grad_enabled():
-            return {n: gathered(w, self.ctx.batch_axes) for n, w in p.items()}
-        return {n: full(w) for n, w in
-                self.ctx.gather_params(p, axes).items()}
+        return {n: gathered(w, self.ctx.batch_axes) for n, w in p.items()}
 
     # ------------------------------------------------------------------
     def _ln(self, x, p, name):
@@ -250,8 +244,7 @@ class EncDecLM(nn.Module):
         x = self.ctx.constrain(x, "batch", None, None)
         for layer in self.enc_layers:
             def one(x, layer=layer):
-                return self._enc_block(
-                    x, self._layer_params(layer, self._enc_axes))
+                return self._enc_block(x, self._layer_params(layer))
             x = remat_layer(one, x) if self.remat else one(x)
         return L.layer_norm(x, self._top("enc_final_ln"),
                             self._top("enc_final_ln_b"),
@@ -296,7 +289,7 @@ class EncDecLM(nn.Module):
         caches: List[Dict[str, torch.Tensor]] = []
         for layer in self.dec_layers:
             def one(x, layer=layer):
-                p = self._layer_params(layer, self._dec_axes)
+                p = self._layer_params(layer)
                 xk, xv = self._cross_kv(p, enc_out)
                 x, (k, v) = self._dec_block(x, p, xk, xv)
                 return x, {"k": k, "v": v, "xk": xk, "xv": xv}
@@ -310,9 +303,7 @@ class EncDecLM(nn.Module):
     def _embed_whole(self) -> torch.Tensor:
         """The embedding to take logits with (tied), gathered as
         ``_layer_params`` gathers a layer's weights."""
-        if torch.is_grad_enabled():
-            return self._top("embed")
-        return full(self.ctx.gather_fsdp(self.top.embed, ("vocab", "d_model")))
+        return self._top("embed")
 
     def logits_fn(self, hidden, embed: Optional[torch.Tensor] = None):
         """Tied embeddings; the padded vocabulary's logits are -1e30.
@@ -374,7 +365,7 @@ class EncDecLM(nn.Module):
         pos = int(pos)
         x = self._dec_embed(token, pos)
         for i, layer in enumerate(self.dec_layers):
-            p = self._layer_params(layer, self._dec_axes)
+            p = self._layer_params(layer)
             x, _ = self._dec_block(x, p, cache["xk"][i],
                                    cache["xv"][i],
                                    cache=(cache["k"][i], cache["v"][i]),

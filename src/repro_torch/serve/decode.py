@@ -76,11 +76,12 @@ def _check_model_device(model, dev: torch.device) -> None:
 def generate(model, prompts, *, max_new: int = 16, frames=None,
              eos_id: Optional[int] = None, device="cuda") -> np.ndarray:
     """Greedy generation for a fixed batch.  prompts: [B, S] ints (numpy or
-    tensor); a sharded model takes its rank's shard of them (under
-    context parallelism S/n of each row's positions) and every rank
-    returns the same tokens.  An encoder–decoder model takes ``frames`` [B, n_frames,
-    d_model] (numpy or tensor, moved to the model's device), which no other
-    model takes.  With ``eos_id``, a sequence stops at its first EOS: every
+    tensor); a sharded model takes its rank's shard of them (its rows;
+    under context parallelism S/n of each row's positions, under tensor
+    parallelism every position) and every rank returns the same tokens.
+    An encoder–decoder model takes ``frames`` [B, n_frames, d_model]
+    (numpy or tensor, moved to the model's device), which no other model
+    takes.  With ``eos_id``, a sequence stops at its first EOS: every
     later column is ``eos_id``, and the loop exits once all rows finished.
     """
     dev = resolve_device(device)

@@ -24,7 +24,11 @@ and the pair ``sum_grads`` / ``reduce_partials`` around a region whose
 partial results the ranks sum (identity forward with summed gradients,
 summed forward with the gradient passed on), as tensor-parallel code
 brackets its region.  Each makes the same collective as its plain form,
-and the plain form when autograd does not record the tensor.
+and the plain form when autograd does not record the tensor.  Under
+sequence parallelism the region's brackets are ``gather_grad`` on the way
+in and ``scatter_partials`` (a reduce-scatter whose backward all-gathers)
+on the way out; ``gather_replicated`` (an all-gather whose backward keeps
+the rank's piece) joins a sequence that every rank then uses alike.
 """
 from __future__ import annotations
 
@@ -34,9 +38,17 @@ from typing import Dict
 import torch
 import torch.distributed as dist
 
-# collectives made, by kind (a group of one rank makes none)
+# collectives made, by kind (a group of one rank makes none), and their
+# bytes: each one's whole tensor (an all-reduce's, an all-gather's output,
+# a reduce-scatter's input)
 calls: Dict[str, int] = {"all_reduce": 0, "all_gather": 0,
                          "reduce_scatter": 0}
+volume: Dict[str, int] = dict.fromkeys(calls, 0)
+
+
+def _count(kind: str, x: torch.Tensor, factor: int = 1) -> None:
+    calls[kind] += 1
+    volume[kind] += x.numel() * x.element_size() * factor
 
 
 def transport(device_type: str, group=None) -> str:
@@ -69,7 +81,7 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     new tensor."""
     if _size(group) == 1:
         return x.clone()
-    calls["all_reduce"] += 1
+    _count("all_reduce", x)
 
     def run(t):
         t = t.clone() if t is x else t
@@ -83,7 +95,7 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     n = _size(group)
     if n == 1:
         return x
-    calls["all_gather"] += 1
+    _count("all_gather", x, n)
     xt = x.movedim(dim, 0)
 
     def run(t):
@@ -103,7 +115,7 @@ def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                          f"over {n} ranks")
-    calls["reduce_scatter"] += 1
+    _count("reduce_scatter", x)
     xt = x.movedim(dim, 0)
 
     def run(t):
@@ -129,6 +141,29 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(fctx, g):
         return reduce_scatter(g, fctx.group, fctx.dim), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, group, dim):
+        fctx.group, fctx.dim = group, dim
+        return reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return all_gather(g, fctx.group, fctx.dim), None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, group, dim):
+        fctx.group, fctx.dim, fctx.n = group, dim, x.shape[dim]
+        fctx.lo = dist.get_rank(group) * x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g.narrow(fctx.dim, fctx.lo, fctx.n), None, None
 
 
 class _Sum(torch.autograd.Function):
@@ -178,3 +213,22 @@ def reduce_partials(x: torch.Tensor, group) -> torch.Tensor:
     if _size(group) == 1 or not _records(x):
         return all_reduce(x, group)
     return _Sum.apply(x, group, True, False)
+
+
+def scatter_partials(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``reduce_scatter`` of the ranks' partial ``x``, whose backward
+    all-gathers the pieces' gradients: the exit of a tensor-parallel
+    region under sequence parallelism, each rank going on with its piece
+    of the sum (the gradient of a partial is the whole sum's)."""
+    if _size(group) == 1 or not _records(x):
+        return reduce_scatter(x, group, dim)
+    return _Scatter.apply(x, group, dim)
+
+
+def gather_replicated(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``all_gather`` whose backward keeps this rank's piece of the
+    gradient: every rank goes on with the same whole tensor, and the
+    gradient each computes of it is the whole one."""
+    if _size(group) == 1 or not _records(x):
+        return all_gather(x, group, dim)
+    return _GatherReplicated.apply(x, group, dim)

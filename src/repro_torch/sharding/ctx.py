@@ -19,17 +19,21 @@ How the port runs sharded.  Ranks execute the model on plain local
 tensors, as the JAX package's ``shard_map`` bodies do: the batch is split
 over the data axes (``batch_axes``), the sequence over the model axis
 under the ``cp`` preset, the decode cache's sequence under ``tp_seq`` /
-``dp_seq``, and the tp-sharded expert-ffn dim in the MoE
-combine-before-reduce branch; every other computation is replicated over
-the axes that do not split its data.  GSPMD's implicit layout changes
-have no counterpart: ``constrain`` and ``gather_fsdp`` redistribute a
-``DTensor`` (the weights at rest and the checkpoints' sharded state) and
-leave a plain tensor, whose layout the branch that made it fixes, as it
-is.  Both are no-ops under ``ShardCtx.null()``.  A weight at rest is
-computed with whole: ``full`` gathers it, and ``gathered`` does so under
-autograd with a backward that lands its gradient in the weight's layout
-(``Layout.land``), the FSDP step's gather and reduce-scatter.  Every
-collective goes through ``sharding.comm``.
+``dp_seq``, and, under ``tensor_parallel`` (``default``, ``ep``), the
+dims the rules put on the model axis (heads, ffn, experts, vocab: each
+rank computes with its ``fsdp_spec`` piece of every weight, Megatron's
+layers, ``models.layers.TensorParallel``); every other computation is
+replicated over the axes that do not split its data.  GSPMD's implicit
+layout changes have no counterpart: ``constrain`` and ``gather_fsdp``
+redistribute a ``DTensor`` (the weights at rest and the checkpoints'
+sharded state) and leave a plain tensor, whose layout the branch that
+made it fixes, as it is.  Both are no-ops under ``ShardCtx.null()``.  A
+weight at rest is computed with whole (``full``), or with its piece of
+the layout with its FSDP axes gathered under tensor parallelism;
+``gathered`` gathers it in one pass, under autograd with a backward that
+lands its gradient in the weight's layout (``Layout.land``), the FSDP
+step's gather and reduce-scatter.  Every collective goes through
+``sharding.comm``.
 """
 from __future__ import annotations
 
@@ -224,19 +228,38 @@ class ShardCtx:
             return None
         return kept[0] if len(kept) == 1 else kept
 
-    def gather_fsdp(self, w, logical_axes: Sequence[Optional[str]]):
-        """Explicit FSDP weight gather: a DTensor weight is redistributed to
-        its layout with the FSDP axes dropped (an all-gather over them); a
-        plain weight is returned as is."""
-        if self.mesh is None or not _is_dtensor(w):
-            return w
+    def fsdp_spec(self, logical_axes: Sequence[Optional[str]],
+                  shape: Sequence[int]) -> Tuple[Axis, ...]:
+        """The entries of a weight's layout at compute time: its axes with
+        the FSDP axes dropped, each fitted to its dim (the divisibility
+        fallback), as the JAX ``gather_fsdp`` constrains it."""
         entries = []
         for i, name in enumerate(logical_axes):
             axis = self._drop_fsdp(self._resolve(name))
-            entries.append(self._fit_axis(axis, w.shape[i]))
+            entries.append(self._fit_axis(axis, shape[i]))
         while entries and entries[-1] is None:
             entries.pop()
-        return Layout(self, tuple(entries)).redistribute(w)
+        return tuple(entries)
+
+    def gather_fsdp(self, w, logical_axes: Sequence[Optional[str]]):
+        """Explicit FSDP weight gather: a DTensor weight is redistributed to
+        its layout with the FSDP axes dropped (``fsdp_spec``: an all-gather
+        over them); a plain weight is returned as is."""
+        if self.mesh is None or not _is_dtensor(w):
+            return w
+        return Layout(self, self.fsdp_spec(logical_axes, w.shape)
+                      ).redistribute(w)
+
+    @property
+    def tensor_parallel(self) -> bool:
+        """Whether the model axis splits the layers' work (Megatron tensor
+        parallelism, GSPMD's reading of the rules that put heads, ffn and
+        vocab on it): an enabled ctx whose attention is ``tp`` and whose
+        model axis is no data axis (``default``, ``ep``; never ``fsdp`` or
+        ``cp``).  A model at rest then computes with each weight's
+        ``fsdp_spec`` piece."""
+        return (self.enabled and self.attn_impl == "tp"
+                and self.tp not in self.dp)
 
     def gather_params(self, params, axes_tree):
         """gather_fsdp over a whole (sub)tree of weights."""
@@ -369,21 +392,47 @@ class Layout:
                 t = t.narrow(i, lo, hi - lo)
         return t
 
-    def gather(self, piece: torch.Tensor) -> torch.Tensor:
-        """The whole tensor from every rank's ``piece``."""
+    def _kept(self, kept: Optional["Layout"]):
+        """The sharded dims of this layout that ``kept`` (a layout each of
+        whose entries is this one's or None) leaves split."""
+        if kept is None:
+            return set()
+        spec = kept.spec + (None,) * (len(self.spec) - len(kept.spec))
+        out = set()
+        for i, e in enumerate(spec):
+            if e is None:
+                continue
+            if i >= len(self.spec) or self.spec[i] != e:
+                raise ValueError(f"layout {kept.spec} is not {self.spec} "
+                                 "with some dims gathered")
+            out.add(i)
+        return out
+
+    def gather(self, piece: torch.Tensor,
+               kept: Optional["Layout"] = None) -> torch.Tensor:
+        """The whole tensor from every rank's ``piece``; with ``kept``,
+        this rank's piece of the ``kept`` layout (the dims it leaves split
+        are not gathered)."""
+        skip = self._kept(kept)
         for i, e in self.sharded_dims():
-            piece = comm.all_gather(piece, self.ctx.group(e), i)
+            if i not in skip:
+                piece = comm.all_gather(piece, self.ctx.group(e), i)
         return piece
 
-    def land(self, partial: torch.Tensor, summed: Sequence[str]
-             ) -> torch.Tensor:
+    def land(self, partial: torch.Tensor, summed: Sequence[str],
+             kept: Optional["Layout"] = None) -> torch.Tensor:
         """This rank's piece of the sum over the mesh axes ``summed`` of the
         ranks' whole-size ``partial`` (equal across every other axis): a
         reduce-scatter over each sharded dim's axes that are summed, a cut
         for the others, and an all-reduce over the summed axes no dim takes
-        (a gradient landing in its parameter's layout)."""
+        (a gradient landing in its parameter's layout).  With ``kept``,
+        ``partial`` is the ranks' piece of that layout, and the dims it
+        leaves split are this rank's already."""
         left = [a for a in summed]
+        skip = self._kept(kept)
         for i, e in self.sharded_dims():
+            if i in skip:
+                continue
             names = _names(e)
             if all(a in left for a in names):
                 partial = comm.reduce_scatter(partial, self.ctx.group(e), i)
@@ -440,35 +489,41 @@ def full(t):
 
 class _GatherLanded(torch.autograd.Function):
     @staticmethod
-    def forward(fctx, w, summed):
-        fctx.layout, fctx.summed = Layout.of(w), summed
-        return fctx.layout.gather(w.to_local())
+    def forward(fctx, w, summed, kept):
+        fctx.layout, fctx.summed, fctx.kept = Layout.of(w), summed, kept
+        return fctx.layout.gather(w.to_local(), kept)
 
     @staticmethod
     def backward(fctx, g):
-        piece = fctx.layout.land(g.float(), fctx.summed)
-        return fctx.layout.dtensor(piece), None
+        piece = fctx.layout.land(g.float(), fctx.summed, fctx.kept)
+        return fctx.layout.dtensor(piece), None, None
 
 
-def gathered(w, summed: Sequence[str]):
-    """The whole value of the weight ``w`` to compute with, as ``full``
-    gives it; when autograd records a DTensor ``w`` (a parameter at rest,
-    ``train.steps.rest_sharded``), differentiably: the backward hands the
-    whole-size gradient, in f32, to ``Layout.of(w).land(g, summed)``, so
-    the gradient autograd leaves on ``w`` is this rank's piece of the sum
-    over the mesh axes ``summed`` (those that split the tokens,
-    ``ShardCtx.batch_axes``): a reduce-scatter over the axes that both
-    split the tokens and shard ``w``, a cut for the others, an all-reduce
-    over the rest of ``summed``.  Autograd casts the piece to ``w``'s
-    dtype.  The FSDP gather as the JAX package's layer scan makes it:
-    called inside a remat body, the forward holds the layer whole only
-    while it runs, the recompute gathers again, and the backward
-    reduce-scatters each layer's gradient as it is done."""
+def gathered(w, summed: Sequence[str], kept: Optional[Layout] = None):
+    """The value of the weight ``w`` to compute with: whole, as ``full``
+    gives it, or with ``kept`` (``w``'s layout with some dims gathered,
+    such as its ``ShardCtx.fsdp_spec`` under tensor parallelism) this
+    rank's piece of that layout, gathered over the other axes alone, in
+    one pass either way.  When autograd records a DTensor ``w`` (a
+    parameter at rest, ``train.steps.rest_sharded``), differentiably: the
+    backward hands the gradient, in f32, to ``Layout.of(w).land(g,
+    summed, kept)``, so the gradient autograd leaves on ``w`` is this
+    rank's piece of the sum over the mesh axes ``summed`` (those whose
+    ranks hold parts of it: the axes that split the tokens,
+    ``ShardCtx.batch_axes``, and under tensor parallelism the model axis
+    for a weight every model rank holds whole but uses on its own part):
+    a reduce-scatter over the axes that both are summed and shard a
+    gathered dim, a cut for the others, an all-reduce over the rest of
+    ``summed``.  Autograd casts the piece to ``w``'s dtype.  The FSDP
+    gather as the JAX package's layer scan makes it: called inside a remat
+    body, the forward holds the layer only while it runs, the recompute
+    gathers again, and the backward reduce-scatters each layer's gradient
+    as it is done."""
     if not _is_dtensor(w):
         return w
     if not (torch.is_grad_enabled() and w.requires_grad):
-        return full(w)
-    return _GatherLanded.apply(w, tuple(summed))
+        return Layout.of(w).gather(w.to_local(), kept)
+    return _GatherLanded.apply(w, tuple(summed), kept)
 
 
 def is_axes_leaf(x) -> bool:

@@ -466,7 +466,8 @@ JOBS = {name: globals()[f"job_{name}"] for name in RANK_JOBS
         + ("ckpt_restore",)}
 
 
-def _rank_main(rank, n, tmp, jobs):
+def _rank_main(rank, n, tmp, jobs, module=None, mesh_shape=None):
+    import importlib
     import torch.distributed as dist
     torch.set_num_threads(1)
     sys.path.insert(0, SRC)
@@ -475,9 +476,17 @@ def _rank_main(rank, n, tmp, jobs):
             "gloo", store=dist.FileStore(os.path.join(tmp, f"store{n}"), n),
             rank=rank, world_size=n, timeout=timedelta(seconds=120))
         from repro_torch.launch.mesh import make_smoke_mesh
-        mesh = make_smoke_mesh(device_type="cpu")
+        if mesh_shape is None:
+            mesh = make_smoke_mesh(device_type="cpu")
+        else:
+            from torch.distributed.device_mesh import init_device_mesh
+            mesh = init_device_mesh("cpu", tuple(mesh_shape),
+                                    mesh_dim_names=("data", "model"))
+        table = JOBS if module is None else {
+            job: getattr(importlib.import_module(module), f"job_{job}")
+            for job in jobs}
         for job in jobs:
-            torch.save(JOBS[job](mesh, rank, tmp),
+            torch.save(table[job](mesh, rank, tmp),
                        os.path.join(tmp, f"{job}.{rank}.pt"))
             dist.barrier()
         dist.destroy_process_group()
@@ -487,11 +496,15 @@ def _rank_main(rank, n, tmp, jobs):
         raise SystemExit(1)
 
 
-def spawn(tmp, n, jobs):
+def spawn(tmp, n, jobs, *, module=None, mesh_shape=None):
     """Runs ``jobs`` on a gloo group of ``n`` ranks; each job's per-rank
-    results, in rank order."""
+    results, in rank order.  ``module`` names the test module whose
+    ``job_<name>`` functions they are (this one's by default);
+    ``mesh_shape`` the (data, model) mesh (``make_smoke_mesh``'s by
+    default)."""
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main, args=(r, n, tmp, jobs))
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, n, tmp, jobs, module, mesh_shape))
              for r in range(n)]
     for p in procs:
         p.start()

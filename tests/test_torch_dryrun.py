@@ -166,24 +166,26 @@ from repro_torch.launch.dryrun import fake_ranks
 from repro_torch.launch.mesh import make_ctx
 from repro_torch.launch.specs import token_layout
 from repro_torch.models import get_model
+from repro_torch.sharding import Layout
 from repro_torch.train import optim
 from repro_torch.train.steps import (make_train_step, model_params,
                                      param_layouts, rest_sharded)
 
 fake_ranks(16)
-mesh = init_device_mesh("cpu", (4, 4), mesh_dim_names=("data", "model"))
 
 
 def gathered_before_the_layers(model):
     # every layer gathered before the first runs, as a remat body's
     # default argument evaluated outside it would: all held to the backward
+    # (under tensor parallelism each layer's pieces, as the forward takes)
     forward, layer_params = model.forward, model._layer_params
 
-    def outside(*a, **kw):
-        held = {id(layer): layer_params(layer) for layer in model.layers}
-        model._layer_params = lambda layer: held[id(layer)]
+    def outside(tokens, *a, **kw):
+        tp = model._tp(tokens.shape[1])
+        held = {id(layer): layer_params(layer, tp) for layer in model.layers}
+        model._layer_params = lambda layer, tp=None: held[id(layer)]
         try:
-            return forward(*a, **kw)
+            return forward(tokens, *a, **kw)
         finally:
             del model._layer_params
     model.forward = outside
@@ -211,13 +213,20 @@ def tracked(cfg, ctx, variant):
         held = sum(math.prod(layouts[n].local_shape(p.shape))
                    for n, p in params.items())
         whole = sum(p.numel() for p in params.values())
-        return live.peak, whole - held
+        # every layer's compute-time pieces under tensor parallelism
+        pieces = sum(math.prod(Layout(ctx, ctx.fsdp_spec(
+            model._layer_axes[n], w.shape)).local_shape(w.shape))
+            for layer in model.layers for n, w in layer.tensors().items())
+        return live.peak, whole - held, model._tp(8) is not None, pieces
 
 
 out = {}
 for arch, preset in json.loads(sys.argv[1]):
     cfg = dataclasses.replace(get_config(arch).reduced(),
                               param_dtype="float32", n_layers=8)
+    # under default a layer's pieces are 8 times its share at rest
+    mesh = init_device_mesh("cpu", (8, 2) if preset == "default" else
+                            (4, 4), mesh_dim_names=("data", "model"))
     ctx = make_ctx(mesh, preset=preset)
     out[f"{arch} {preset}"] = {v: tracked(cfg, ctx, v)
                                for v in ("whole", "rest", "outside")}
@@ -250,15 +259,22 @@ def memory():
 
 @pytest.mark.parametrize("arch,preset", MEMORY_CASES)
 def test_step_at_rest_tracks_less_than_whole_weights(memory, arch, preset):
-    """Reduced in f32 to 8 layers on 16 fake ranks (mesh 4 x 4), a row of 8
-    tokens a rank: ``LiveBytes``' tracked peak of the step at rest is below
-    the whole-weight step's (gradients landed in the same layouts) by at
-    least 4 bytes x the parameters a rank does not hold at rest; with every
+    """Reduced in f32 to 8 layers on 16 fake ranks (mesh 4 x 4 as (data,
+    model); 8 x 2 under ``default``), a row of 8 tokens a rank:
+    ``LiveBytes``' tracked peak of the step at rest is below the
+    whole-weight step's (gradients landed in the same layouts) by at least
+    4 bytes x the parameters a rank does not hold at rest; with every
     layer gathered before the layers run (outside the remat body) it is
-    not."""
+    not.  Under ``default`` the step at rest is tensor-parallel (a layer
+    gathered over the data axis alone into the rank's model-axis pieces):
+    4 bytes x every layer's pieces is above the step at rest's peak, and
+    the step that gathers them all before the layers run reaches it."""
     got = memory[f"{arch} {preset}"]
-    (whole, away), (rest, _), (outside, _) = (got[v] for v in (
-        "whole", "rest", "outside"))
+    (whole, away, _, _), (rest, _, tp, pieces), (outside, _, _, _) = (
+        got[v] for v in ("whole", "rest", "outside"))
     assert away > 0
     assert whole - rest >= 4 * away, (whole, rest, away)
     assert whole - outside < 4 * away, (whole, outside, away)
+    assert tp == (preset == "default")
+    if tp:
+        assert rest < 4 * pieces <= outside, (rest, pieces, outside)

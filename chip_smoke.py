@@ -129,24 +129,27 @@ Phases, each fatal on failure (exit 1, no result line):
 14. Tables 1-3 on the card: a ``Campaign`` on ``h100-torch`` (the torch
    build timed with CUDA events, the counterpart of the JAX ``CPUPlatform``
    on its default device) over every PolyBench and APP SDK case and
-   ``moe_grouped_gemm``, as phase 5 (adi and gramschm cut to one round of
-   R 10, adi's MEP pinned at scale 256, each cut printed); then each
+   ``moe_grouped_gemm``, as phase 5 but every case cut to D 2 rounds
+   (adi and gramschm to one round of R 10, adi's MEP pinned at scale 256;
+   each cut printed ``reduced:``, for the run's time cap); then each
    winner re-timed against its
-   baseline in this process, alternating 2 rounds of 30 calls (cut from
-   5 for the run's time cap, printed ``reduced:``) (a winner
+   baseline in this process, in 1 round of 30 calls (cut from 5 for the
+   run's time cap, printed ``reduced:``) (a winner
    whose build is the baseline's is marked: it can win only timing
    spread); each case's speedup and the suites' means, campaign and
    re-timed, beside the paper's (labelled as the paper's).
 15. The paper's search engine on ``h100``: (a) a ``Campaign`` with
    population search (the reference's default ``PopulationConfig``: size 4,
-   6 generations, 2 candidates a persona, four expert personae, migration
-   on; heuristic proposer, one shared pattern store) over gemm and 2mm
+   2 candidates a persona, four expert personae, migration on; but 3
+   generations, not 6, for the run's time cap, printed ``reduced:``;
+   heuristic proposer, one shared pattern store) over gemm and 2mm
    (K1), rwkv_wkv (K6) and mamba_ssd (K7), at the JAX package's scales:
    each case's generations, evaluations, timing reps paid against fixed R,
    raced kills, migrations, persona stats, seconds and best, beside the
    greedy loop's figures for the case from phases 5 and 11; each case must
    launch its kernel and reach an ``ok`` winner; (b) mamba_ssd's population
-   winner reintegrated into hymba-1.5b at full width in f32 over 2 x 256
+   winner reintegrated into hymba-1.5b at full width, cut to 4 layers as
+   Table 4 cuts it (printed ``reduced:``), in f32 over 2 x 256
    tokens (phase 11's inputs, the naive leg re-measured), ``fe_ok`` and
    every K7 launch on ``mma`` required; (c) a ``Campaign`` over gemm with
    ``LLMProposer`` personae (2 generations) behind a scripted transport
@@ -344,7 +347,7 @@ Phases, each fatal on failure (exit 1, no result line):
    (gloo takes CUDA tensors in place) and the collectives made; (d)
    ``compressed_psum`` of a [4096, 1024] f32 tensor over the two ranks:
    the sum must equal (Σ qᵢ)·s bit for bit, each residual its own
-   formula's; (e) stablelm-3b at full width cut to 4 layers in f32 (TF32
+   formula's; (e) stablelm-3b at full width cut to 2 layers in f32 (TF32
    off), one AdamW step under the ``fsdp`` preset on the rank's 2 of 4
    rows x 256, twice from the same weights: at rest (``rest_sharded``:
    each layer gathered inside its remat body, its gradient reduce-scattered
@@ -380,7 +383,24 @@ Phases, each fatal on failure (exit 1, no result line):
    (i) (f)'s qwen2-moe-a2.7b step under tensor parallelism (its ctx's
    ``moe_impl`` ``shard_map``, which selects nothing there: both run
    ``layers.tp_moe``, the combine's partial sums reduce-scattered over the
-   two model ranks) against (f)'s single-rank step and gates.  Every leg
+   two model ranks) against (f)'s single-rank step and gates; (j)
+   rwkv6-7b, (k) hymba-1.5b and (l) whisper-medium under ``default``
+   tensor parallelism at rest, full width, cut to 4 layers (whisper: 4
+   encoder and 4 decoder layers, 2 rows of 1500 frames; each cut printed
+   ``reduced:``), in bf16 against the single rank's run in the parent,
+   counts zeroed just before each run: K6 on the rank's 32 of 64 heads,
+   K7 on its 25 of 50 mamba heads with hymba's attention on whole rows
+   (K2 on all 25 heads), K2 on 8 of whisper's 16 heads at the encoder,
+   prefill and decode's cross-attention, each launched once a layer at
+   ``generate()``'s prefill (whisper's decode steps too), on ``mma``;
+   the prefill's last-token logits, the logits of every decode step
+   whose inputs the single rank's run shares, and the recurrent state
+   (the rank's heads) within LOGITS_RTOL; ``generate()``'s 8 greedy
+   tokens equal the single rank's, or first different at a token where
+   the single rank's top two logits lie closer (relative to the largest)
+   than the leg's logits error (a bf16 near-tie through random layers;
+   printed with both readings); rwkv's and hymba's weight bytes at rest
+   about half.  Every leg
    prints its collectives by kind and bytes.  Each rank's peak memory and
    seconds; a rank that fails fails the run.  The phase's wall time on its
    own line.
@@ -414,7 +434,8 @@ one-pass controls at its main shape (bf16; and f32: K7 on xh, B and C
 rounded to TF32, which must read above the gate), the ``kernels`` JSON
 line (K1-K7; K1, K6 and K7's launches include phase 15's, K1's phase
 20's workers' (also apart), K2's phases 17, 18, 19 and 21's ranks' (also
-apart, by rank, body and offset), with whisper's two shapes and (a)'s
+apart, by rank, body and offset), K2's, K6's and K7's phase 21 (j)-(l)
+launches (also apart, by rank and leg), with whisper's two shapes and (a)'s
 offset shards; K1,
 K2, K5 and K7 with their launches by body, the main shape's body, the
 device time and the TF32, P-in-bf16 or one-pass controls; K2, K3, K4, K5,
@@ -1659,9 +1680,10 @@ RECURRENT_CHECK_NEW = {"float32": 8, "bfloat16": 4}
 def served_model(arch, n_layers=None, param_dtype=None, kv_quant=False,
                  ctx=None):
     """``arch`` at full width on the card, at full depth or cut to
-    ``n_layers``, in the config's dtype or ``param_dtype``, its weights drawn
-    from a generator seeded 0 on the card (the same weights in every
-    phase and every rank process), sharded under ``ctx`` if given."""
+    ``n_layers`` (an encoder–decoder model's encoder too), in the config's
+    dtype or ``param_dtype``, its weights drawn from a generator seeded 0
+    on the card (the same weights in every phase and every rank process),
+    sharded under ``ctx`` if given."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -1669,6 +1691,9 @@ def served_model(arch, n_layers=None, param_dtype=None, kv_quant=False,
     cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
                               param_dtype=param_dtype or cfg.param_dtype)
+    if n_layers and cfg.encoder is not None:
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, n_layers=n_layers))
     model = get_model(cfg, device="cuda", ctx=ctx,
                       **({"kv_quant": True} if kv_quant else {}))
     model.init_params(torch.Generator(device="cuda").manual_seed(0))
@@ -2650,13 +2675,17 @@ TABLES_CUTS = {"adi": {"d_rounds": 1, "r": 10},
 # and adi's MEP pinned at the scale its walk settles on (T_max rejects its
 # larger scales, whose probes took ~8 s)
 TABLES_PINNED = {"adi": 256}
+# every other case's rounds cut D 6→2 (the run's time cap with phase 21's
+# (j)-(l); the phase took 22-28 s at D 6 on an NVIDIA H100 80GB HBM3 at
+# 700.00 W)
+TABLES_D_ROUNDS = 2
 # the alternated re-timing of phase 14: rounds of REPS calls of the
 # baseline, then of the winner; calls above 10 ms take 5 a round
 RETIME_ROUNDS, RETIME_REPS = 5, 30
 # phase 14's re-timing of Tables 1-3's winners, cut for the run's time cap
 # (3 rounds took ~9 s on an NVIDIA H100 80GB HBM3 at 700.00 W, adi's
-# 163 ms calls ~5 s of it)
-TABLES_RETIME_ROUNDS = 2
+# 163 ms calls ~5 s of it; 2, then 1 with phase 21's (j)-(l))
+TABLES_RETIME_ROUNDS = 1
 
 
 def same_build(f, g) -> bool:
@@ -2765,6 +2794,8 @@ def phase_tables(report):
         [c.name for c in cases("appsdk")] + ["moe_grouped_gemm"]
     print(f"Tables 1-3 on {platform.name} ({len(names)} cases, heuristic "
           f"proposer, D=6 N=3 R=30 k=3, as phase 5):", flush=True)
+    print(f"reduced: Tables 1-3's cases D 6→{TABLES_D_ROUNDS} rounds (the "
+          f"run's time cap)", flush=True)
     for name, cut in TABLES_CUTS.items():
         print(f"reduced: {name} D 6→{cut['d_rounds']} rounds, R 30→"
               f"{cut['r']} (its torch build takes 50–230 ms a call on the "
@@ -2775,9 +2806,9 @@ def phase_tables(report):
     t0 = time.perf_counter()
     from repro_torch.core import OptConfig
     for name in names:
-        cut = TABLES_CUTS.get(name)
+        cut = TABLES_CUTS.get(name, {"d_rounds": TABLES_D_ROUNDS})
         _, row = run_case(camp, store, platform, name,
-                          cfg=OptConfig(**cut) if cut else None,
+                          cfg=OptConfig(**cut),
                           scale=TABLES_PINNED.get(name))
         row["reduced"] = cut
         rows.append(row)
@@ -2843,6 +2874,10 @@ def phase_tables(report):
 # cases of one family each, so island migration has a partner
 POPULATION_CASES = {"gemm": ("matmul", 5), "2mm": ("matmul", 5),
                     "rwkv_wkv": ("wkv", 11), "mamba_ssd": ("ssd", 11)}
+# the population's generation cap cut 6→3 (the run's time cap with phase
+# 21's (j)-(l); the phase took 14-22 s at 6 on an NVIDIA H100 80GB HBM3 at
+# 700.00 W)
+POPULATION_GENERATIONS = 3
 # the persona preambles' markers (the reference's) in a wave's sections
 PERSONA_MARKERS = {"TILING": "tiling", "MEMORY-LAYOUT": "memory",
                    "FUSION/RESTRUCTURE": "fusion",
@@ -2989,7 +3024,8 @@ def retime_winners(case, scale, greedy_v, pop_v):
 
 def phase_population(report):
     """Phase 15: the paper's search engine on the card.  (a) A Campaign on
-    h100 with population search (the reference's default PopulationConfig,
+    h100 with population search (the reference's default PopulationConfig
+    but its generation cap, POPULATION_GENERATIONS,
     heuristic proposer, one shared PatternStore) over gemm and 2mm (K1),
     rwkv_wkv (K6) and mamba_ssd (K7), each case's figures beside the
     greedy loop's from phases 5 and 11, the two winners re-timed in
@@ -3011,7 +3047,10 @@ def phase_population(report):
 
     t0 = time.perf_counter()
     platform = H100Platform()
-    pcfg = PopulationConfig()
+    pcfg = PopulationConfig(generations=POPULATION_GENERATIONS)
+    print(f"reduced: phase 15's population search capped at "
+          f"{POPULATION_GENERATIONS} generations, not 6 (the run's time "
+          "cap)", flush=True)
     db_path = OUT.parent / "campaign_population.jsonl"
     db_path.unlink(missing_ok=True)
     store = PatternStore()
@@ -3061,12 +3100,17 @@ def phase_population(report):
                 fail(f"phase 15 {name}: K7 calls on the CUDA cores: "
                      f"{row['launches']}")
 
-        # (b) the mamba_ssd population winner in f32 hymba-1.5b
+        # (b) the mamba_ssd population winner in f32 hymba-1.5b, cut in
+        # depth as Table 4 cuts it
         gc.collect()
         torch.cuda.empty_cache()
         k7 = search_kernel("ssd")
         cfg = dataclasses.replace(get_config("hymba-1.5b"),
-                                  param_dtype="float32")
+                                  param_dtype="float32",
+                                  n_layers=TABLE4_CUTS["hymba-1.5b"])
+        print(f"reduced: phase 15 (b)'s hymba-1.5b n_layers 32→"
+              f"{cfg.n_layers} (the run's time cap: its naive leg took "
+              "~1.26 s a forward at 32 layers)", flush=True)
         model = get_model(cfg, device="cuda")
         model.init_params(torch.Generator(device="cuda").manual_seed(0))
         toks = torch.as_tensor(np.random.default_rng(1).integers(
@@ -5558,10 +5602,13 @@ def phase_fabric(report):
 # --------------------------------------------------------------------------
 CP_ARCH = "glm4-9b"
 CP_RANKS = 2                # mesh (1, 2) as (data, model)
-CP_SEQ, CP_NEW = 2048, 16   # one prompt of 2048 tokens, 16 greedy tokens
+CP_SEQ, CP_NEW = 2048, 16    # one prompt of 2048 tokens; 16 greedy tokens
 CP_LAYERS = None            # glm4-9b's depth (40); an int cuts it
 CP_SAMPLES = 8              # positions of each rank's shard held by logits
-CP_TRAIN_LAYERS = 4         # stablelm-3b at full width, cut to 4 layers
+# stablelm-3b at full width cut to 2 layers (4 before this run's time cap
+# took (e)'s two steps, (h)'s and their reference 22 s of phase 21 on an
+# NVIDIA H100 80GB HBM3 at 700.00 W)
+CP_TRAIN_LAYERS = 2
 CP_TRAIN_ROWS, CP_TRAIN_SEQ = 4, 256
 # (f) at full width (60 experts) cut to 1 of 24 layers for the run's time
 # cap (over gloo a 2-layer step took 21-26 s on an NVIDIA H100 80GB HBM3 at
@@ -5571,6 +5618,22 @@ MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "qwen2-moe-a2.7b", 1
 CP_PSUM_SHAPE = (4096, 1024)
 CP_DIR = OUT.parent / "distributed"
 CP_TIMEOUT_S = 420
+# (j)-(l): tensor parallelism of the ssm, hybrid and encdec families at
+# full width in bf16, cut in depth as phases 9, 10 and 16 cut rwkv6-7b and
+# hymba-1.5b (whisper-medium: 4 of its 24 encoder and 24 decoder layers),
+# each against a single rank in the parent: one prompt of 256 tokens
+# (whisper: 2 rows of 1500 frames and 8-token prompts), 8 greedy tokens
+TP_FAMILIES = {"j": "rwkv6-7b", "k": "hymba-1.5b", "l": "whisper-medium"}
+TP_FAMILY_LAYERS = 4
+TP_FAMILY_DTYPE = "bfloat16"
+TP_FAMILY_SEQ, TP_FAMILY_NEW = 256, 8
+TP_WHISPER_ROWS, TP_WHISPER_PROMPT = 2, 8
+# each family's kernel sites: K6 at rwkv_wkv, K7 at ssm_chunk, K2 at
+# attention
+TP_FAMILY_SITES = {"rwkv6-7b": {"rwkv_wkv": "wkv"},
+                   "hymba-1.5b": {"ssm_chunk": "ssd",
+                                  "attention": "flash_attention"},
+                   "whisper-medium": {"attention": "flash_attention"}}
 
 
 def k2_offset_row(q, k, v, off):
@@ -5653,6 +5716,240 @@ def cp_reference(model, tokens):
             "tokens": new.tolist()}
 
 
+def family_inputs(arch, seed=31):
+    """(j)-(l)'s inputs: (prompts [B, S] on the card, frames or None)."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    rng = np.random.default_rng(seed)
+    if cfg.family != "encdec":
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+            1, TP_FAMILY_SEQ))).long().cuda(), None
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    frames = torch.randn(TP_WHISPER_ROWS, cfg.encoder.n_frames, cfg.d_model,
+                         generator=g, device="cuda")
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        TP_WHISPER_ROWS, TP_WHISPER_PROMPT))).long().cuda(), frames
+
+
+def family_run(model, arch, record=None):
+    """One leg's serving run through its kernels (``TP_FAMILY_SITES``,
+    each call's head counts added to ``record`` when given):
+    ``generate()``'s TP_FAMILY_NEW greedy tokens, the last-token logits
+    over the vocabulary each of its steps picked a token from (its
+    prefill's first), and the recurrent state its prefill left."""
+    import contextlib
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import generate
+    prompts, frames = family_inputs(arch)
+    kw = {} if frames is None else {"frames": frames}
+    vocab, steps, state = model.cfg.vocab_size, [], {}
+
+    def recorded(site, fn):
+        def impl(*args, **k):
+            record.setdefault(site, set()).add(
+                (args[0].shape[2], args[1].shape[2]))
+            return fn(*args, **k)
+        return impl if record is not None else fn
+
+    def logged(fn):         # the logits generate() picks each token from
+        def call(*args, **k):
+            logits, cache = fn(*args, **k)
+            steps.append(logits[:, -1, :vocab].float().cpu())
+            if len(steps) == 1:
+                state.update({n: cache[n].float().cpu() for n in
+                              ("wkv", "ssm") if n in cache})
+            return logits, cache
+        return call
+    with contextlib.ExitStack() as scope, torch.no_grad():
+        for site, name in TP_FAMILY_SITES[arch].items():
+            scope.enter_context(ops.use_impl(site, recorded(
+                site, site_impl(site, kernel_pair(name)[0]))))
+        model.prefill = logged(model.prefill)
+        model.decode_step = logged(model.decode_step)
+        try:
+            new = generate(model, prompts.cpu().numpy(),
+                           max_new=TP_FAMILY_NEW, **kw)
+        finally:
+            del model.prefill, model.decode_step
+    return {"logits": steps[0], "steps": steps, "state": state,
+            "tokens": new.tolist()}
+
+
+def family_references():
+    """The single-rank runs of (j)-(l), one model on the card at a
+    time."""
+    out = {}
+    for leg, arch in TP_FAMILIES.items():
+        model = served_model(arch, n_layers=TP_FAMILY_LAYERS,
+                             param_dtype=TP_FAMILY_DTYPE)
+        out[leg] = family_run(model, arch)
+        del model
+        free_card()
+    return out
+
+
+def first_difference(got, ref):
+    """Where the greedy tokens ``got`` [B][new] first leave ``ref``: the
+    step (every row's tokens equal before it) and its rows differing
+    there, or (None, []) where they are equal."""
+    cols = [i for i in range(len(ref[0]))
+            if any(g[i] != r[i] for g, r in zip(got, ref))]
+    if not cols:
+        return None, []
+    return cols[0], [b for b, (g, r) in enumerate(zip(got, ref))
+                     if g[cols[0]] != r[cols[0]]]
+
+
+def family_tokens(got, ref):
+    """(j)-(l)'s token readings of a leg's run ``got`` against the single
+    rank's ``ref``: the logits of the steps whose inputs the two share
+    (every step up to the first token that differs, or all) relative to
+    their largest magnitude, and at a first difference the single rank's
+    gap between its top two logits there for each row that differs (in
+    the same unit)."""
+    step, rows = first_difference(got["tokens"], ref["tokens"])
+    shared = len(ref["steps"]) if step is None else step + 1
+    err = max(rel_err(g, r) for g, r in zip(got["steps"][:shared],
+                                              ref["steps"][:shared]))
+    gaps = []
+    for b in rows:
+        top = ref["steps"][step][b].topk(2).values
+        gaps.append((top[0] - top[1]).item()
+                    / ref["steps"][step][b].abs().max().item())
+    return {"tokens_equal": step is None, "first_difference": step,
+            "rows_differing": rows, "shared_steps": shared,
+            "step_logits_rel_err": err, "top_two_gaps": gaps}
+
+
+def family_checks(leg, r, cfg, n):
+    """(j)-(l)'s gates of one run ``r`` of ``cfg`` over ``n`` model
+    ranks: its launches on the tensor cores and the heads its kernels
+    got; the prefill's logits, the logits of every step whose inputs the
+    single rank's run shares, and the recurrent state within LOGITS_RTOL;
+    the greedy tokens equal, or first different where the single rank's
+    top two logits lie closer than this run's logits error (a near-tie in
+    bf16); the weights at rest about half."""
+    arch, L = cfg.name, cfg.n_layers
+    k2, k6, k7 = (r["launches"][k] for k in ("flash_attention", "wkv",
+                                             "ssd"))
+    tag = f"({leg})"
+    if arch == "rwkv6-7b":
+        H = cfg.d_model // cfg.ssm.head_dim
+        want = {f"{tag} K6 on every layer's prefill": k6["total"] == L,
+                f"{tag} K6 on the rank's {H // n} of {H} heads":
+                    r["heads"] == {"rwkv_wkv": [(H // n, H // n)]}}
+    elif arch == "hymba-1.5b":
+        hm = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+        want = {f"{tag} attention on whole rows, mamba, MLP and vocabulary "
+                "split": r["parts"] == {"vocab": True, "attn": False,
+                                        "mlp": True, "mamba": True},
+                f"{tag} K7 on every layer's prefill, on mma":
+                    k7["total"] == k7["mma"] == L,
+                f"{tag} K2 on every layer's prefill, on mma":
+                    k2["total"] == k2["mma"] == L,
+                f"{tag} K7 on the rank's {hm // n} of {hm} mamba heads, "
+                f"K2 on all {cfg.n_heads} heads":
+                    r["heads"] == {"ssm_chunk": [(hm // n, hm // n)],
+                                   "attention": [(cfg.n_heads,
+                                                  cfg.n_kv_heads)]}}
+    else:
+        E = cfg.encoder.n_layers
+        need = E + 2 * L + L * (TP_FAMILY_NEW - 1)
+        want = {f"{tag} K2 at the encoder, prefill and decode's "
+                f"cross-attention ({need}), on mma":
+                    k2["total"] == k2["mma"] == need,
+                f"{tag} K2 on the rank's {cfg.n_heads // n} of "
+                f"{cfg.n_heads} heads":
+                    r["heads"] == {"attention": [(cfg.n_heads // n,
+                                                  cfg.n_heads // n)]}}
+    want[f"{tag} prefill logits within LOGITS_RTOL"] = \
+        r["logits_rel_err"] <= LOGITS_RTOL
+    want[f"{tag} the logits of every shared step within LOGITS_RTOL"] = \
+        r["step_logits_rel_err"] <= LOGITS_RTOL
+    for name, err in r["state_rel_err"].items():
+        want[f"{tag} the {name} state the rank's heads of the single "
+             f"rank's within LOGITS_RTOL"] = err <= LOGITS_RTOL
+    want[f"{tag} greedy tokens equal the single rank's, or first differ "
+         "at a top-two gap within the logits error"] = \
+        r["tokens_equal"] or all(g <= r["step_logits_rel_err"]
+                                 for g in r["top_two_gaps"])
+    if arch != "whisper-medium":
+        want[f"{tag} the rank holds about half the weights"] = \
+            0.45 < r["weight_bytes_at_rest"] / r["weight_bytes_whole"] \
+            < 0.55
+    return want
+
+
+def tp_family_legs(mesh, refs):
+    """(j) rwkv6-7b, (k) hymba-1.5b and (l) whisper-medium under
+    ``default`` tensor parallelism (mesh (1, 2)), at rest, full width,
+    TP_FAMILY_LAYERS layers in bf16, their kernels at their sites, counts
+    zeroed just before each run and read just after.  Each run: the parts
+    the ranks split (``lm.split_parts``: hymba's attention on whole
+    rows), the heads each kernel gets, the launches by kernel, the logits
+    and the recurrent state (the rank's heads) against the single rank's,
+    ``generate()``'s TP_FAMILY_NEW tokens (``family_tokens``), the weight
+    bytes at rest, the collectives (``family_checks``)."""
+    import torch
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.sharding import comm
+    from repro_torch.train.steps import rest_sharded
+    ctx = make_ctx(mesh, preset="default")
+    kernels = {n: kernel_pair(n)[0]
+               for n in ("flash_attention", "wkv", "ssd")}
+    out, checks = {}, {}
+    for leg, arch in TP_FAMILIES.items():
+        t_leg = time.perf_counter()
+        model = served_model(arch, n_layers=TP_FAMILY_LAYERS,
+                             param_dtype=TP_FAMILY_DTYPE, ctx=ctx)
+        whole = sum(p.numel() * p.element_size()
+                    for p in model.parameters())
+        rest_sharded(model)
+        free_card()
+        held = sum(p.to_local().numel() * p.element_size()
+                   for p in model.parameters())
+        ref, record = refs[leg], {}
+        for k in kernels.values():
+            zero_launches(k)
+        calls, volume = dict(comm.calls), dict(comm.volume)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = family_run(model, arch, record)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: read_launches(kern) for k, kern in kernels.items()}
+        tp = model._tp(1)
+        state_err = {}
+        for name, st in got["state"].items():
+            m = st.shape[2]
+            state_err[name] = rel_err(st, ref["state"][name][
+                :, :, tp.rank * m:(tp.rank + 1) * m])
+        r = out[leg] = {
+            "leg": leg, "arch": arch, "dtype": TP_FAMILY_DTYPE,
+            "parts": dict(model._tp_parts),
+            "sequence_parallel": model._tp(
+                TP_WHISPER_PROMPT if arch == "whisper-medium"
+                else TP_FAMILY_SEQ).sp,
+            "launches": launches,
+            "heads": {site: sorted(h) for site, h in record.items()},
+            "weight_bytes_at_rest": held, "weight_bytes_whole": whole,
+            "logits_rel_err": rel_err(got["logits"], ref["logits"]),
+            "state_rel_err": state_err, "seconds": seconds,
+            "tokens": got["tokens"], "reference_tokens": ref["tokens"],
+            **family_tokens(got, ref),
+            "collectives": {k: comm.calls[k] - calls[k] for k in calls},
+            "collective_bytes": {k: comm.volume[k] - volume[k]
+                                 for k in volume},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        checks.update(family_checks(leg, r, model.cfg, tp.n))
+        del model
+        free_card()
+        r["wall_s"] = time.perf_counter() - t_leg
+    return out, checks
+
+
 def rank_child(rank: int, run_dir: str) -> None:
     """``--rank R DIR``: one of phase 21's rank processes.  Writes
     DIR/rank<R>.json with its figures and checks; any failure exits 1."""
@@ -5689,6 +5986,10 @@ def rank_child(rank: int, run_dir: str) -> None:
         time.sleep(0.1)
     ref = torch.load(run / "reference.pt")
     t0 = time.perf_counter()
+    sections = out["section_s"] = {}    # each part's wall time, its builds in
+
+    def mark(name):
+        sections[name] = time.perf_counter() - t0 - sum(sections.values())
 
     # (b) context-parallel prefill through K2, (c) tp_seq decode
     model = served_model(CP_ARCH, n_layers=CP_LAYERS, ctx=ctx)
@@ -5741,6 +6042,7 @@ def rank_child(rank: int, run_dir: str) -> None:
     del model, hidden
     gc.collect()
     torch.cuda.empty_cache()
+    mark("(b)-(c)")
 
     # (d) compressed_psum on CUDA tensors over the two ranks
     g = torch.Generator(device="cuda").manual_seed(100 + rank)
@@ -5758,18 +6060,27 @@ def rank_child(rank: int, run_dir: str) -> None:
     checks["compressed_psum: the residual is the local formula"] = bool(
         torch.equal(res, x - q.float() * scale))
 
+    mark("(d)")
     # (g) tensor-parallel serving at rest against the same single rank
     out["tp"], tp_checks = tp_serve(mesh, ref)
     checks.update(tp_checks)
+    mark("(g)")
+    # (j)-(l) the ssm, hybrid and encdec families likewise
+    out["tp_families"], family_checks = tp_family_legs(mesh,
+                                                       ref["families"])
+    checks.update(family_checks)
+    mark("(j)-(l)")
 
     # (e) the fsdp step at rest and with whole weights, (f) the moe step
     # at rest, (h), (i) the tensor-parallel steps at rest, each against the
     # single-rank step
     out["train"], train_checks = cp_train_steps(mesh, rank)
     checks.update(train_checks)
+    mark("(e), (f), (h), (i)")
     # the train steps reset the peak: this rank's is the largest reading
     out["peak_gib"] = max(
         [out["cp"]["peak_gib"], out["tp"]["peak_gib"],
+         *(leg["peak_gib"] for leg in out["tp_families"].values()),
          *out["train"]["reference_peak_gib"].values()]
         + [leg["step_peak_gib"] for leg in out["train"]["legs"].values()])
     out["seconds"] = time.perf_counter() - t0
@@ -5788,9 +6099,10 @@ def tp_serve(mesh, ref):
     just before: the forward of the whole prompt (each rank computes its
     16 query heads and the KV head they use, and holds its half of the
     sequence between layers), whose logits at the held positions must lie
-    within LOGITS_RTOL of the single rank's, and ``generate()``'s 16
-    greedy tokens (the prefill through K2 again, 15 decode steps over a
-    cache split over the two ranks), which must equal the single rank's;
+    within LOGITS_RTOL of the single rank's, and ``generate()``'s CP_NEW
+    greedy tokens (the prefill through K2 again, CP_NEW - 1 decode steps
+    over a cache split over the two ranks), which must equal the single
+    rank's;
     each K2 launch on ``mma`` with (16, 1) heads; the rank's weight bytes
     at rest against the whole model's; peak memory; the collectives made,
     by kind and bytes."""
@@ -6034,6 +6346,7 @@ def cp_train_steps(mesh, rank):
     out, checks = {}, {}
 
     def leg(name, arch, layers, ctx, rest, ref, key):
+        t = time.perf_counter()
         model = served_model(arch, layers, "float32", ctx=ctx)
         data = SyntheticLMData(model.cfg, CP_TRAIN_SEQ, CP_TRAIN_ROWS, seed=0)
         batch = make_global_batch(data, 0, sharding=token_layout(
@@ -6045,10 +6358,13 @@ def cp_train_steps(mesh, rank):
         checks.update({f"{key}: {k}": v for k, v in leg_checks.items()})
         del model
         free_card()
+        out[name]["wall_s"] = time.perf_counter() - t
 
     fsdp = make_ctx(mesh, preset="fsdp")
+    t = time.perf_counter()
     ref = reference_step(TRAIN_ARCH, CP_TRAIN_LAYERS, CP_TRAIN_ROWS,
                          CP_TRAIN_SEQ, rank)
+    ref_s = {TRAIN_ARCH: time.perf_counter() - t}
     for name, rest in (("at rest", True), ("whole weights", False)):
         leg(name, TRAIN_ARCH, CP_TRAIN_LAYERS, fsdp, rest, ref,
             f"train {name}")
@@ -6061,8 +6377,10 @@ def cp_train_steps(mesh, rank):
     del ref
     moe_mesh = init_device_mesh("cuda", (CP_RANKS, 1),
                                 mesh_dim_names=("data", "model"))
+    t = time.perf_counter()
     ref = reference_step(MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, CP_TRAIN_ROWS,
                          CP_TRAIN_SEQ, rank)
+    ref_s[MOE_TRAIN_ARCH] = time.perf_counter() - t
     leg("moe at rest", MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS,
         make_ctx(moe_mesh, preset="default", moe_impl="shard_map"), True,
         ref, "moe train at rest")
@@ -6076,7 +6394,8 @@ def cp_train_steps(mesh, rank):
     peaks[MOE_TRAIN_ARCH] = ref["peak_gib"]
     del ref
     free_card()
-    return {"legs": out, "reference_peak_gib": peaks}, checks
+    return {"legs": out, "reference_peak_gib": peaks,
+            "reference_s": ref_s}, checks
 
 
 def phase_distributed(report, meanwhile=None):
@@ -6091,6 +6410,17 @@ def phase_distributed(report, meanwhile=None):
     t_a = time.perf_counter() - t0
     if CP_LAYERS is not None:
         print(cut_line(CP_ARCH, CP_LAYERS), flush=True)
+    print(f"reduced: phase 21 (e) and (h) {TRAIN_ARCH} "
+          + cut_line(TRAIN_ARCH, CP_TRAIN_LAYERS)[len("reduced: "):]
+          + " (4 before the run's time cap)", flush=True)
+    print(f"reduced: phase 21 (f) and (i) {MOE_TRAIN_ARCH} "
+          + cut_line(MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS)[len("reduced: "):],
+          flush=True)
+    for leg, arch in TP_FAMILIES.items():
+        print(f"reduced: phase 21 ({leg}) {arch} "
+              + cut_line(arch, TP_FAMILY_LAYERS)[len("reduced: "):]
+              + (" (its encoder's too)" if arch == "whisper-medium"
+                 else ""), flush=True)
     CP_DIR.mkdir(parents=True, exist_ok=True)
     for f in CP_DIR.glob("*"):
         f.unlink()
@@ -6110,9 +6440,11 @@ def phase_distributed(report, meanwhile=None):
         t_ref = time.perf_counter()
         ref = cp_reference(model, prompt)
         ref["prompt"] = prompt.cpu()
+        del model
+        free_card()
+        ref["families"] = family_references()
         t_ref = time.perf_counter() - t_ref
         torch.save(ref, CP_DIR / "reference.pt")
-        del model
         gc.collect()
         torch.cuda.empty_cache()
         (CP_DIR / "go").touch()
@@ -6168,7 +6500,11 @@ def phase_distributed(report, meanwhile=None):
               f"equal the single rank's: {cp['tokens_equal']}; collectives "
               f"{r['collectives']}, bytes {r['collective_bytes']}; "
               f"compressed_psum {r['psum']['shape']} f32 exact; peak memory "
-              f"{r['peak_gib']:.2f} GiB; {r['seconds']:.1f} s", flush=True)
+              f"{r['peak_gib']:.2f} GiB; {r['seconds']:.1f} s (by part, "
+              f"builds in: {fmt_seconds(r['section_s'])}; the train "
+              f"references {fmt_seconds(r['train']['reference_s'])}, legs "
+              + fmt_seconds({k: leg['wall_s'] for k, leg in
+                             r['train']['legs'].items()}) + ")", flush=True)
         tp = r["tp"]
         print(f"  rank {r['rank']}: (g) tensor-parallel {CP_ARCH} (bf16, "
               f"default, at rest, sequence parallel "
@@ -6184,6 +6520,33 @@ def phase_distributed(report, meanwhile=None):
               f"{tp['tokens_equal']}; collectives {tp['collectives']}, bytes "
               f"{tp['collective_bytes']}; peak memory {tp['peak_gib']:.2f} "
               f"GiB", flush=True)
+        for fam in r["tp_families"].values():
+            print(f"  rank {r['rank']}: ({fam['leg']}) tensor-parallel "
+                  f"{fam['arch']} ({TP_FAMILY_LAYERS} layers, "
+                  f"{fam['dtype']}, default, at rest, sequence parallel "
+                  f"{fam['sequence_parallel']}):"
+                  f" parts split {fam['parts']}; weights at rest "
+                  f"{fam['weight_bytes_at_rest'] / 2**30:.3f} GiB of "
+                  f"{fam['weight_bytes_whole'] / 2**30:.3f} whole "
+                  f"({fam['weight_bytes_at_rest'] / fam['weight_bytes_whole']:.3f});"
+                  f" launches {fam['launches']}; heads (q or r, k) by site "
+                  f"{fam['heads']}; prefill logits rel err "
+                  f"{fam['logits_rel_err']:.3g}, over the "
+                  f"{fam['shared_steps']} shared steps "
+                  f"{fam['step_logits_rel_err']:.3g} (gate {LOGITS_RTOL}); "
+                  f"state rel err {fam['state_rel_err']}; {TP_FAMILY_NEW} "
+                  f"tokens equal the single rank's: {fam['tokens_equal']}"
+                  + ("" if fam["tokens_equal"] else
+                     f" (first differ at token {fam['first_difference']}, "
+                     f"rows {fam['rows_differing']}: the single rank's "
+                     f"top-two gaps there {fam['top_two_gaps']} of the "
+                     f"largest logit, against the logits error "
+                     f"{fam['step_logits_rel_err']:.3g}; {fam['tokens']} "
+                     f"against {fam['reference_tokens']})") + "; "
+                  f"{fam['seconds']:.2f} s ({fam['wall_s']:.2f} with its "
+                  f"build); collectives {fam['collectives']},"
+                  f" bytes {fam['collective_bytes']}; peak memory "
+                  f"{fam['peak_gib']:.2f} GiB", flush=True)
         for leg, tr in r["train"]["legs"].items():
             what = {"moe at rest": f"{MOE_TRAIN_ARCH} {MOE_TRAIN_LAYERS} "
                                    f"layers, default (data {CP_RANKS}, "
@@ -6226,6 +6589,24 @@ def phase_distributed(report, meanwhile=None):
           f"{report['distributed']['seconds']:.1f} s", flush=True)
     free_card()
     return results, rows
+
+
+def fmt_seconds(parts) -> str:
+    return ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+
+
+def family_launches(ranks, kernel, body="total") -> int:
+    """``kernel``'s launches (``body``'s) over phase 21's (j)-(l) legs on
+    every rank."""
+    return sum(leg["launches"][kernel].get(body, 0) for r in ranks
+               for leg in r["tp_families"].values())
+
+
+def family_launches_by_leg(ranks, kernel):
+    """rank → leg → ``kernel``'s launches by body in phase 21's (j)-(l)."""
+    return {str(r["rank"]): {leg: fam["launches"][kernel]
+                             for leg, fam in r["tp_families"].items()}
+            for r in ranks}
 
 
 def camp_ctx(camp):
@@ -6540,10 +6921,12 @@ def main() -> None:
         + zoo_by_path[body] + whisper_launches[body] + train_launches[body]
         + sum(r["launches_by_path"][body] + r["tp"]["launches_by_path"][body]
               for r in cp_ranks)
+        + family_launches(cp_ranks, "flash_attention", body)
         for body in ("mma", "simt")}
 
     k7_by_path = {body: report["serve_hymba-1.5b"]["launches_by_path"][
-        "ssd"][body] + pop_launches["ssd"][body] for body in ("mma", "simt")}
+        "ssd"][body] + pop_launches["ssd"][body]
+        + family_launches(cp_ranks, "ssd", body) for body in ("mma", "simt")}
 
     def recurrent_entry(name, source, replaces, launches, checks, r):
         return {"name": name, "route": "cuda", "source": source,
@@ -6560,7 +6943,8 @@ def main() -> None:
         "launches": glm_launches["flash_attention"]
         + hymba_launches["flash_attention"] + zoo_launches
         + whisper_launches["total"] + train_launches["total"]
-        + sum(r["launches"] + r["tp"]["launches"] for r in cp_ranks),
+        + sum(r["launches"] + r["tp"]["launches"] for r in cp_ranks)
+        + family_launches(cp_ranks, "flash_attention"),
         "launches_by_path": k2_by_path,
         "main_shape_path": main_shape["path"],
         "max_abs_err": max(r["max_abs_err"] for r in
@@ -6590,6 +6974,8 @@ def main() -> None:
                                     "tol_ratio", "ms", "kernel_device_ms",
                                     "plain_ms", "library_ms", "bound_ms",
                                     "bound_by")} for r, _ in cp_rows],
+        "launches_in_tp_family_legs": family_launches_by_leg(
+            cp_ranks, "flash_attention"),
         "launches_in_cp_ranks": {
             str(r["rank"]): {"launches": r["launches"],
                              "by_path": r["launches_by_path"],
@@ -6620,18 +7006,24 @@ def main() -> None:
         {**recurrent_entry(
             "rwkv_wkv", "src/repro_torch/kernels/csrc/rwkv_wkv.cu",
             "src/repro/kernels/rwkv_wkv.py:65",
-            rwkv_launches["wkv"] + pop_launches["wkv"]["total"],
+            rwkv_launches["wkv"] + pop_launches["wkv"]["total"]
+            + family_launches(cp_ranks, "wkv"),
             rwkv_checks["wkv"] + table4_checks["wkv"] + pop_checks["wkv"],
             wkv_main),
+         "launches_in_tp_family_legs": family_launches_by_leg(cp_ranks,
+                                                              "wkv"),
          "device_ms": wkv_main["kernel_device_ms"],
          "host_us_per_call": wkv_main["host_us_per_call"]},
         {**recurrent_entry(
             "ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "src/repro/kernels/ssd_scan.py:73",
-            hymba_launches["ssd"] + pop_launches["ssd"]["total"],
+            hymba_launches["ssd"] + pop_launches["ssd"]["total"]
+            + family_launches(cp_ranks, "ssd"),
             hymba_checks["ssd"] + table4_checks["ssd"] + pop_checks["ssd"],
             ssd_main),
          "launches_by_path": k7_by_path,
+         "launches_in_tp_family_legs": family_launches_by_leg(cp_ranks,
+                                                              "ssd"),
          "main_shape_path": ssd_main["path"],
          "device_ms": ssd_main["kernel_device_ms"],
          "simt_ms": ssd_main["simt_ms"],

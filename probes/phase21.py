@@ -3,8 +3,10 @@
 Runs the build (phase 1) first, then phase 21: K2 with a causal query
 offset against its plain version, glm4-9b's context-parallel prefill and
 tp_seq decode on two rank processes sharing the card, ``compressed_psum``
-on CUDA tensors and a sharded train step; then (a)'s device times in a
-fresh process.  Writes phase 21's report to ``chiprun_out/probe21.json``.
+on CUDA tensors, the tensor-parallel legs and the sharded train steps,
+with phase 22 (a)'s dry runs on the CPU beside it as in the whole script;
+then (a)'s device times in a fresh process.  Writes phase 21's report
+to ``chiprun_out/probe21.json``.
 
     python3 probes/phase21.py        # from the repository root
 """
@@ -28,7 +30,12 @@ def main() -> None:
     report = {}
     t = time.perf_counter()
     cs.phase_device(report)
-    _, rows = cs.phase_distributed(report)
+    dryruns = cs.start_dryruns()     # as the whole script runs them beside
+    try:
+        _, rows = cs.phase_distributed(report)
+        cs.finish_dryruns(dryruns)
+    finally:
+        cs.stop_dryruns(dryruns)
     for (r, _), dev in zip(rows, cs.fresh_device_time(
             [("flash_attention", *call) for _, call in rows])):
         r["kernel_device_ms"] = dev["device_ms"]

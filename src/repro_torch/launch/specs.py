@@ -82,13 +82,21 @@ def batch_specs(cfg: ModelConfig, B: int, S: int, ctx: ShardCtx):
 def cache_specs(model, ctx: ShardCtx, B: int, S: int):
     """(this rank's piece of a [B, S] decode cache, its layouts): rows over
     the data axes, the K/V sequence over the axes ``ctx.decode_kv`` names,
-    every other dim whole, as the port's ranks hold it (a tensor-parallel
-    rank holds every KV head of a cache whose sequence is split, and
-    only its own of one that is whole: the dry run's decode cells split
-    it)."""
+    every other dim whole, as the port's ranks hold it: a tensor-parallel
+    rank holds every KV head of a cache whose sequence is split, and only
+    its own of one that is whole where attention splits (whisper's decode
+    cells), and the recurrent state of its heads (wkv, ssm) and channels
+    (conv) where the mixer splits (``LM.init_cache``)."""
     seq = {"tp_seq": ctx.tp, "dp_seq": ctx.dp}.get(ctx.decode_kv)
-    whole = ctx.replace(rules={**{k: None for k in ctx.rules},
-                               "batch": "__dp__", "kv_seq": seq})
+    rules = {**{k: None for k in ctx.rules}, "batch": "__dp__",
+             "kv_seq": seq}
+    tp = model._tp(1) if ctx.enabled else None
+    if tp is not None:
+        if seq is None and model._splits("attn"):
+            rules["kv_heads"] = ctx.tp
+        if model._splits("time_mix") or model._splits("mamba"):
+            rules.update(heads=ctx.tp, ffn=ctx.tp)
+    whole = ctx.replace(rules=rules)
     shapes = model.cache_shapes(B, S)
     sh = whole.tree_shardings(model.cache_axes(), shapes)
     return {n: sds(_piece(sh[n], shape), dtype)

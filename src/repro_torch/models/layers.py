@@ -29,7 +29,10 @@ on the rank's expert-ffn slice or its experts (``tp_moe``, whichever
 ``moe_impl``), and the embedding and the head on the
 rank's vocabulary rows (``vocab_embed``, ``vocab_logits``,
 ``vocab_parallel_nll``).  Each region is bracketed by
-``TensorParallel.enter`` and ``exit``.
+``TensorParallel.enter`` and ``exit``; a part that does not split runs
+on the whole rows (``TensorParallel.region``: ``whole`` in, ``rows``
+out), and a norm over split channels sums its squares across the ranks
+(``split_rms_norm``).
 The ``*_param_axes`` tables give each parameter's logical axes, the JAX
 twin's ``*_param_spec`` second halves.  ``constrain`` calls mark the JAX
 twin's layout points; on the plain local tensors here they change
@@ -145,6 +148,65 @@ class TensorParallel:
         """A region's input that every rank holds alike already."""
         return comm.sum_grads(x, self.group)
 
+    def rows(self, y):
+        """The output of a part every rank computes whole and alike (a
+        part that does not split: ``whole``'s input) in the residual's
+        layout: this rank's S/n of the sequence under ``sp`` (no
+        collective; its backward all-gathers, so every rank goes on with
+        the whole gradient), else ``y``."""
+        if self.sp:
+            return comm.own_piece(y, self.group, 1)
+        return y
+
+    def region(self, h, fn, split: bool, whole=None, joined: bool = False):
+        """One part of a block on the residual's ``h``: ``fn`` (returning
+        (out, extra)) on the region's input and ``exit`` of its partial
+        ``out`` (cast to ``h``'s dtype) where the part splits, else on the
+        whole rows (``whole``) and ``rows`` of its output, as GSPMD's
+        divisibility fallback computes a dim that does not split whole.
+        ``whole``: ``self.whole(h)`` gathered already (hymba's branches
+        share ``ln1``'s rows): a split part enters from it (``sum_grads``).
+        ``joined``: a split ``fn`` returns its output in the residual's
+        layout already (RWKV's channel mix), so it makes no exit.
+        Returns (out in ``h``'s layout, extra)."""
+        if split:
+            x = self.enter(h) if whole is None else self.sum_grads(whole)
+            out, extra = fn(x)
+            return (out if joined else self.exit(out).to(h.dtype)), extra
+        out, extra = fn(self.whole(h) if whole is None else whole)
+        return self.rows(out), extra
+
+    def columns(self, w, width: int):
+        """This rank's ``width``/n columns of the whole ``w`` [..., width]
+        (a vector every rank holds whole and uses on its part)."""
+        m = width // self.n
+        return w[..., self.rank * m:(self.rank + 1) * m]
+
+    def join_columns(self, y):
+        """The residual's layout of a result of which each rank computed
+        its own columns ``y`` [B, S, d/n]: the ranks' columns joined (the
+        whole sequence's, then this rank's S/n of it under ``sp``, whose
+        gradient each rank holds alone: the gather's backward sums them;
+        else the whole rows every rank goes on with alike)."""
+        if self.sp:
+            whole = comm.gather_grad(y, self.group, 2)
+            m = whole.shape[1] // self.n
+            return whole[:, self.rank * m:(self.rank + 1) * m]
+        return comm.gather_replicated(y, self.group, 2)
+
+    def paired_columns(self, w, width: int):
+        """This rank's columns of each half of a fused projection ``w``
+        whose rank piece is [d, 2·width/n] (mamba's ``w_in``: ``xi`` and
+        ``z`` side by side): the rank's ``width``/n channels are columns
+        of two pieces, so ``w`` is gathered over the model axis (its
+        backward reduce-scatters the ranks' gradients into the layout)
+        and both halves cut, as ``kv_columns`` cuts KV columns."""
+        whole = comm.gather_grad(w, self.group, w.dim() - 1)
+        m = width // self.n
+        lo = self.rank * m
+        return torch.cat([whole[..., lo:lo + m],
+                          whole[..., width + lo:width + lo + m]], dim=-1)
+
     def kv_range(self, cfg: ModelConfig, rank: Optional[int] = None
                  ) -> Tuple[int, int]:
         """[lo, hi) of the KV heads this rank's H/n query heads use:
@@ -242,6 +304,17 @@ def rms_norm(x, scale, eps):
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+def split_rms_norm(x, scale, eps, tp: TensorParallel, width: int):
+    """``rms_norm`` over a last dim of ``width`` channels of which ``x``
+    holds this rank's (``scale`` its piece): the sums of squares are
+    all-reduced over the model axis ([..., 1], f32)."""
+    xf = x.float()
+    ss = comm.all_reduce_grad(xf.square().sum(dim=-1, keepdim=True),
+                              tp.group)
+    out = xf * torch.rsqrt(ss / width + eps)
     return (out * scale.float()).to(x.dtype)
 
 
@@ -607,6 +680,17 @@ def tp_mlp(x, p, cfg: ModelConfig):
     if cfg.act == "swiglu":
         h = h * (x @ p["w3"])
     return partial_mm(h, p["w2"])
+
+
+def mlp_region(h, p, cfg: ModelConfig, tp: TensorParallel, split: bool):
+    """The MLP on the residual's ``h`` under tensor parallelism, a region
+    (``TensorParallel.region``): split, its partial sum (``tp_mlp``) with
+    ``b2`` added after the exit; else on the whole rows."""
+    out, _ = tp.region(h, lambda x: (tp_mlp(x, p, cfg) if split
+                                     else mlp(x, p, cfg), None), split)
+    if split and cfg.mlp_bias:
+        out = out + p["b2"]
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -46,19 +46,26 @@ at rest holds one layer whole at a time, as the JAX twin's FSDP scan
 does.
 
 Tensor parallelism (the JAX twin's GSPMD layout of its rules on the
-model axis): a dense, vlm or moe model at rest under a ctx whose
-``tensor_parallel`` holds (``default``, ``ep``) gathers each weight over
-its FSDP axes alone and computes with its model-axis piece
-(``ShardCtx.fsdp_spec``): attention on the rank's H/n query heads and
-the KV heads they use, the MLP and the experts on its ffn slice (or its
-experts under ``ep``), the embedding, head and NLL on its vocabulary
-rows (``layers.TensorParallel``).  Entry points take the rank's rows and
-the whole sequence; under sequence parallelism (``seq_shard``, a
-sequence that splits) the residual stream and ``forward``'s hidden
-states are the rank's S/n of the sequence, and ``prefill``,
-``decode_step`` and ``generate()`` hand back the whole logits.  The
-recurrent and encoder–decoder families, and a model with whole weights,
-compute whole rows on every model rank.
+model axis): a model at rest under a ctx whose ``tensor_parallel`` holds
+(``default``, ``ep``) gathers each weight over its FSDP axes alone and
+computes with its model-axis piece (``ShardCtx.fsdp_spec``), part by
+part (``split_parts``): attention on the rank's H/n query heads and the
+KV heads they use, the MLP and the experts on its ffn slice (or its
+experts under ``ep``), hymba's mamba mixer on its H_m/n heads, RWKV's
+time mix on its heads and its channel mix on its ffn slice and d/n gate
+columns, the embedding, head and NLL on its vocabulary rows
+(``layers.TensorParallel``).  A part that does not split (hymba's 25
+attention heads on 2, 4 or 16 ranks) computes whole rows on every model
+rank, as GSPMD's divisibility fallback does; in the dense, vlm and moe
+families such a part keeps the whole model on whole rows
+(``WHOLE_OR_NONE``).  Entry points take the rank's rows and the whole
+sequence; under sequence parallelism (``seq_shard``, a sequence that
+splits) the residual stream and ``forward``'s hidden states are the
+rank's S/n of the sequence, and ``prefill``, ``decode_step`` and
+``generate()`` hand back the whole logits.  The cache holds the rank's
+KV heads and recurrent state (wkv and ssm heads, conv channels) of the
+parts that split.  A model with whole weights computes whole rows on
+every model rank.
 
 Parameters are made with ``requires_grad=False``, so serving builds no
 autograd graph; ``train.steps.make_train_step`` switches it on for the
@@ -88,13 +95,92 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the cache entries held per position (written at [:S] by prefill and at
 # ``pos`` by decode); every other entry is a recurrent state, whole per row
 KV_ENTRIES = ("k", "v", "k_scale", "v_scale")
-# the families tensor parallelism splits (the others compute whole rows)
-TP_FAMILIES = ("dense", "vlm", "moe")
+# the families whose tensor parallelism is all or nothing (a part that
+# does not split keeps the whole model on whole rows); the others decide
+# part by part (``split_parts``)
+WHOLE_OR_NONE = ("dense", "vlm", "moe")
 # under tensor parallelism: weights every model rank holds whole whose
-# gradient is partial on each (used on the rank's own heads), and those
-# used on the rank's own S/n of the sequence under sequence parallelism
-_TP_MODEL_SUMMED = ("q_scale", "k_scale", "wk", "wv", "bk", "bv")
-_TP_SEQ_SUMMED = ("ln1", "ln2", "final_ln", "b2")
+# gradient is partial on each (used on the rank's own heads, channels or
+# columns), and those used on the rank's own S/n of the sequence under
+# sequence parallelism
+_TP_MODEL_SUMMED = ("q_scale", "k_scale", "wk", "wv", "bk", "bv",
+                    "x_wk", "x_wv", "x_bk", "x_bv",
+                    "mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "decay_lora_a",
+                    "ln_x_scale", "ln_x_bias", "mu_ck", "mu_cr")
+_TP_SEQ_SUMMED = ("ln1", "ln2", "ln3", "final_ln", "b2", "attn_out_ln",
+                  "mamba_out_ln", "ln1_b", "ln2_b", "ln3_b", "final_ln_b",
+                  "enc_final_ln", "enc_final_ln_b", "enc_pos", "dec_pos")
+# the recurrent cache entries tensor parallelism splits: name → (the
+# part whose split splits it, its dim, the layer axis first)
+_STATE_SPLITS = {"wkv": ("time_mix", 2), "ssm": ("mamba", 2),
+                 "conv": ("mamba", 3)}
+# the part of a block each weight belongs to (``part_of``)
+_PARTS = {
+    "attn": ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "q_scale", "k_scale"),
+    "mlp": ("w1", "w2", "w3", "b1", "b2", "router", "we1", "we2", "we3",
+            "ws1", "ws2", "ws3", "ws_gate"),
+    "time_mix": ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "w_r", "w_k", "w_v",
+                 "w_g", "w_o", "decay_base", "decay_lora_a", "decay_lora_b",
+                 "bonus_u", "ln_x_scale", "ln_x_bias"),
+    "channel_mix": ("mu_ck", "mu_cr", "cm_k", "cm_v", "cm_r"),
+    "vocab": ("embed", "lm_head"),
+}
+_PART_OF = {n: part for part, names in _PARTS.items() for n in names}
+
+
+def part_of(name: str) -> Optional[str]:
+    """The part of a block (or the vocabulary) the weight ``name`` belongs
+    to: ``attn`` (whisper's cross-attention ``x_*`` too), ``mlp`` (the
+    MoE block's too), ``mamba``, ``time_mix``, ``channel_mix``,
+    ``vocab``; None for the norms and positions, which every part's
+    rank uses."""
+    if name.startswith("mamba_"):
+        return "mamba"
+    if name.startswith("x_"):
+        name = name[2:]
+    return _PART_OF.get(name)
+
+
+def split_parts(cfg: ModelConfig, ctx: ShardCtx) -> Dict[str, bool]:
+    """part → whether tensor parallelism splits it over ``ctx``'s model
+    axis: its weights' ``fsdp_spec`` put the axis on their split dim
+    (the heads, ffn, expert ffn or experts, d_in, vocabulary rows) and
+    each rank gets whole heads: attention where
+    ``TensorParallel.splits_heads``, the mamba mixer where its heads
+    divide (each rank's d_in/n channels are then its heads), the RWKV
+    time mix where its heads divide.  A part that does not split keeps
+    whole rows (GSPMD's divisibility fallback computes such a dim whole)."""
+    n = ctx.axis_size(ctx.tp)
+
+    def on_model(axes, shape):
+        return any(ctx.tp in _names(e) for e in ctx.fsdp_spec(axes, shape))
+
+    d = cfg.d_model
+    parts = {"vocab": on_model(("vocab", "d_model"),
+                               (cfg.padded_vocab(), d))}
+    if cfg.family == "ssm":
+        H = d // cfg.ssm.head_dim
+        heads = on_model(("d_model", "heads"), (d, d))
+        parts["time_mix"] = heads and H % n == 0
+        parts["channel_mix"] = heads and on_model(("d_model", "ffn"),
+                                                  (d, cfg.d_ff))
+        return parts
+    parts["attn"] = (L.TensorParallel(ctx, False).splits_heads(cfg)
+                     and on_model(("d_model", "heads"), (d, cfg.q_dim)))
+    if cfg.family == "moe":
+        m = cfg.moe
+        parts["mlp"] = all(on_model(a, sh) for a, sh in (
+            (("experts", "d_model", "expert_ffn"),
+             (m.n_experts, d, m.d_ff_expert)),
+            (("experts", "expert_ffn", "d_model"),
+             (m.n_experts, m.d_ff_expert, d))))
+    else:
+        parts["mlp"] = on_model(("d_model", "ffn"), (d, cfg.d_ff))
+    if cfg.family == "hybrid":
+        d_in, hm, _ = SSM.mamba_dims(cfg)
+        parts["mamba"] = hm % n == 0 and on_model(("ffn", "d_model"),
+                                                  (d_in, d))
+    return parts
 
 
 def layer_spec(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
@@ -281,7 +367,82 @@ def remat_layer(fn, x):
         context_fn=lambda: (contextlib.nullcontext(), forward_modes()))
 
 
-class LM(nn.Module):
+class TensorParallelWeights:
+    """Tensor parallelism's decision and weights, shared by ``LM`` and
+    ``whisper.EncDecLM`` (each has ``cfg``, ``ctx``, ``top`` and
+    ``_tp_parts``, None until the first call that asks)."""
+
+    def _tp(self, S: int) -> Optional[L.TensorParallel]:
+        """This call's ``layers.TensorParallel`` over ``S`` positions of
+        each row, or None: the weights are at rest, the ctx's
+        ``tensor_parallel`` holds and some part splits over the model axis
+        (``split_parts``; in ``WHOLE_OR_NONE``'s families every part must).
+        Sequence parallel when the ctx's ``seq_shard`` is on and S splits
+        over the axis."""
+        ctx = self.ctx
+        if not (ctx.tensor_parallel and _is_dtensor(self.top.embed)):
+            return None
+        n = ctx.axis_size(ctx.tp)
+        if n == 1:
+            return None
+        if self._tp_parts is None:
+            self._tp_parts = split_parts(self.cfg, ctx)
+        parts = self._tp_parts.values()
+        if not any(parts) or (self.cfg.family in WHOLE_OR_NONE
+                              and not all(parts)):
+            return None
+        return L.TensorParallel(ctx, sp=ctx.seq_shard and S % n == 0)
+
+    def _splits(self, part: Optional[str]) -> bool:
+        """Whether ``part`` (``part_of``; None: a norm or a position every
+        part uses) splits; asked only under a ``_tp`` (a part the family
+        lacks does not)."""
+        return part is None or self._tp_parts.get(part, False)
+
+    def _part_tp(self, part: str, tp):
+        """``tp`` where ``part`` splits, else None (its whole rows)."""
+        return tp if tp is not None and self._splits(part) else None
+
+    def _region(self, h, fn, part: str, tp, **kw):
+        """``fn(h)`` → (out, extra) with no tensor parallelism (``tp``
+        None), else ``part``'s region (``TensorParallel.region``, its
+        keywords ``kw``)."""
+        if tp is None:
+            return fn(h)
+        return tp.region(h, fn, self._splits(part), **kw)
+
+    def _weight(self, name: str, w, axes, tp=None) -> torch.Tensor:
+        """A weight to compute with, gathered in one pass by ``gathered``
+        (under grad its gradient lands in its layout): whole, or under
+        tensor parallelism (``tp``) where its part splits, this rank's
+        piece of its ``fsdp_spec`` layout, gathered over its FSDP axes
+        alone (the router whole), its gradient summed over the model axis
+        too where every model rank holds it whole but computes a part
+        with it (``_TP_MODEL_SUMMED``; ``_TP_SEQ_SUMMED`` under sequence
+        parallelism).  The weights of a part that does not split are
+        whole, their gradient not summed over the model axis: every model
+        rank computes that part alike."""
+        ctx = self.ctx
+        if tp is not None and not self._splits(part_of(name)):
+            tp = None
+        if tp is None:
+            return gathered(w, ctx.batch_axes)
+        kept = None if name == "router" else Layout(
+            ctx, ctx.fsdp_spec(axes, w.shape))
+        summed = tuple(ctx.batch_axes)
+        split = kept is not None and any(ctx.tp in _names(e)
+                                         for e in kept.spec)
+        if not split and (name in _TP_MODEL_SUMMED
+                          or (tp.sp and name in _TP_SEQ_SUMMED)):
+            summed += (ctx.tp,)
+        return gathered(w, summed, kept)
+
+    def _vocab_lo(self, tp) -> int:
+        """The first vocabulary row of this rank's piece."""
+        return tp.rank * (self.cfg.padded_vocab() // tp.n)
+
+
+class LM(TensorParallelWeights, nn.Module):
     def __init__(self, cfg: ModelConfig, ctx: Optional[ShardCtx] = None, *,
                  device="cuda", kv_quant: bool = False, q_chunk: int = 256,
                  loss_chunk: int = 1024, remat: bool = True):
@@ -296,7 +457,7 @@ class LM(nn.Module):
         self._cp = self.ctx.enabled and self.ctx.attn_impl == "cp"
         self._layer_axes = layer_axes(cfg)
         self._top_axes = top_axes(cfg)
-        self._tp_splits: Optional[bool] = None
+        self._tp_parts: Optional[Dict[str, bool]] = None
         # int8 KV cache with per-(position, kv-head) bf16 scales: 130/256
         # of a bf16 cache's bytes at head_dim 128
         self.kv_quant = kv_quant
@@ -331,26 +492,6 @@ class LM(nn.Module):
     def param_shapes(self):
         return param_shapes(self.cfg)
 
-    def _weight(self, name: str, w, axes, tp=None) -> torch.Tensor:
-        """A weight to compute with, gathered in one pass by ``gathered``
-        (under grad its gradient lands in its layout): whole, or under
-        tensor parallelism (``tp``) this rank's piece of its
-        ``fsdp_spec`` layout, gathered over its FSDP axes alone (the
-        router whole), its gradient summed over the model axis too where
-        every model rank holds it whole but computes a part with it."""
-        ctx = self.ctx
-        if tp is None:
-            return gathered(w, ctx.batch_axes)
-        kept = None if name == "router" else Layout(
-            ctx, ctx.fsdp_spec(axes, w.shape))
-        summed = tuple(ctx.batch_axes)
-        split = kept is not None and any(ctx.tp in _names(e)
-                                         for e in kept.spec)
-        if not split and (name in _TP_MODEL_SUMMED
-                          or (tp.sp and name in _TP_SEQ_SUMMED)):
-            summed += (ctx.tp,)
-        return gathered(w, summed, kept)
-
     def _top(self, name: str, tp=None) -> torch.Tensor:
         """A top-level weight to compute with (``_weight``)."""
         return self._weight(name, getattr(self.top, name),
@@ -367,52 +508,10 @@ class LM(nn.Module):
 
     def _head(self, tp=None) -> torch.Tensor:
         """The [d, V] logits weight to compute with (the embedding's
-        transpose when tied); under ``tp`` this rank's [d, V/n]."""
+        transpose when tied); under ``tp`` (where the vocabulary splits)
+        this rank's [d, V/n]."""
         return (self._top("embed", tp).T if self.cfg.tie_embeddings
                 else self._top("lm_head", tp))
-
-    # ------------------------------------------------------------------
-    # tensor parallelism
-    # ------------------------------------------------------------------
-    def _tp(self, S: int) -> Optional[L.TensorParallel]:
-        """This call's ``layers.TensorParallel`` over ``S`` positions of
-        each row, or None: the model's family splits, its weights are at
-        rest, its ctx's ``tensor_parallel`` holds and its heads, (expert)
-        ffn dim or experts and vocabulary split over the model axis (else
-        the whole-row path, as GSPMD's divisibility fallback computes a dim
-        that does not split whole).  Sequence parallel when the ctx's
-        ``seq_shard`` is on and S splits over the axis."""
-        ctx = self.ctx
-        if not (ctx.tensor_parallel and self.cfg.family in TP_FAMILIES
-                and _is_dtensor(self.top.embed)):
-            return None
-        n = ctx.axis_size(ctx.tp)
-        if n == 1:
-            return None
-        tp = L.TensorParallel(ctx, sp=ctx.seq_shard and S % n == 0)
-        if self._tp_splits is None:
-            self._tp_splits = self._splits(tp)
-        return tp if self._tp_splits else None
-
-    def _splits(self, tp) -> bool:
-        """Whether the heads (``TensorParallel.splits_heads``), the (expert)
-        ffn dim or the experts, and the vocabulary split over the model
-        axis."""
-        cfg, ctx = self.cfg, self.ctx
-        if not tp.splits_heads(cfg):
-            return False
-        names = ["wq", "wo", "we1", "we2"] if cfg.family == "moe" else [
-            "wq", "wo", "w1", "w2"]
-        spec = layer_spec(cfg)
-        wants = [(self._layer_axes[n], spec[n]) for n in names]
-        wants.append((self._top_axes["embed"], top_spec(cfg)["embed"]))
-        return all(any(ctx.tp in _names(e)
-                       for e in ctx.fsdp_spec(axes, shape))
-                   for axes, shape in wants)
-
-    def _vocab_lo(self, tp) -> int:
-        """The first vocabulary row of this rank's piece."""
-        return tp.rank * (self.cfg.padded_vocab() // tp.n)
 
     def _whole_sequence(self, fn, x):
         """``fn`` (returning (out, state)) on the whole sequence of this
@@ -469,51 +568,100 @@ class LM(nn.Module):
         return L.flash_decode_sharded(q, cache["k"], cache["v"], ctx,
                                       length, seq_axes=seq_axes, **scales)
 
-    def _tp_block(self, x, p, positions, tp, cache=None, pos=None,
-                  want_aux: bool = False):
-        """``_block`` under tensor parallelism (``tp``): ``x`` is this
-        rank's S/n of the sequence under sequence parallelism, else the
-        whole rows.  Attention is column-parallel into the rank's heads
-        and row-parallel out of ``wo``; the MLP (or the MoE block) alike;
-        a parallel block (command-r) shares one region's entry and exit
-        between them.  At decode the cache holds the rank's KV heads, or,
-        its sequence split (``tp_seq``), every head: q and the new K/V are
-        then gathered over the model axis, and the rank multiplies its own
-        heads of the attention by its rows of ``wo``."""
-        cfg, ctx = self.cfg, self.ctx
-        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        h_in = tp.enter(h)
-        B, S, _ = h_in.shape
-        kv = {n: tp.kv_columns(p[n], cfg) for n in ("wk", "wv", "bk", "bv")
-              if n in p}
-        q, k, v = L._project_qkv(h_in, {**p, **kv}, cfg, positions)
-        new = {"k": k, "v": v}
+    def _tp_attention(self, h, p, positions, tp, cache, pos):
+        """Attention under tensor parallelism on ``h``, the region's input
+        where attention splits (then the rank's query heads and the KV
+        heads they use, its partial sum out of ``wo``), else the whole
+        rows (every head, the whole output).  Returns (out, {"k", "v"}).
+        At decode the cache holds the rank's KV heads, or, its sequence
+        split (``tp_seq``), every head: under a split, q and the new K/V
+        are then gathered over the model axis, and the rank multiplies its
+        own heads of the attention by its rows of ``wo``."""
+        cfg = self.cfg
+        B, S, _ = h.shape
+        split = self._splits("attn")
+        if split:
+            p = {**p, **{n: tp.kv_columns(p[n], cfg)
+                         for n in ("wk", "wv", "bk", "bv") if n in p}}
+        q, k, v = L._project_qkv(h, p, cfg, positions)
         if cache is None:
             att = L.attention_chunked(q, k, v, causal=True,
                                       q_chunk=self.q_chunk,
                                       softcap=cfg.logit_softcap)
-        elif self._kv_seq_axes() is None:
+        elif not split or self._kv_seq_axes() is None:
             att = self._decode_attention(q, k, v, cache, pos)
         else:
             att = tp.own_heads(self._decode_attention(
                 *tp.all_qkv_heads(q, k, v, cfg), cache, pos), cfg.n_heads)
-        part = L.partial_mm(att.reshape(B, S, -1), p["wo"])
-        if cfg.parallel_block:
+        att = att.reshape(B, S, -1)
+        out = L.partial_mm(att, p["wo"]) if split else att @ p["wo"]
+        return out, {"k": k, "v": v}
+
+    def _tp_block(self, x, p, positions, tp, cache=None, pos=None,
+                  need_state: bool = False, want_aux: bool = False):
+        """``_block`` under tensor parallelism (``tp``): ``x`` is this
+        rank's S/n of the sequence under sequence parallelism, else the
+        whole rows.  Each part is a region (``TensorParallel.region``):
+        split, column-parallel into the rank's heads, channels or ffn
+        slice and row-parallel out (attention, the MLP or the MoE block,
+        hymba's mamba heads, RWKV's time and channel mix), or whole rows
+        where it does not split (``split_parts``).  A parallel block
+        (command-r) shares one region's entry and exit between attention
+        and the MLP; hymba's two branches share ``ln1``'s rows, gathered
+        once, and each leaves its region before its own norm."""
+        cfg, ctx = self.cfg, self.ctx
+        if cfg.family == "ssm":
+            return self._rwkv_block(x, p, cache, need_state, tp)
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        if cfg.parallel_block:           # dense: every part splits
+            h_in = tp.enter(h)
+            part, new = self._tp_attention(h_in, p, positions, tp, cache,
+                                           pos)
             out = tp.exit(part + L.tp_mlp(h_in, p, cfg)).to(x.dtype)
             if cfg.mlp_bias:
                 out = out + p["b2"]
             return x + out, new
-        x = x + tp.exit(part).to(x.dtype)
+        if cfg.family == "hybrid":
+            x, new = self._tp_hybrid_mixers(x, h, p, positions, tp, cache,
+                                            pos, need_state)
+        else:
+            attn_out, new = self._region(h, lambda hs: self._tp_attention(
+                hs, p, positions, tp, cache, pos), "attn", tp)
+            x = x + attn_out
         h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        if cfg.family == "moe":
+        if cfg.family == "moe":          # every part splits
             xw = tp.whole(h2)
             if want_aux:
                 new["aux"] = L.moe_aux_loss(xw, p, cfg, ctx)
             return x + tp.exit(L.tp_moe(xw, p, cfg, tp)).to(x.dtype), new
-        out = tp.exit(L.tp_mlp(tp.enter(h2), p, cfg)).to(x.dtype)
-        if cfg.mlp_bias:
-            out = out + p["b2"]
-        return x + out, new
+        return x + L.mlp_region(h2, p, cfg, tp, self._splits("mlp")), new
+
+    def _tp_hybrid_mixers(self, x, h, p, positions, tp, cache, pos,
+                          need_state):
+        """hymba's attention and mamba branches under tensor parallelism,
+        on ``ln1``'s rows ``h``: each branch a region of its own, split or
+        on whole rows (25 heads and 5 KV heads split over no model axis of
+        2, 4 or 16; 50 mamba heads over 2).  Where one branch keeps whole
+        rows, the rows are gathered once (``whole``) and the split branch
+        enters from them (``sum_grads``).  Each branch leaves its region
+        before its own norm (over d); returns (x, the cache entries)."""
+        cfg = self.cfg
+        mp = {name[len("mamba_"):]: t for name, t in p.items()
+              if name.startswith("mamba_")}
+        m_state = None if cache is None else {"conv": cache["conv"],
+                                              "ssm": cache["ssm"]}
+        hw = None if self._splits("attn") and self._splits("mamba") \
+            else tp.whole(h)
+        attn_out, new = self._region(h, lambda hs: self._tp_attention(
+            hs, p, positions, tp, cache, pos), "attn", tp, whole=hw)
+        mamba_out, m_new = self._region(h, lambda hs: SSM.mamba_block(
+            hs, mp, cfg, state=m_state, need_state=need_state,
+            tp=self._part_tp("mamba", tp)), "mamba", tp, whole=hw)
+        # mean of per-branch normalized outputs (hymba parallel heads)
+        attn_out = L.rms_norm(attn_out, p["attn_out_ln"], cfg.norm_eps)
+        mamba_out = L.rms_norm(mamba_out, p["mamba_out_ln"], cfg.norm_eps)
+        new.update(conv=m_new["conv"], ssm=m_new["ssm"].float())
+        return x + 0.5 * (attn_out + mamba_out), new
 
     def _block(self, x, p, positions, cache=None, pos=None,
                need_state: bool = False, want_aux: bool = False, tp=None):
@@ -526,7 +674,8 @@ class LM(nn.Module):
         moe layer adds its load-balancing loss (f32 0-d) as ``new["aux"]``.
         """
         if tp is not None:
-            return self._tp_block(x, p, positions, tp, cache, pos, want_aux)
+            return self._tp_block(x, p, positions, tp, cache, pos,
+                                  need_state, want_aux)
         cfg, ctx = self.cfg, self.ctx
         B, S, _ = x.shape
         if cfg.family == "ssm":
@@ -579,24 +728,38 @@ class LM(nn.Module):
             return x + moe_out, new
         return x + L.mlp(h2, p, cfg, ctx), new
 
-    def _rwkv_block(self, x, p, cache, need_state: bool = False):
+    def _rwkv_block(self, x, p, cache, need_state: bool = False, tp=None):
         """One RWKV6 block (time mix, channel mix); decodes from ``cache``
-        when given, else starts from zero token shifts and state."""
+        when given, else starts from zero token shifts and state.  Under
+        tensor parallelism (``tp``) each mix is a region: split (the time
+        mix on the rank's heads, its WKV state theirs; the channel mix on
+        its ffn slice and d/n gate columns, ``SSM.rwkv_channel_mix``) or on
+        whole rows; the token shifts are taken on the whole sequence, so
+        the shift states stay whole [B, d]."""
         cfg = self.cfg
         zeros = torch.zeros((x.shape[0], cfg.d_model), dtype=x.dtype,
                             device=x.device)
+
+        def time_mix(hs):
+            return SSM.rwkv_time_mix(
+                hs, p, cfg,
+                shift_state=zeros if cache is None else cache["shift_tm"],
+                wkv_state=None if cache is None else cache["wkv"],
+                need_state=need_state, ctx=self.ctx,
+                tp=self._part_tp("time_mix", tp))
+
+        def channel_mix(hs):
+            return SSM.rwkv_channel_mix(
+                hs, p, cfg,
+                shift_state=zeros if cache is None else cache["shift_cm"],
+                ctx=self.ctx, tp=self._part_tp("channel_mix", tp))
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        tm_out, (shift_tm, wkv) = SSM.rwkv_time_mix(
-            h, p, cfg,
-            shift_state=zeros if cache is None else cache["shift_tm"],
-            wkv_state=None if cache is None else cache["wkv"],
-            need_state=need_state, ctx=self.ctx)
+        tm_out, (shift_tm, wkv) = self._region(h, time_mix, "time_mix", tp)
         x = x + tm_out
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        cm_out, shift_cm = SSM.rwkv_channel_mix(
-            h, p, cfg,
-            shift_state=zeros if cache is None else cache["shift_cm"],
-            ctx=self.ctx)
+        # split, the channel mix joins its columns in the residual's layout
+        cm_out, shift_cm = self._region(h, channel_mix, "channel_mix", tp,
+                                        joined=True)
         x = x + cm_out
         return x, {"wkv": wkv.float(), "shift_tm": shift_tm,
                    "shift_cm": shift_cm}
@@ -607,9 +770,12 @@ class LM(nn.Module):
     def _embed(self, tokens, tp=None):
         """The tokens' embeddings; under ``tp`` vocab-parallel (this rank's
         rows of the table, the ranks' parts summed: this rank's S/n of the
-        sequence under sequence parallelism)."""
-        if tp is None:
-            return F.embedding(tokens, self._top("embed")).to(self.dtype)
+        sequence under sequence parallelism); a vocabulary that does not
+        split is looked up whole (this rank's S/n of it)."""
+        vtp = self._part_tp("vocab", tp)
+        if vtp is None:
+            e = F.embedding(tokens, self._top("embed")).to(self.dtype)
+            return e if tp is None else tp.rows(e)
         e = L.vocab_embed(tokens, self._top("embed", tp), self._vocab_lo(tp))
         return tp.exit(e).to(self.dtype)
 
@@ -656,7 +822,7 @@ class LM(nn.Module):
         the model axis, so every rank picks the same token."""
         cfg = self.cfg
         if head is None:
-            tp = self._tp(1)
+            tp = self._part_tp("vocab", self._tp(1))
             if tp is not None:
                 part = L.vocab_logits(hidden, self._head(tp),
                                       self._vocab_lo(tp), cfg.vocab_size)
@@ -684,8 +850,12 @@ class LM(nn.Module):
             else 1
         hidden, _, aux = self.forward(tokens, want_aux=True)
         tp = self._tp(tokens.shape[1])
-        if tp is not None:     # the rows' whole sequence, on the rank's vocab
+        vtp = self._part_tp("vocab", tp)
+        if vtp is not None:    # the rows' whole sequence, on the rank's vocab
             hidden = tp.enter(hidden)
+        elif tp is not None:
+            hidden = tp.whole(hidden)
+        tp = vtp
         Sq = hidden.shape[1]
         c = min(self.loss_chunk, Sq)
         assert Sq % c == 0
@@ -725,18 +895,22 @@ class LM(nn.Module):
             raise ValueError(f"max_len {max_len} does not split over {n} "
                              f"ranks of {seq_axes}")
         # under tensor parallelism a cache whose sequence is whole holds
-        # the KV heads of the rank's query heads
-        tp = self._tp(1) if seq_axes is None else None
-        kv_heads = None
-        if tp is not None:
-            lo, hi = tp.kv_range(self.cfg)
-            kv_heads = hi - lo
+        # the KV heads of the rank's query heads where attention splits,
+        # and the recurrent state of the rank's heads (wkv, ssm) or
+        # channels (conv) where its mixer splits
+        tp = self._tp(1)
+        kv_tp = self._part_tp("attn", tp) if seq_axes is None else None
         cache = {}
         for name, (shape, dtype) in self.cache_shapes(batch, max_len).items():
             if name in KV_ENTRIES:
                 shape = shape[:2] + (max_len // n,) + shape[3:]
-                if kv_heads is not None:
-                    shape = shape[:3] + (kv_heads,) + shape[4:]
+                if kv_tp is not None:
+                    lo, hi = kv_tp.kv_range(self.cfg)
+                    shape = shape[:3] + (hi - lo,) + shape[4:]
+            elif tp is not None and name in _STATE_SPLITS and self._splits(
+                    _STATE_SPLITS[name][0]):
+                dim = _STATE_SPLITS[name][1]
+                shape = shape[:dim] + (shape[dim] // tp.n,) + shape[dim + 1:]
             cache[name] = torch.zeros(shape, dtype=dtype, device=self.device)
         return cache
 
@@ -777,7 +951,8 @@ class LM(nn.Module):
         for i, new in enumerate(caches):
             for name, t in new.items():
                 if name in KV_ENTRIES:
-                    if tp is not None and seq_axes is not None:
+                    if self._part_tp("attn", tp) is not None \
+                            and seq_axes is not None:
                         # every head (every rank takes part in the gather)
                         t = tp.all_kv_heads(t, self.cfg)
                     if b <= a:

@@ -36,8 +36,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import rms_norm
-from repro_torch.sharding import ShardCtx
+from repro_torch.models.layers import (partial_mm, rms_norm,
+                                       split_rms_norm)
+from repro_torch.sharding import ShardCtx, comm
 
 _NULL = ShardCtx.null()
 
@@ -173,16 +174,30 @@ def _ssd_chunked(xh, dt, a_log, B_t, C_t, chunk: int, use_impl: bool = True,
 
 
 def mamba_block(x, p, cfg: ModelConfig, *, state: Dict = None,
-                need_state: bool = False):
+                need_state: bool = False, tp=None):
     """Full mamba mixer.  ``state=None`` → parallel (train/prefill) mode,
     returns (y, new_state); state dict has 'conv' [B,K-1,d_in], 'ssm'
     [B,H,P,N] for single-token decode.  ``need_state``: the caller keeps
-    the parallel mode's final state (prefill)."""
+    the parallel mode's final state (prefill).
+
+    Under tensor parallelism (``tp``, a ``layers.TensorParallel``: the
+    mamba heads split over the model axis) ``x`` is the region's input and
+    ``p`` the rank's pieces: its d_in/n channels, which are its H/n whole
+    heads (``w_in``'s columns of them from both halves,
+    ``TensorParallel.paired_columns``; ``conv_w`` and the state local),
+    ``w_dt`` and ``w_bc`` row-parallel (their partial sums all-reduced in
+    one call, then the rank's heads of dt), ``ln_y``'s sum of squares
+    all-reduced, and ``w_out`` row-parallel: the output is the rank's
+    partial sum (``partial_mm``'s dtype)."""
     s = cfg.ssm
     d_in, H, P = mamba_dims(cfg)
     B, S, _ = x.shape
+    w_in = p["w_in"]
+    if tp is not None:
+        w_in = tp.paired_columns(w_in, d_in)
+        d_in, H = d_in // tp.n, H // tp.n
 
-    xz = x @ p["w_in"]
+    xz = x @ w_in
     xi, z = torch.chunk(xz, 2, dim=-1)
     if state is None:
         xi_conv = _causal_conv(xi, p["conv_w"], p["conv_bias"])
@@ -195,8 +210,19 @@ def mamba_block(x, p, cfg: ModelConfig, *, state: Dict = None,
         conv_tail = window[:, 1:, :]
     xi_conv = F.silu(xi_conv)
 
-    dt = F.softplus((xi_conv @ p["w_dt"]).float() + p["dt_bias"].float())
-    bc = xi_conv @ p["w_bc"]
+    if tp is None:
+        dt = (xi_conv @ p["w_dt"]).float()
+        bc = xi_conv @ p["w_bc"]
+    else:
+        # every head's dt and B_t, C_t, summed over the ranks' channels
+        n_dt = p["w_dt"].shape[-1]
+        both = comm.all_reduce_grad(torch.cat([
+            partial_mm(xi_conv, p["w_dt"]), partial_mm(xi_conv, p["w_bc"])],
+            dim=-1), tp.group)
+        # rounded to the activations' dtype where one rank's product is
+        dt = tp.columns(both[..., :n_dt], n_dt).to(x.dtype).float()
+        bc = both[..., n_dt:].to(x.dtype)
+    dt = F.softplus(dt + p["dt_bias"].float())
     B_t, C_t = torch.chunk(bc, 2, dim=-1)
     xh = xi_conv.reshape(B, S, H, P)
 
@@ -213,8 +239,12 @@ def mamba_block(x, p, cfg: ModelConfig, *, state: Dict = None,
         s_final = s_new
 
     y = y + p["d_skip"][None, None, :, None].to(y.dtype) * xh
-    y = y.reshape(B, S, d_in)
-    y = rms_norm(y * F.silu(z), p["ln_y"], cfg.norm_eps)
+    y = y.reshape(B, S, d_in) * F.silu(z)
+    if tp is not None:
+        y = split_rms_norm(y, p["ln_y"], cfg.norm_eps, tp, d_in * tp.n)
+        return partial_mm(y, p["w_out"]), {"conv": conv_tail,
+                                           "ssm": s_final}
+    y = rms_norm(y, p["ln_y"], cfg.norm_eps)
     out = y @ p["w_out"]
     return out, {"conv": conv_tail, "ssm": s_final}
 
@@ -338,13 +368,22 @@ def _token_shift(x, last):
 
 
 def rwkv_time_mix(x, p, cfg: ModelConfig, *, shift_state, wkv_state,
-                  need_state: bool = False, ctx: ShardCtx = _NULL):
+                  need_state: bool = False, ctx: ShardCtx = _NULL, tp=None):
     """RWKV6 attention replacement.  Returns (out, (shift', wkv')).
     ``need_state``: the caller keeps wkv' (prefill); a segment continuing
-    from ``wkv_state`` always needs it."""
+    from ``wkv_state`` always needs it.
+
+    Under tensor parallelism (``tp``: the heads split over the model
+    axis) ``x`` is the region's input (the whole sequence, so the token
+    shift reads the previous token), ``p`` the rank's pieces:
+    ``w_r``/``w_k``/``w_v``/``w_g`` and ``decay_lora_b`` column-parallel
+    with ``decay_base`` and ``bonus_u`` on the rank's H/n heads (the WKV
+    state too), the group norm over those heads with their columns of the
+    whole ``ln_x_scale``/``ln_x_bias``, ``w_o`` row-parallel: ``out`` is
+    the rank's partial sum (``partial_mm``'s dtype)."""
     B, S, d = x.shape
-    H = d // cfg.ssm.head_dim
     K = cfg.ssm.head_dim
+    H = p["w_r"].shape[-1] // K          # the rank's heads under tp
     prev, shift_new = _token_shift(x, shift_state)
 
     xr = _lerp(x, prev, p["mu_r"])
@@ -379,9 +418,13 @@ def rwkv_time_mix(x, p, cfg: ModelConfig, *, shift_state, wkv_state,
             wkv_new = torch.exp(torch.sum(lw, dim=1))[..., None] \
                 * wkv_state.float() + wkv_new
 
-    o = o.reshape(B, S, d).to(x.dtype)
-    o = layer_scaled_groupnorm(o, p["ln_x_scale"], p["ln_x_bias"], H,
-                               cfg.norm_eps)
+    o = o.reshape(B, S, H * K).to(x.dtype)
+    scale, bias = p["ln_x_scale"], p["ln_x_bias"]
+    if tp is not None:
+        scale, bias = tp.columns(scale, d), tp.columns(bias, d)
+    o = layer_scaled_groupnorm(o, scale, bias, H, cfg.norm_eps)
+    if tp is not None:
+        return partial_mm(o * g, p["w_o"]), (shift_new, wkv_new)
     out = (o * g) @ p["w_o"]
     return ctx.constrain(out, "batch", "seq", None), (shift_new, wkv_new)
 
@@ -398,11 +441,25 @@ def layer_scaled_groupnorm(x, scale, bias, groups: int, eps: float):
 
 
 def rwkv_channel_mix(x, p, cfg: ModelConfig, *, shift_state,
-                     ctx: ShardCtx = _NULL):
+                     ctx: ShardCtx = _NULL, tp=None):
+    """RWKV6 channel mix.  Returns (out, shift').
+
+    Under tensor parallelism (``tp``: ``d_ff`` and ``cm_r``'s columns
+    split over the model axis) ``x`` is the region's input, ``cm_k``
+    column- and ``cm_v`` row-parallel; the row-parallel partial ``h @
+    cm_v`` is reduce-scattered over d to the rank's d/n columns, where
+    ``cm_r``'s gate (column-parallel) is whole too, and the gated columns
+    are joined into the residual's layout (``TensorParallel
+    .join_columns``): ``out`` is the residual's, not a partial sum."""
     prev, shift_new = _token_shift(x, shift_state)
     xk = _lerp(x, prev, p["mu_ck"])
     xr = _lerp(x, prev, p["mu_cr"])
     h = torch.square(F.relu(xk @ p["cm_k"]))
+    if tp is not None:
+        out = comm.scatter_partials(partial_mm(h, p["cm_v"]), tp.group,
+                                    2).to(x.dtype)
+        gated = out * torch.sigmoid(xr @ p["cm_r"])
+        return tp.join_columns(gated), shift_new
     if ctx.attn_impl == "cp":
         h = ctx.constrain(h, "batch", "seq", None)
     else:

@@ -28,7 +28,9 @@ and the plain form when autograd does not record the tensor.  Under
 sequence parallelism the region's brackets are ``gather_grad`` on the way
 in and ``scatter_partials`` (a reduce-scatter whose backward all-gathers)
 on the way out; ``gather_replicated`` (an all-gather whose backward keeps
-the rank's piece) joins a sequence that every rank then uses alike.
+the rank's piece) joins a sequence that every rank then uses alike, and
+``own_piece`` (a cut whose backward all-gathers) hands the rank its piece
+of a result every rank computed alike.
 """
 from __future__ import annotations
 
@@ -223,6 +225,36 @@ def scatter_partials(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     if _size(group) == 1 or not _records(x):
         return reduce_scatter(x, group, dim)
     return _Scatter.apply(x, group, dim)
+
+
+class _OwnPiece(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, group, dim):
+        fctx.group, fctx.dim = group, dim
+        n = x.shape[dim] // _size(group)
+        return x.narrow(dim, dist.get_rank(group) * n, n)
+
+    @staticmethod
+    def backward(fctx, g):
+        return all_gather(g, fctx.group, fctx.dim), None, None
+
+
+def own_piece(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's piece (of ``n`` equal pieces along ``dim``) of ``x``,
+    which every rank of ``group`` holds alike, with no collective; its
+    backward all-gathers the pieces' gradients, so every rank goes on
+    with the whole gradient of ``x`` (the adjoint of
+    ``gather_replicated``)."""
+    n = _size(group)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} ranks")
+    if not _records(x):
+        m = x.shape[dim] // n
+        return x.narrow(dim, dist.get_rank(group) * m, m)
+    return _OwnPiece.apply(x, group, dim)
 
 
 def gather_replicated(x: torch.Tensor, group, dim: int) -> torch.Tensor:

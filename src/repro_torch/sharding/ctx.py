@@ -21,8 +21,9 @@ over the data axes (``batch_axes``), the sequence over the model axis
 under the ``cp`` preset, the decode cache's sequence under ``tp_seq`` /
 ``dp_seq``, and, under ``tensor_parallel`` (``default``, ``ep``), the
 dims the rules put on the model axis (heads, ffn, experts, vocab: each
-rank computes with its ``fsdp_spec`` piece of every weight, Megatron's
-layers, ``models.layers.TensorParallel``); every other computation is
+rank computes with its ``fsdp_spec`` piece of every weight of a part
+that splits, Megatron's layers, ``models.layers.TensorParallel``, and
+``models.lm.split_parts``); every other computation is
 replicated over the axes that do not split its data.  GSPMD's implicit
 layout changes have no counterpart: ``constrain`` and ``gather_fsdp``
 redistribute a ``DTensor`` (the weights at rest and the checkpoints'
@@ -232,11 +233,23 @@ class ShardCtx:
                   shape: Sequence[int]) -> Tuple[Axis, ...]:
         """The entries of a weight's layout at compute time: its axes with
         the FSDP axes dropped, each fitted to its dim (the divisibility
-        fallback), as the JAX ``gather_fsdp`` constrains it."""
+        fallback), as the JAX ``gather_fsdp`` constrains it, and a mesh
+        axis an earlier dim took dropped from a later one, first come,
+        first served, as ``spec`` does (the JAX ``gather_fsdp`` lacks that
+        rule and raises ``DuplicateSpecError`` where two dims fit one
+        axis, hymba's ``mamba_w_dt`` on 2 model ranks: ROADMAP.md queue
+        3)."""
         entries = []
+        used = set()
         for i, name in enumerate(logical_axes):
-            axis = self._drop_fsdp(self._resolve(name))
-            entries.append(self._fit_axis(axis, shape[i]))
+            axis = self._fit_axis(self._drop_fsdp(self._resolve(name)),
+                                  shape[i])
+            if axis is not None:
+                if any(n in used for n in _names(axis)):
+                    axis = None
+                else:
+                    used.update(_names(axis))
+            entries.append(axis)
         while entries and entries[-1] is None:
             entries.pop()
         return tuple(entries)

@@ -24,8 +24,9 @@ gradients arrive as pieces, ``accum`` sums pieces, AdamW updates each
 piece in place with moments laid out alike (``optim.init_state(...,
 param_layouts(model))``) and the global clipping norm, and no weight or
 gradient is ever whole on a rank but the layer that runs.  Under a ctx
-whose ``tensor_parallel`` holds (``default``, ``ep``) the dense, vlm and
-moe families' step at rest is Megatron's tensor-parallel step: a layer
+whose ``tensor_parallel`` holds (``default``, ``ep``) the step at rest
+is Megatron's tensor-parallel step (every family: ``lm.split_parts``
+decides which parts split): a layer
 is gathered over its FSDP axes alone, each rank of the model axis
 computes with its pieces and the same loss, and a weight every model
 rank holds whole lands the sum of their gradients where each computes a

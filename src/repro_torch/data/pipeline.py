@@ -6,7 +6,9 @@ replay of a step reproduces its batch bit for bit, and the stream equals
 the JAX package's.  ``make_global_batch`` puts the batch on a device as
 int32 tensors; with a ``sharding`` (a ``sharding.Layout`` of the [B, S]
 batch) each rank draws only its rows, and the ranks' slices joined are
-the unsharded batch.
+the unsharded batch.  Recorded (``repro_torch.tracing``), a call is a
+``data.draw`` span and a ``data.copy`` span, both the host's: the copy
+from pageable memory waits for the stream, then stages the rows.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 
@@ -57,12 +60,17 @@ def make_global_batch(data: SyntheticLMData, step: int, device="cuda",
     ``sharding`` (the ``Layout`` of a [B, S] batch) this rank's piece of
     it, drawing only its own rows."""
     dev = resolve_device(device)
-    if sharding is None:
-        batch = data.batch(step)
-    else:
-        (lo, hi), (s0, s1) = sharding.bounds((data.global_batch,
-                                              data.seq_len))
-        batch = {k: a[:, s0:s1]
-                 for k, a in data.host_batch(step, lo, hi).items()}
-    return {name: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-            for name, a in batch.items()}
+    with tracing.span("data.draw") as span:
+        if sharding is None:
+            batch = data.batch(step)
+        else:
+            (lo, hi), (s0, s1) = sharding.bounds((data.global_batch,
+                                                  data.seq_len))
+            batch = {k: a[:, s0:s1]
+                     for k, a in data.host_batch(step, lo, hi).items()}
+        span.set(rows=len(batch["tokens"]))
+    with tracing.span("data.copy") as span:
+        if tracing.on():
+            span.set(bytes=sum(a.nbytes for a in batch.values()))
+        return {name: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for name, a in batch.items()}

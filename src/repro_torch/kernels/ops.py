@@ -190,9 +190,8 @@ class Telemetry:
                 kind: str = "decode", bucket: Optional[int] = None) -> None:
         with self._lock:
             st = self._sites.setdefault(
-                site, {"calls": 0, "tokens": 0, "kinds": {}, "scales": {},
+                site, {"tokens": 0, "kinds": {}, "scales": {},
                        "buckets": {}})
-            st["calls"] += 1
             st["tokens"] += tokens
             st["kinds"][kind] = st["kinds"].get(kind, 0) + tokens
             st["scales"][int(scale)] = (st["scales"].get(int(scale), 0)
@@ -246,16 +245,6 @@ class Telemetry:
                     sorted(self._sites.items(),
                            key=lambda kv: -kv[1]["tokens"])
                     if st["tokens"] >= min_tokens]
-
-    def snapshot(self) -> Dict[str, Dict[str, Any]]:
-        with self._lock:
-            return {site: {"calls": st["calls"], "tokens": st["tokens"],
-                           "kinds": dict(st["kinds"]),
-                           "scales": dict(st["scales"]),
-                           "buckets": {b: {"tokens": bk["tokens"],
-                                           "scales": dict(bk["scales"])}
-                                       for b, bk in st["buckets"].items()}}
-                    for site, st in self._sites.items()}
 
     def reset(self) -> None:
         with self._lock:

@@ -42,6 +42,15 @@ KV-cache *slots* and streams greedy decode continuously:
   consults the registry on every call.
 * **Per-bucket telemetry** — every prefill/decode event is observed at the
   ``attention`` site and tagged with the request's bucket.
+* **Spans** (``repro_torch.tracing``, recorded only while a profiler or
+  ``tracing.recording()`` is on) — ``serve.step`` over each bucket's
+  ``serve.prefill`` and the decode's ``serve.inputs``, ``serve.replay``,
+  ``serve.readback`` and ``serve.commit`` (``serve.splice`` under a
+  prefill), a request's ``serve.queue`` from ``submit`` to its prefill,
+  ``serve.capture`` a graph, and the counters ``serve.prefill_tokens`` and
+  ``serve.prefill_positions`` (bucket × padded rows).  The replay, splice
+  and readback have device intervals; ``serve.inputs``, the uploads from
+  host arrays (which wait for the stream), is the host's.
 
 Every decoder-only family (dense, vlm, moe, hybrid, ssm), with the int8
 KV cache too (``LM(kv_quant=True)``); the cache's scales and
@@ -61,6 +70,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import DEVICE_LOCK, resolve_device
 from repro_torch.kernels import ops
 
@@ -147,6 +157,11 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
 
 
+def _graph_name(key: Tuple) -> str:
+    """A graph's name in spans: ``decode`` or ``prefill/<bucket>/<rows>``."""
+    return "/".join(map(str, key))
+
+
 class _SlotServer:
     """What both servers share: the request queue, the slot pool and its
     cache, swap-epoch counting and the drain loop.  A server defines
@@ -172,6 +187,7 @@ class _SlotServer:
         self.cache = model.init_cache(slots, max_len)
         self.swap_epochs = 0                      # registry changes seen
         self._rid = itertools.count()
+        self._queued: Dict[int, int] = {}         # rid -> its serve.queue span
         self._epoch = ops.registry_epoch()
 
     def bucket_of(self, prompt_len: int) -> int:
@@ -181,8 +197,18 @@ class _SlotServer:
     def submit(self, prompt: np.ndarray, max_new: int = 16) -> Request:
         req = Request(rid=next(self._rid), prompt=prompt, max_new=max_new,
                       bucket=self.bucket_of(len(prompt)))
+        sid = tracing.begin("serve.queue", rid=req.rid,
+                            prompt_len=len(prompt))
+        if sid is not None:
+            self._queued[req.rid] = sid
         self.queue.append(req)
         return req
+
+    def _dequeued(self, reqs) -> None:
+        """Ends the ``serve.queue`` spans of requests whose prefill
+        starts."""
+        for req in reqs:
+            tracing.end(self._queued.pop(req.rid, None))
 
     def _finish(self, req: Request, slot: Optional[int]) -> None:
         req.done = True
@@ -259,7 +285,7 @@ class BatchedServer(_SlotServer):
             pos = torch.zeros((self.slots,), dtype=torch.long, device=dev)
             scratch = {n: torch.zeros_like(c) for n, c in self.cache.items()}
             self._graphs[("decode",)] = self._capture(
-                "decode", self._decode_body, (scratch, toks, pos),
+                ("decode",), self._decode_body, (scratch, toks, pos),
                 (self.cache, toks, pos), (toks, pos))
             del scratch
             if self.padded_packing:
@@ -270,32 +296,34 @@ class BatchedServer(_SlotServer):
                                             device=dev),
                                 torch.ones((n,), dtype=torch.long,
                                            device=dev))
-                        self._graphs[("prefill", bucket, n)] = self._capture(
-                            f"prefill bucket {bucket} rows {n}",
-                            self._prefill_body, args, args, args)
+                        key = ("prefill", bucket, n)
+                        self._graphs[key] = self._capture(
+                            key, self._prefill_body, args, args, args)
                     n *= 2
             torch.cuda.synchronize(dev)
             self.capture_s += time.perf_counter() - t0
 
-    def _capture(self, what: str, body: Callable, warm_args, args, static):
+    def _capture(self, key: Tuple, body: Callable, warm_args, args, static):
         """One eager warm-up run of ``body(*warm_args)`` on the capture
         stream (first-call costs stay out of the graph), then ``body(*args)``
         captured into a graph of this server's pool.  Returns (graph,
         outputs, ``static``: the inputs a replay refills); raises if the
         capture fails."""
+        what = _graph_name(key)
         current = torch.cuda.current_stream(self.model.device)
-        self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
-            body(*warm_args)
-        current.wait_stream(self._stream)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  stream=self._stream):
-                out = body(*args)
-        except Exception as e:
-            raise RuntimeError(f"CUDA graph capture of the {what} step "
-                               f"failed: {type(e).__name__}: {e}") from e
+        with tracing.span("serve.capture", graph=what):
+            self._stream.wait_stream(current)
+            with torch.cuda.stream(self._stream):
+                body(*warm_args)
+            current.wait_stream(self._stream)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph, pool=self._pool,
+                                      stream=self._stream):
+                    out = body(*args)
+            except Exception as e:
+                raise RuntimeError(f"CUDA graph capture of the {what} step "
+                                   f"failed: {type(e).__name__}: {e}") from e
         self.aot_compiles += 1
         return graph, out, static
 
@@ -313,9 +341,12 @@ class BatchedServer(_SlotServer):
         """Copy ``inputs`` (host arrays) into the graph's static inputs,
         replay it, and return its static outputs."""
         graph, out, static = self._graphs[key]
-        for buf, x in zip(static, inputs):
-            buf.copy_(torch.from_numpy(x))
-        graph.replay()
+        name = _graph_name(key) if tracing.on() else None
+        with tracing.span("serve.inputs", graph=name):
+            for buf, x in zip(static, inputs):
+                buf.copy_(torch.from_numpy(x))
+        with tracing.span("serve.replay", self.model.device, graph=name):
+            graph.replay()
         return out
 
     def _on_swap(self) -> None:
@@ -344,32 +375,41 @@ class BatchedServer(_SlotServer):
         """Packed prefill + greedy pick + slot splice: row r lands in cache
         slot si[r]; pad rows carry si == slots and are dropped."""
         dev = self.model.device
+        key = ("prefill", toks.shape[1], toks.shape[0])
+        graph = _graph_name(key) if tracing.on() else None
         if self.aot and self.padded_packing:  # a missing graph raises
-            first, cache1 = self._replay(
-                ("prefill", toks.shape[1], toks.shape[0]), toks, lens)
+            first, cache1 = self._replay(key, toks, lens)
         else:
-            first, cache1 = self._prefill_body(
-                torch.as_tensor(toks, dtype=torch.long, device=dev),
-                torch.as_tensor(lens, dtype=torch.long, device=dev))
+            with tracing.span("serve.inputs", graph=graph):
+                toks = torch.as_tensor(toks, dtype=torch.long, device=dev)
+                lens = torch.as_tensor(lens, dtype=torch.long, device=dev)
+            with tracing.span("serve.replay", dev, graph=graph):
+                first, cache1 = self._prefill_body(toks, lens)
         keep = np.flatnonzero(si < self.slots)
-        rows = torch.as_tensor(keep, device=dev)
-        dst = torch.as_tensor(si[keep], device=dev)
-        for name, big in self.cache.items():
-            big[:, dst] = cache1[name][:, rows]
-        return first.cpu().numpy()
+        with tracing.span("serve.inputs", graph=graph):
+            rows = torch.as_tensor(keep, device=dev)
+            dst = torch.as_tensor(si[keep], device=dev)
+        with tracing.span("serve.splice", dev, rows=len(keep)):
+            for name, big in self.cache.items():
+                big[:, dst] = cache1[name][:, rows]
+        with tracing.span("serve.readback", dev, graph=graph):
+            return first.cpu().numpy()
 
     def _decode(self, toks: np.ndarray) -> np.ndarray:
         """One ragged decode over every slot at the per-slot positions:
         the next token of each slot.  Dead slots decode a dummy token at
         pos 0 (their row is fully overwritten at the next admission)."""
+        dev = self.model.device
         if self.aot:
             nxt = self._replay(("decode",), toks, self.pos)
         else:
-            dev = self.model.device
-            nxt = self._decode_body(self.cache,
-                                    torch.as_tensor(toks, device=dev),
-                                    torch.as_tensor(self.pos, device=dev))
-        return nxt.cpu().numpy()
+            with tracing.span("serve.inputs", graph="decode"):
+                toks = torch.as_tensor(toks, device=dev)
+                pos = torch.as_tensor(self.pos, device=dev)
+            with tracing.span("serve.replay", dev, graph="decode"):
+                nxt = self._decode_body(self.cache, toks, pos)
+        with tracing.span("serve.readback", dev, graph="decode"):
+            return nxt.cpu().numpy()
 
     def _admit(self) -> int:
         """Drain the queue into free slots, one packed prefill call per
@@ -389,20 +429,30 @@ class BatchedServer(_SlotServer):
             finished_at_prefill = False
             for bucket, reqs in groups.items():
                 n_pad = _next_pow2(len(reqs))  # bounded set of shapes
-                toks = np.zeros((n_pad, bucket), np.int64)
-                lens = np.ones((n_pad,), np.int64)
-                # tentative slot per row; pad rows point past the pool and
-                # are dropped by the splice.  A row whose request finishes
-                # at its prefill token leaves garbage in a slot that stays
-                # free — dead slots are masked at decode and overwritten on
-                # re-admission.
-                si = np.full((n_pad,), self.slots, np.int64)
-                for r, req in enumerate(reqs):
-                    toks[r, :len(req.prompt)] = req.prompt
-                    lens[r] = len(req.prompt)
-                    si[r] = free[fi]
-                    fi += 1
-                first = self._prefill(toks, lens, si)
+                with tracing.span("serve.prefill", bucket=bucket,
+                                  rows=len(reqs), padded_rows=n_pad) as sp:
+                    if self._queued:
+                        self._dequeued(reqs)
+                    if tracing.on():
+                        sp.set(rids=[req.rid for req in reqs])
+                        tracing.count("serve.prefill_tokens",
+                                      sum(len(req.prompt) for req in reqs))
+                        tracing.count("serve.prefill_positions",
+                                      bucket * n_pad)
+                    toks = np.zeros((n_pad, bucket), np.int64)
+                    lens = np.ones((n_pad,), np.int64)
+                    # tentative slot per row; pad rows point past the pool
+                    # and are dropped by the splice.  A row whose request
+                    # finishes at its prefill token leaves garbage in a slot
+                    # that stays free — dead slots are masked at decode and
+                    # overwritten on re-admission.
+                    si = np.full((n_pad,), self.slots, np.int64)
+                    for r, req in enumerate(reqs):
+                        toks[r, :len(req.prompt)] = req.prompt
+                        lens[r] = len(req.prompt)
+                        si[r] = free[fi]
+                        fi += 1
+                    first = self._prefill(toks, lens, si)
                 for r, req in enumerate(reqs):
                     tok = int(first[r])
                     req.tokens.append(tok)
@@ -430,29 +480,34 @@ class BatchedServer(_SlotServer):
         ragged decode over every occupied slot.  Returns the amount of
         work done — requests admitted plus tokens decoded — so ``0``
         means the server is idle (queue empty, no live slots)."""
-        self._refresh_impls()
-        worked = self._admit()
-        live = [s for s in range(self.slots) if self.active[s] is not None]
-        if not live:
-            return worked
-        toks = np.zeros((self.slots, 1), np.int64)
-        for s in live:
-            toks[s, 0] = self.active[s].tokens[-1]
-        nxt = self._decode(toks)
-        for s in live:
-            req = self.active[s]
-            tok = int(nxt[s])
-            req.tokens.append(tok)
-            self.pos[s] += 1
-            # context length this token was decoded at (traffic weighting)
-            self.telemetry.observe(TELEMETRY_SITE, scale=int(self.pos[s]),
-                                   tokens=1, kind="decode",
-                                   bucket=req.bucket)
-            if ((self.eos_id is not None and tok == self.eos_id)
-                    or len(req.tokens) >= req.max_new
-                    or int(self.pos[s]) >= self.max_len):
-                self._finish(req, s)          # EOS / budget / cache full
-        return worked + len(live)
+        with tracing.span("serve.step") as span:
+            self._refresh_impls()
+            worked = self._admit()
+            live = [s for s in range(self.slots)
+                    if self.active[s] is not None]
+            span.set(live=len(live), admitted=worked)
+            if not live:
+                return worked
+            toks = np.zeros((self.slots, 1), np.int64)
+            for s in live:
+                toks[s, 0] = self.active[s].tokens[-1]
+            nxt = self._decode(toks)
+            with tracing.span("serve.commit", rows=len(live)):
+                for s in live:
+                    req = self.active[s]
+                    tok = int(nxt[s])
+                    req.tokens.append(tok)
+                    self.pos[s] += 1
+                    # context length this token was decoded at (traffic
+                    # weighting)
+                    self.telemetry.observe(
+                        TELEMETRY_SITE, scale=int(self.pos[s]), tokens=1,
+                        kind="decode", bucket=req.bucket)
+                    if ((self.eos_id is not None and tok == self.eos_id)
+                            or len(req.tokens) >= req.max_new
+                            or int(self.pos[s]) >= self.max_len):
+                        self._finish(req, s)  # EOS / budget / cache full
+            return worked + len(live)
 
 
 class FixedBatchServer(_SlotServer):
@@ -474,6 +529,8 @@ class FixedBatchServer(_SlotServer):
         for s in range(self.slots):
             if self.active[s] is None and self.queue:
                 req = self.queue.pop(0)       # FIFO drain order
+                if self._queued:
+                    self._dequeued([req])
                 logits, cache1 = self.model.prefill(
                     torch.as_tensor(req.prompt[None, :], dtype=torch.long,
                                     device=self.model.device),

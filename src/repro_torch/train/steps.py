@@ -12,7 +12,9 @@ and serve steps read the model's parameters and take none.
 
 A step runs the plain path at every kernel site, as the reference's does:
 no kernel has a backward, and K2, K6 and K7 refuse to run under grad
-(``kernels.no_backward``).
+(``kernels.no_backward``).  Recorded (``repro_torch.tracing``), a step is
+a ``train.step`` span over a ``train.forward`` and a ``train.backward`` a
+microbatch and one ``train.update``, each with its interval on the device.
 
 Sharded (the model's ``ctx`` on a mesh of ranks), each rank computes the
 gradients of its share of the loss (``LM.loss``) on its tokens.  A model
@@ -47,6 +49,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.models.convert import axes_by_name
 from repro_torch.sharding import comm
 from repro_torch.sharding.ctx import _is_dtensor
@@ -142,21 +145,35 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, accum: int = 1,
     def piece(t):
         return t.to_local() if rest else t
 
-    def grads_of(batch):
-        loss, metrics = loss_fn(batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+    dev = piece(leaves[0]).device
+
+    def grads_of(batch, micro, into):
+        """The microbatch's loss and its gradients as f32 pieces, summed
+        into ``into`` where given."""
+        with tracing.span("train.forward", dev, micro=micro):
+            loss, _ = loss_fn(batch)
+        with tracing.span("train.backward", dev, micro=micro):
+            g = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
-        return loss.detach(), metrics, grads
+            if into is None:
+                return loss.detach(), {n: piece(t).float()
+                                       for n, t in zip(names, g)}
+            for n, t in zip(names, g):
+                into[n].add_(piece(t))
+        return loss.detach(), into
 
     def train_step(params, opt_state, batch):
+        with tracing.span("train.step", dev, accum=accum):
+            return step(params, opt_state, batch)
+
+    def step(params, opt_state, batch):
         if list(params) != names or any(params[n] is not own[n]
                                         for n in names):
             raise ValueError("train_step updates the model's own parameters:"
                              " pass train.steps.model_params(model)")
         with _trainable(leaves):
             if accum == 1:
-                loss, _, g = grads_of(batch)
-                grads = {n: piece(t).float() for n, t in zip(names, g)}
+                loss, grads = grads_of(batch, 0, None)
             else:
                 rows = next(iter(batch.values())).shape[0]
                 if rows % accum:
@@ -166,17 +183,18 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, accum: int = 1,
                 grads = {n: torch.zeros(piece(p).shape, dtype=torch.float32,
                                         device=piece(p).device)
                          for n, p in own.items()}
-                loss = torch.zeros((), dtype=torch.float32,
-                                   device=piece(leaves[0]).device)
+                loss = torch.zeros((), dtype=torch.float32, device=dev)
                 for i in range(accum):
                     mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
-                    l, _, g = grads_of(mb)
-                    for n, t in zip(names, g):
-                        grads[n].add_(piece(t))
+                    l, grads = grads_of(mb, i, grads)
                     loss = loss + l
-                    del g
-                grads = {n: t.div_(accum) for n, t in grads.items()}
-                loss = loss / accum
+        with tracing.span("train.update", dev):
+            return update(params, opt_state, grads, loss)
+
+    def update(params, opt_state, grads, loss):
+        if accum > 1:
+            grads = {n: t.div_(accum) for n, t in grads.items()}
+            loss = loss / accum
         loss = comm.all_reduce(loss, group) if ctx.enabled else loss
         gnorm, pieces = None, {n: piece(p) for n, p in params.items()}
         if ctx.enabled and layouts is None:

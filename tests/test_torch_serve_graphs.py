@@ -11,7 +11,9 @@ with the hand-written kernels at their sites (K2 at ``attention``, K6 at
 * a re-capture mid-traffic leaves the live slots' cache bytes untouched;
 * an install from the autotuner's thread while the main thread steps
   keeps every request's tokens equal to the control's;
-* a failed capture raises (no eager fallback).
+* a failed capture raises (no eager fallback);
+* recorded (``repro_torch.tracing``), a replay of the decode graph has a
+  device interval inside its host spans, and each capture is a span.
 
 Imports no JAX, so it runs on the GPU machine:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_serve_graphs.py``.
@@ -24,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs import get_config
 from repro_torch.core import H100ModelPlatform, MEPConstraints, OptConfig
 from repro_torch.kernels import ops
@@ -205,3 +208,35 @@ def test_a_failed_capture_raises(cuda):
     with pytest.raises(RuntimeError, match="CUDA graph capture"):
         BatchedServer(model, slots=2, max_len=MAX_LEN)
     torch.cuda.synchronize()
+
+
+def test_a_recorded_decode_replay_has_its_device_interval(cuda):
+    """Under ``tracing.recording()``, every replay of the decode graph has a
+    device interval (CUDA events on the stream, on the host's clock) that
+    starts after its host span opens and ends before the step's readback
+    closes; each graph captured inside the session is a ``serve.capture``
+    span, and each upload of the inputs a ``serve.inputs`` span, with no
+    device interval."""
+    model = model_of("glm4-9b")
+    install_kernels("glm4-9b")
+    with tracing.recording():
+        srv = BatchedServer(model, slots=4, max_len=MAX_LEN)
+        tokens = serve(srv, prompts(model))
+    sess = tracing.session()
+    captures = tracing.named(sess, "serve.capture")
+    assert len(captures) == srv.aot_compiles
+    assert all(c["device"] is None for c in captures)
+    decodes = [s for s in tracing.named(sess, "serve.replay")
+               if s["attrs"]["graph"] == "decode"]
+    assert decodes and all(s["device"] for s in decodes)
+    inputs = tracing.named(sess, "serve.inputs")
+    assert inputs and all(s["device"] is None for s in inputs)
+    steps = {s["id"]: s for s in tracing.named(sess, "serve.step")}
+    for r in decodes:
+        (back,) = [s for s in sess["spans"] if s["name"] == "serve.readback"
+                   and s["parent"] == r["parent"]
+                   and s["attrs"]["graph"] == "decode"]
+        assert r["parent"] in steps
+        assert r["t0"] <= r["device"][0] < r["device"][1] <= back["t1"]
+    assert tokens == serve(BatchedServer(model, slots=4, max_len=MAX_LEN,
+                                         aot=False), prompts(model))
